@@ -1,0 +1,344 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and hold its kernel
+to its plain version.
+
+    python3 chip_smoke.py          # from the root of a checkout, one CUDA card
+
+The main path is ``provision(ProvisionSpec(...))`` of ``repro_torch`` at the
+size of the largest fleet of ``benchmarks/provision_bench.py``: N = 4096
+levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
+``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
+paper's costs (Δ = 6): G = 48 (window, trace) cells per online policy.
+Demand and random draws are made from ``SEED``.
+
+Phases, one line or more each:
+
+1. device — the card's name and power limit (``nvidia-smi``); no CUDA, no run;
+2. build — kernel K1 from ``src/repro_torch/kernels/csrc`` (timed);
+3. kernel — K1 against its plain PyTorch version on the card, on the inputs
+   the main path gives it (A1, A2, A3, delayedoff, A2 with decision
+   counters, and a typed two-group fleet with fractional Δ_l): the
+   on-matrices and counters must be equal bit for bit (the same input
+   tensors, so no tolerance); K1's device time (the profiler's CUPTI
+   records, mean of 20 launches), the wrapper call's time and the plain
+   version's (CUDA events, medians of 20 and 3 calls);
+4. provision — A1, A2 and offline end to end through K1, with the launch
+   count of that run; ``x`` and ``level_cost`` must equal the plain route's
+   on the card, offline must cost no more than any online policy on every
+   trace and window, and the mean competitive ratio must meet the paper's
+   bound (plus the eval harness's 0.05 tolerance); median wall time per
+   call;
+5. breakdown — one A1 and one A2 call under ``torch.profiler``: device
+   busy time, K1's share, and the kernels that take the most.
+
+The line before the last is a JSON object with K1's numbers; the last is
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+N_LEVELS, N_SLOTS, N_TRACES = 4096, 1008, 8
+WINDOWS = list(range(6))
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
+OPS_PER_UPDATE = 8               # compares and selects of one (cell, slot, level) update
+KERNEL_REPS, PLAIN_REPS, PROVISION_REPS = 20, 3, 3
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_ms(fn, reps):
+    """Median milliseconds of one ``fn()`` call over ``reps`` runs, each
+    between its own pair of CUDA events, after a warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps, name="grid_scan_kernel"):
+    """Mean device milliseconds of the kernel ``name`` over ``reps`` calls of
+    ``fn()``, from the profiler's CUPTI records: the kernel's own time on
+    the card, without the wrapper's host work around it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and name in e.key]
+    launched = sum(e.count for e in events)
+    check(launched == reps, f"profiler saw {launched} launches of {name}, expected {reps}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def bound_ms(inputs, record):
+    """Least time for K1's work on these inputs: the bytes it must move over
+    the memory rate, or its operations over the float32 rate, whichever is
+    larger.  Each input row the cells use is counted once; of a time-varying
+    wait table only the entries this run's demand consumes (one per lane
+    turning idle).  Also returns the byte bound with the whole wait table
+    counted, for comparison."""
+    import torch
+
+    a, thr, cells = inputs["traces"], inputs["thresholds"], inputs["cell_trace"]
+    G, T, N = cells.shape[0], a.shape[1], thr.shape[-1]
+
+    def rows(c):
+        return torch.unique(c).numel()
+
+    base = G * T * N + (G * 4 * N * 4 if record else 0)         # outputs
+    base += rows(cells) * T * 4 + 4 * G * 4 + N * 4              # demand, cell maps, routes
+    base += rows(inputs["cell_hor"]) * N * 4
+    if inputs["horizon"]:
+        base += rows(inputs["cell_pred"]) * T * 4
+    if thr.shape[1] == 1:
+        needed = full = rows(inputs["cell_thr"]) * N * 4
+    else:   # a lane consumes an entry when it turns idle: busy at t-1, not at t
+        level = torch.clamp(a[cells.long()], max=N)
+        needed = int(torch.clamp(level[:, :-1] - level[:, 1:], min=0).sum()) * 4
+        full = rows(inputs["cell_thr"]) * T * N * 4
+    by_bytes = (base + needed) / HBM_BYTES_PER_S * 1e3
+    by_ops = G * T * N * OPS_PER_UPDATE / FP32_OPS_PER_S * 1e3
+    kind = "bytes" if by_bytes >= by_ops else "operations"
+    return max(by_bytes, by_ops), kind, (base + full) / HBM_BYTES_PER_S * 1e3
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from repro_torch import (
+        PAPER_COSTS,
+        CostModel,
+        PolicySpec,
+        ProvisionSpec,
+        ServerGroup,
+        Workload,
+        msr_like_trace,
+        provision,
+    )
+    from repro_torch.core import torch_provision as engine
+    from repro_torch.kernels import provision_scan as k1
+    from repro_torch.kernels._build import load_provision_scan
+
+    provision_module = importlib.import_module("repro_torch.core.provision")
+    dev = torch.device("cuda")
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    load_provision_scan()
+    print(f"build: K1 built from source in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    demand = np.stack([
+        msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
+                       mean_jobs=N_LEVELS / 4.0)
+        for b in range(N_TRACES)
+    ])
+    ab = torch.as_tensor(demand, device=dev).to(torch.int32)
+    predb = ab[None]
+
+    def grid_inputs(policy, costs=PAPER_COSTS):
+        delta = torch.as_tensor(costs.delta, dtype=torch.float32,
+                                device=dev).broadcast_to((N_LEVELS,))
+        uniforms = None
+        if policy in engine.KEYED:
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            uniforms = engine._uniforms(gen, N_TRACES, N_SLOTS, N_LEVELS, dev)
+        inputs, _ = engine._grid_inputs(
+            ab, predb, WINDOWS, delta, uniforms, n_levels=N_LEVELS,
+            max_h=costs.delta_slots(), policy=policy,
+        )
+        return inputs
+
+    # 3. kernel against plain version
+    typed = CostModel.from_groups(
+        ServerGroup("efficient", N_LEVELS // 2, P=1.0, beta_on=1.25, beta_off=1.25),
+        ServerGroup("legacy", N_LEVELS // 2, P=2.0, beta_on=3.0, beta_off=3.0),
+    )
+    cases = [
+        ("A1", "A1", PAPER_COSTS, False),
+        ("A2", "A2", PAPER_COSTS, False),
+        ("A3", "A3", PAPER_COSTS, False),
+        ("delayedoff", "delayedoff", PAPER_COSTS, False),
+        ("A2+record", "A2", PAPER_COSTS, True),
+        ("typed A1, Δ 2.5/3.0", "A1", typed, False),
+    ]
+    measured = {}
+    max_err = 0
+    for name, policy, costs, record in cases:
+        inputs = grid_inputs(policy, costs)
+        launched_before = k1.launches
+        got = k1.provision_scan_grid(**inputs, record=record)
+        want = k1.provision_scan_grid_ref(**inputs, record=record)
+        torch.cuda.synchronize()
+        got, want = (got, want) if record else ((got,), (want,))
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, f"K1 {name}: shape/dtype differ")
+            max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
+            check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
+        check(got[0].any() and not got[0].all(), f"K1 {name}: degenerate on-matrix")
+        ms = kernel_ms(lambda: k1.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
+        call = cuda_ms(lambda: k1.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
+        plain = cuda_ms(lambda: k1.provision_scan_grid_ref(**inputs, record=record),
+                        PLAIN_REPS)
+        bound, bound_by, bound_full = bound_ms(inputs, record)
+        measured[name] = (ms, plain, bound, bound_by)
+        G, T, N = got[0].shape
+        print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
+              f"equal=True kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.2f} "
+              f"bound_ms={bound:.4f} "
+              f"({bound_by}; {bound_full:.4f} counting the whole wait table) "
+              f"launches={k1.launches - launched_before} (check and timing) [{smi}]",
+              flush=True)
+
+    # 4. provision() end to end: the main path, counted
+    def spec(policy):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ProvisionSpec(
+            costs=PAPER_COSTS, workload=Workload(demand=ab),
+            policy=PolicySpec(policy, windows=WINDOWS, generator=gen),
+            n_levels=N_LEVELS, device=dev,
+        )
+
+    policies = ("A1", "A2", "offline")
+    torch.cuda.synchronize()
+    k1.launches = 0
+    results = {p: provision(spec(p)) for p in policies}
+    torch.cuda.synchronize()
+    main_launches = k1.launches
+    check(main_launches == 2, f"provision(): K1 launched {main_launches} times, expected 2")
+    print(f"provision: main path ran A1, A2, offline with K1 launches={main_launches}",
+          flush=True)
+
+    W, B = len(WINDOWS), N_TRACES
+    for p in policies:
+        res = results[p]
+        plain = provision_module._provision(spec(p), record_decisions=False, kernel=False)
+        check(tuple(res.x.shape) == (W, B, N_SLOTS) and res.x.dtype == torch.int32,
+              f"provision {p}: x shape {tuple(res.x.shape)}")
+        check(bool(torch.isfinite(res.cost).all()), f"provision {p}: cost not finite")
+        check(torch.equal(res.x, plain.x), f"provision {p}: x differs from plain route")
+        check(torch.equal(res.level_cost, plain.level_cost),
+              f"provision {p}: level_cost differs from plain route")
+    off = results["offline"].cost
+    for p in ("A1", "A2"):
+        check(bool((off <= results[p].cost).all()),
+              f"provision: offline costs more than {p} somewhere")
+
+    for p in policies:
+        def run(p=p):
+            provision(spec(p)).x.sum().item()
+        run()
+        walls = []
+        for _ in range(PROVISION_REPS):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"provision: {p} median wall_ms={statistics.median(walls):.2f} "
+              f"per call (G={W * B} cells) [{smi}]", flush=True)
+
+    # 5. where the time goes in one provision() call (torch.profiler)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in ("A1", "A2"):
+        provision(spec(p)).x.sum().item()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            provision(spec(p)).x.sum().item()
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      key=lambda e: -e.self_device_time_total)
+        if not rows:
+            print(f"breakdown: {p} device time not measured (the profiler saw no "
+                  "device events)", flush=True)
+            continue
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        k1_ms = sum(e.self_device_time_total for e in rows if "grid_scan" in e.key) / 1e3
+        print(f"breakdown: {p} device busy {busy:.3f} ms in {len(rows)} kernels, "
+              f"K1 {k1_ms:.3f} ms [{smi}]", flush=True)
+        for e in rows[:6]:
+            print(f"breakdown: {p}   {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<4d} {e.key[:90]}", flush=True)
+
+    delta = float(PAPER_COSTS.delta)
+    for p, bound_of in (("A1", lambda a: 2.0 - a), ("A2", lambda a: (math.e - a) / (math.e - 1))):
+        cr = (results[p].cost / off).cpu().numpy()                   # (W, B)
+        for i, w in enumerate(WINDOWS):
+            alpha = min(1.0, (w + 1) / delta)
+            bound = bound_of(alpha)
+            mean = float(cr[i].mean())
+            print(f"provision: {p} window={w} mean_cr={mean:.4f} max_cr={cr[i].max():.4f} "
+                  f"bound={bound:.4f}", flush=True)
+            check(mean <= bound + 0.05, f"provision {p} window {w}: mean CR above bound")
+            if p == "A1":     # deterministic: the bound holds trace by trace
+                check(bool((cr[i] <= bound + 1e-6).all()), f"A1 window {w}: CR above bound")
+
+    ms, plain, bound, bound_by = measured["A2"]
+    print(f"device: {smi}")
+    print(json.dumps({"kernels": [{
+        "name": "provision_scan_grid",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/provision_scan.cu",
+        "replaces": "src/repro/kernels/provision_scan.py:184",
+        "launches": main_launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

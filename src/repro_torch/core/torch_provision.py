@@ -1,0 +1,363 @@
+"""The paper's provisioning algorithms as a batched PyTorch engine.
+
+The PyTorch port of the single-device half of ``repro.core.jax_provision``.
+The fluid-model level decomposition makes every algorithm an independent
+per-level computation, so the whole fleet is one scan over slots with a
+``(cells, levels)`` state.  A *cell* is one (noise-std, window, trace)
+combination of a :class:`~repro_torch.core.provision.ProvisionSpec`'s
+sweep; the engine lays the whole ``(S, W, B)`` grid out as cells, the way
+the reference's sharded grid does, and runs it in one scan:
+
+  * on a CUDA device through kernel K1
+    (:func:`repro_torch.kernels.provision_scan.provision_scan_grid`), one
+    thread per (cell, level) looping over the slots on the card;
+  * on the CPU through :func:`_on_matrix_scan`, a Python loop over slots of
+    plain tensor ops — the CPU route and K1's oracle.
+
+Policies: ``A1`` (deterministic, ratio ``2 - α``), ``A2`` (randomized,
+``(e-α)/(e-1)``), ``A3`` (randomized, ``e/(e-1+α)``), ``offline``
+(hindsight optimum, closed form), ``delayedoff``, and the typed-fleet pair
+``AQ-det`` / ``AQ-rand`` (Albers–Quedenfeld, arXiv 2107.14672).
+
+Randomness contract: the keyed policies consume two ``(B, T, N)`` uniform
+tables (:func:`_uniforms`); the draw at ``[b, t, l]`` is consumed iff level
+``l`` of trace ``b`` becomes newly idle in slot ``t``.  The same tables
+serve every window and every noise level (common random numbers).  The
+tables can be injected, which is how the tests hold the port to the
+reference's draws bit for bit.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..obs import provenance as _prov
+
+E = math.e
+
+POLICIES = ("A1", "A2", "A3", "offline", "delayedoff", "AQ-det", "AQ-rand")
+RANDOMIZED = ("A2", "A3")
+#: policies that consume random wait tables (RANDOMIZED plus the typed AQ-rand)
+KEYED = RANDOMIZED + ("AQ-rand",)
+#: policies with no prediction peek (ski-rental timers only)
+NO_PEEK = ("delayedoff", "AQ-det", "AQ-rand")
+#: policies whose schedule ignores the window sweep entirely
+WINDOW_FREE = ("offline",) + NO_PEEK
+
+
+def _check_policy(policy: str) -> None:
+    if policy not in POLICIES:
+        raise ValueError(
+            f"unknown policy {policy!r}: valid policies are {POLICIES}"
+        )
+
+
+def _require_randomness(policy: str, generator, uniforms) -> None:
+    if generator is None and uniforms is None:
+        raise ValueError(
+            f"policy {policy!r} is randomized: pass an explicit generator "
+            "(or injected uniforms=)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Randomized-wait sampling (ski-rental thresholds)
+# ---------------------------------------------------------------------------
+
+def _uniforms(generator: torch.Generator, B: int, T: int, n_levels: int,
+              device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two (B, T, n_levels) U(0,1) tables: atom draw (A3) and value draw.
+
+    Drawn on the generator's own device and moved to ``device``, so a CPU
+    generator serves a CUDA run (and gives the same numbers on both).
+    """
+    shape = (B, T, n_levels)
+    u0 = torch.rand(shape, generator=generator, device=generator.device)
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return u0.to(device), u.to(device)
+
+
+def _waits_from_uniforms(policy, u0, u, window, delta):
+    """Transform uniform tables into wait thresholds for a given window.
+
+    A2: Z ~ e^{z/((1-α)Δ)} / ((e-1)(1-α)Δ) on [0, (1-α)Δ]  (inverse CDF).
+    A3: atom at 0 w.p. α/(e-1+α), else A2's density.  AQ-rand: the no-peek
+    α = 0 case.  ``delta`` is a float32 ``(N,)`` tensor.  The op order is
+    the reference's, so the same uniforms give the same waits up to the
+    device's ``log1p``.
+    """
+    b = delta
+    alpha = torch.clamp((torch.tensor(float(window), dtype=torch.float32,
+                                      device=b.device) + 1.0) / b, 0.0, 1.0)
+    if policy == "AQ-rand":             # no peek: the window never enters
+        alpha = torch.zeros_like(alpha)
+    span = (1.0 - alpha) * b
+    waits = span * torch.log1p(u * (E - 1.0))
+    if policy == "A3":
+        p0 = alpha / (E - 1.0 + alpha)
+        waits = torch.where(u0 < p0, 0.0, waits)
+    return waits
+
+
+# ---------------------------------------------------------------------------
+# The per-level slot scan (all online policies): K1's plain version
+# ---------------------------------------------------------------------------
+
+def _slot_update(r, on, wait, busy, seen, wait_draw):
+    """One slot of the per-level ski-rental engine, in the reference's op
+    order.
+
+    ``r``/``on``/``wait``: idle run length (f32), on bit, wait threshold
+    (f32); ``busy``: dispatcher compare for this slot; ``seen``: peek
+    verdict; ``wait_draw``: this slot's sampled thresholds (None for the
+    deterministic policies, whose ``wait`` is the constant row).  Returns the
+    updated state plus the ``expired``/``off_now`` decision bits.
+    """
+    on = on | busy                                 # dispatcher turn-on
+    r = torch.where(busy, 0.0, r)
+    idle = on & ~busy
+    if wait_draw is not None:
+        wait = torch.where(idle & (r == 0.0), wait_draw, wait)
+    r = torch.where(idle, r + 1.0, r)
+    expired = idle & (r - 1.0 >= wait)
+    off_now = expired & ~seen
+    on = on & ~off_now
+    r = torch.where(off_now, 0.0, r)
+    return (r, on, wait), expired, off_now
+
+
+def _on_matrix_scan(traces, predicted, thresholds, cell_trace, cell_pred,
+                    cell_thr, cell_hor, *, level_horizon, routes, horizon,
+                    record=False):
+    """(G, T, N) bool on-matrix over G cells, one Python loop over slots.
+
+    The arguments are K1's (:func:`repro_torch.kernels.provision_scan.
+    provision_scan_grid`): cell ``g`` runs demand row
+    ``traces[cell_trace[g]]``, peeks into ``predicted[cell_pred[g]]``,
+    waits on ``thresholds[cell_thr[g]]`` — a constant ``(1, N)`` row or a
+    ``(T, N)`` table whose entry ``[t, l]`` is consumed iff level ``l``
+    becomes newly idle in slot ``t`` — and masks its peek per level to
+    ``h < level_horizon[cell_hor[g]]``; ``horizon`` slots are examined.
+    Lane ``j`` dispatches against level id ``routes[j]``.
+
+    Returns ``(ons, codes)``: ``codes`` is None, or with ``record=True`` the
+    (G, T, N) uint8 :mod:`repro_torch.obs.provenance` reason bitmask.
+    """
+    dev = traces.device
+    cell_trace, cell_pred, cell_thr, cell_hor = (
+        c.to(dev, torch.long) for c in (cell_trace, cell_pred, cell_thr, cell_hor))
+    a = traces[cell_trace]                                   # (G, T)
+    G, T = a.shape
+    n = routes.shape[0]
+    p = predicted[cell_pred]
+    pad = torch.cat([p, p.new_zeros((G, horizon))], dim=1)   # peek past T reads 0
+    hor = level_horizon[cell_hor]                            # (G, N)
+    time_varying = thresholds.shape[1] != 1
+    ons = torch.empty((G, T, n), dtype=torch.bool, device=dev)
+    codes = torch.empty((G, T, n), dtype=torch.uint8, device=dev) if record else None
+    r = torch.zeros((G, n), dtype=torch.float32, device=dev)
+    on = a[:, 0, None] > routes                              # x(0) = a(0)
+    wait = (torch.zeros((G, n), dtype=torch.float32, device=dev) if time_varying
+            else thresholds[cell_thr, 0])
+    for t in range(T):
+        busy = a[:, t, None] > routes
+        if record:
+            rise = busy & ~on                                # dispatcher turn-on edge
+        seen = torch.zeros_like(busy)
+        for h in range(horizon):
+            seen = seen | ((pad[:, t + 1 + h, None] > routes) & (hor > float(h)))
+        draw = thresholds[cell_thr, t] if time_varying else None
+        (r, on, wait), expired, off_now = _slot_update(r, on, wait, busy, seen, draw)
+        ons[:, t] = on
+        if record:
+            codes[:, t] = (
+                rise.to(torch.uint8) * _prov.DEMAND_RISE
+                + expired.to(torch.uint8) * _prov.WAIT_EXPIRED
+                + (expired & seen).to(torch.uint8) * _prov.PEEK_FIRED
+                + off_now.to(torch.uint8) * _prov.TOGGLE_OFF
+            )
+    return ons, codes
+
+
+def _offline_levels(a, n_levels, delta):
+    """Hindsight-optimal per-level schedule, closed form (no scan).
+
+    ``a`` (..., T) demand; returns (..., T, N) bool.  Level on at slot t iff
+    busy, or inside an interior idle gap of length <= Delta_l (prev and next
+    busy exist and next - prev - 1 <= b_l).  ``torch.cummax`` and a flipped
+    ``torch.cummin`` stand in for the reference's associative scans; the
+    next-busy index is float32 (``T + b + 1``), as there.
+    """
+    T = a.shape[-1]
+    b = delta.broadcast_to((n_levels,))
+    levels = torch.arange(n_levels, device=a.device)
+    busy = a[..., :, None] > levels                          # (..., T, N)
+    idx = torch.arange(T, device=a.device)[:, None]
+    prev_busy = torch.cummax(
+        torch.where(busy, idx, -1), dim=-2
+    ).values                                                 # last busy <= t
+    next_busy = torch.flip(torch.cummin(
+        torch.flip(torch.where(busy, idx.to(torch.float32), T + b + 1), [-2]),
+        dim=-2,
+    ).values, [-2])                                          # first busy >= t
+    gap = next_busy - prev_busy - 1
+    keep_idle = (prev_busy >= 0) & (next_busy <= T - 1) & (gap * 1.0 <= b)
+    return busy | (~busy & keep_idle)
+
+
+# ---------------------------------------------------------------------------
+# Per-level cost reduction (heterogeneous-ready)
+# ---------------------------------------------------------------------------
+
+def _cost_terms(a, on_matrix, P_lv, beta_on_lv, beta_off_lv):
+    """Per-level cost components of a schedule, each ``(..., N)``.
+
+    ``a`` (..., T) demand, ``on_matrix`` (..., T, N); the cost fields are
+    ``(N,)`` float32 tensors.  Initial state x(0)=a(0) is free; the final
+    slot is forced to x(T)=a(T) (paper eq. 5).
+    """
+    ob = on_matrix.to(torch.bool)
+    on = ob.to(torch.int32)
+    levels = torch.arange(on_matrix.shape[-1], device=on_matrix.device)
+    run_slots = on.sum(dim=-2, dtype=torch.int32)                 # (..., N)
+    up = torch.clamp(on[..., 1:, :] - on[..., :-1, :], min=0).sum(dim=-2, dtype=torch.int32)
+    down = torch.clamp(on[..., :-1, :] - on[..., 1:, :], min=0).sum(dim=-2, dtype=torch.int32)
+    first_on = (ob[..., 0, :] & ~(a[..., 0, None] > levels)).to(torch.int32)
+    final_off = (ob[..., -1, :] & ~(a[..., -1, None] > levels)).to(torch.int32)
+    return {
+        "energy": P_lv * run_slots,
+        "on_cost": beta_on_lv * (up + first_on),
+        "off_cost": beta_off_lv * (down + final_off),
+    }
+
+
+def on_matrix_cost(a, on_matrix, costs):
+    """Total cost of a per-level schedule under a (possibly per-level) model.
+
+    ``costs`` is a :class:`repro_torch.core.costs.CostModel`; supports
+    leading batch axes: ``a`` (..., T), ``on_matrix`` (..., T, N).
+    """
+    on_matrix = torch.as_tensor(on_matrix)
+    a = torch.as_tensor(a, device=on_matrix.device)
+    P_lv, bon_lv, boff_lv = costs.per_level(on_matrix.shape[-1], on_matrix.device)
+    terms = _cost_terms(a, on_matrix, P_lv, bon_lv, boff_lv)
+    return (terms["energy"] + terms["on_cost"] + terms["off_cost"]).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The one engine body: the (S, W, B) grid as cells
+# ---------------------------------------------------------------------------
+
+def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy):
+    """K1's inputs for one online policy over the (S, W', B) cell grid.
+
+    ``ab`` (B, T) int32 demand; ``predb`` (S, B, T) int32 predicted rows;
+    ``windows``: python ints; ``delta`` (N,) float32; ``uniforms``: the
+    (B, T, N) pair for the keyed policies, else None.  Window-free policies
+    run one window column (W' = 1), the others W' = len(windows).  Cell
+    ``g = (s, w, b)`` in row-major order, as in the reference's sharded
+    grid: A2/A3 read wait table ``w*B + b``, AQ-rand table ``b``, the
+    deterministic policies the constant row ``w``.  Returns the keyword
+    arguments of :func:`repro_torch.kernels.provision_scan.
+    provision_scan_grid` plus the cell-grid shape ``(S, W', B)``.
+    """
+    S, B, T = predb.shape
+    dev = ab.device
+    b = delta
+    if policy in WINDOW_FREE:
+        windows = [0]
+    W = len(windows)
+    wf = torch.tensor(windows, dtype=torch.float32, device=dev)
+    if policy in RANDOMIZED:
+        u0, u = uniforms
+        thresholds = torch.stack([
+            _waits_from_uniforms(policy, u0, u, w, b) for w in windows
+        ]).reshape(W * B, T, n_levels)                       # (W*B, T, N)
+    elif policy == "AQ-rand":
+        u0, u = uniforms
+        thresholds = _waits_from_uniforms(policy, u0, u, 0, b)   # (B, T, N)
+    elif policy in NO_PEEK:                                  # timer Δ_l
+        thresholds = b[None, None, :].contiguous()           # (1, 1, N)
+    else:                                                    # A1 per window
+        thresholds = torch.clamp(b[None, :] - wf[:, None] - 1.0, min=0.0)[:, None, :]
+    if policy in NO_PEEK:
+        horizon = 0
+        level_horizon = torch.zeros((1, n_levels), dtype=torch.float32, device=dev)
+    else:
+        horizon = int(min(max(windows) + 1, max_h))
+        level_horizon = torch.minimum(wf[:, None] + 1.0, b[None, :])   # (W, N)
+    # the cell maps are made on the host: K1's wrapper checks them there
+    s_ix, w_ix, b_ix = torch.meshgrid(
+        torch.arange(S), torch.arange(W), torch.arange(B), indexing="ij",
+    )
+    if policy in RANDOMIZED:
+        cell_thr = w_ix * B + b_ix
+    elif policy == "AQ-rand":
+        cell_thr = b_ix
+    else:           # A1's row per window; the timers' one row (W' = 1, w = 0)
+        cell_thr = w_ix
+    i32 = torch.int32
+    kwargs = dict(
+        traces=ab, predicted=predb.reshape(S * B, T),
+        thresholds=thresholds.contiguous(),
+        cell_trace=b_ix.reshape(-1).to(i32), cell_pred=(s_ix * B + b_ix).reshape(-1).to(i32),
+        cell_thr=cell_thr.reshape(-1).to(i32), cell_hor=w_ix.reshape(-1).to(i32),
+        delta=max_h, horizon=horizon,
+        routes=torch.arange(n_levels, dtype=i32, device=dev),
+        level_horizon=level_horizon.contiguous(),
+    )
+    return kwargs, (S, W, B)
+
+
+def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
+         n_levels, max_h, policy, record=False, kernel=False):
+    """Shared engine body behind :func:`repro_torch.core.provision.provision`.
+
+    ``ab`` (B, T) int32 demand; ``predb`` (S, B, T) int32 predicted rows;
+    ``windows``: python ints (W,); ``delta``/cost fields: (N,) float32;
+    ``uniforms``: the injected or drawn (B, T, N) pair for the keyed
+    policies, else None.  Returns a dict of ``x`` (S, W, B, T) int32 and
+    per-level cost terms (S, W, B, N) float32; window-free policies run once
+    and are broadcast over the W axis (expanded views).
+
+    ``kernel=True`` runs the slot scan through K1 (CUDA tensors only);
+    ``kernel=False`` through :func:`_on_matrix_scan`.  ``record=True`` adds
+    the aggregate ``decision_counts`` (S, W, B, 4, N) int32 on the K1 route,
+    and the per-slot ``decisions`` (S, W, B, T, N) uint8 on the plain route.
+    """
+    if record and policy == "offline":
+        raise ValueError("record=True: offline has no slot scan to record")
+    B, T = ab.shape
+    S = predb.shape[0]
+    W = len(windows)
+    if policy == "offline":
+        ons = _offline_levels(ab, n_levels, delta)           # (B, T, N)
+        out = _cost_terms(ab, ons, P_lv, beta_on_lv, beta_off_lv)
+        out["x"] = ons.sum(dim=-1, dtype=torch.int32)
+        return {k: v.expand((S, W) + v.shape) for k, v in out.items()}
+
+    inputs, (S, Wc, B) = _grid_inputs(
+        ab, predb, windows, delta, uniforms,
+        n_levels=n_levels, max_h=max_h, policy=policy,
+    )
+    counts = codes = None
+    if kernel:
+        from ..kernels.provision_scan import provision_scan_grid
+
+        res = provision_scan_grid(**inputs, record=record)
+        ons, counts = res if record else (res, None)
+    else:
+        ons, codes = _on_matrix_scan(
+            **{k: v for k, v in inputs.items() if k != "delta"}, record=record,
+        )
+    ons = ons.reshape(S, Wc, B, T, n_levels)
+    out = _cost_terms(ab, ons, P_lv, beta_on_lv, beta_off_lv)
+    out["x"] = ons.sum(dim=-1, dtype=torch.int32)
+    if counts is not None:
+        out["decision_counts"] = counts.reshape(S, Wc, B, 4, n_levels)
+    if codes is not None:
+        out["decisions"] = codes.reshape(S, Wc, B, T, n_levels)
+    if Wc != W:                                              # window-free
+        out = {k: v.expand((S, W) + v.shape[2:]) for k, v in out.items()}
+    return out

@@ -1,0 +1,52 @@
+"""Build and bind the port's CUDA kernels at first use.
+
+The kernels are compiled from the sources in ``csrc/`` with
+``torch.utils.cpp_extension.load`` for ``sm_90a`` (``-O3``, no
+``--use_fast_math``: the scan compares float32 values exactly), into
+``build/repro_torch_kernels/`` at the root of the checkout.  The sources
+include no PyTorch header and export a plain C interface, so the build
+takes seconds, and the library is bound with ``ctypes``; pointers and the
+stream travel as integers.  ``load`` caches by content: a second process
+reuses the library built by the first.
+
+Nothing here runs at import time: the CPU tests import every module, and
+the CPU has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+#: build/repro_torch_kernels at the root of the checkout (src/repro_torch/kernels/..)
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+_lib: ctypes.CDLL | None = None
+
+
+def load_provision_scan() -> ctypes.CDLL:
+    """Build (once per process, cached on disk) and bind K1's library."""
+    global _lib
+    if _lib is None:
+        from torch.utils.cpp_extension import load
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path = load(
+            name="repro_torch_provision_scan",
+            sources=[str(_CSRC / "provision_scan.cu")],
+            extra_cuda_cflags=CUDA_FLAGS,
+            build_directory=str(BUILD_DIR),
+            is_python_module=False,
+            verbose=False,
+        )
+        lib = ctypes.CDLL(path)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.repro_provision_scan_grid.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        lib.repro_provision_scan_grid.restype = i32
+        lib.repro_provision_scan_max_horizon.argtypes = []
+        lib.repro_provision_scan_max_horizon.restype = i32
+        lib.repro_cuda_error_string.argtypes = [i32]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
