@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and hold its kernel
-to its plain version.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and hold its
+kernels to their plain versions.
 
     python3 chip_smoke.py          # from the root of a checkout, one CUDA card
 
-The main path is ``provision(ProvisionSpec(...))`` of ``repro_torch`` at the
-size of the largest fleet of ``benchmarks/provision_bench.py``: N = 4096
+The main paths are ``provision(ProvisionSpec(...))`` and
+``provision_stream(ProvisionSpec(...))`` of ``repro_torch`` at the size of
+the largest fleet of ``benchmarks/provision_bench.py``: N = 4096
 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
 paper's costs (Δ = 6): G = 48 (window, trace) cells per online policy.
@@ -29,10 +30,27 @@ Phases, one line or more each:
    bound (plus the eval harness's 0.05 tolerance); median wall time per
    call;
 5. breakdown — one A1 and one A2 call under ``torch.profiler``: device
-   busy time, K1's share, and the kernels that take the most.
+   busy time, K1's share, and the kernels that take the most;
+6. stream kernel — kernel K2 (the streaming scan) against its plain version
+   on the card, on the inputs ``provision_stream()`` gives it, for the six
+   cases of phase 3, each at ``t_chunk`` 512 (which leaves a part tile at
+   the end) and at ``t_chunk`` = T, plus one trace cut at slot 601 with the
+   carry threaded into a second call: x, every per-lane total and the carry
+   must be equal bit for bit; K2's device time, call time, plain time and
+   bound as in phase 3;
+7. provision_stream — A1, A2 and A2 with decision counters end to end
+   through K2: ``x``, ``level_cost``, ``cost`` and ``decision_counts`` must
+   equal ``provision()``'s (K1) bit for bit, with one K2 launch per call and
+   no K1 launch; median wall time and a ``torch.profiler`` breakdown;
+8. year — ``provision_stream()`` over a year of ten-minute slots
+   (T = 52,560): A1 and delayedoff at B = 8, A2 at B = 2 (its CRN wait
+   tables are (W·B, T, N) float32); wall time, K2 launches and peak device
+   memory of each; three cells held to ``provision()`` run on that cell
+   alone, and every A1 cell's cost against offline's within 2 - α.
 
-The line before the last is a JSON object with K1's numbers; the last is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them.
+The line before the last is a JSON object with K1's and K2's numbers; the
+last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before them.
 """
 from __future__ import annotations
 
@@ -50,6 +68,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N_LEVELS, N_SLOTS, N_TRACES = 4096, 1008, 8
 WINDOWS = list(range(6))
+YEAR_SLOTS = 52560               # a year of ten-minute slots
+YEAR_TRACES_A2 = 2               # A2's wait tables at B = 8 would take 41 GB
+STREAM_T_CHUNK = 512             # K2's default tile; 1008 = 512 + 496
+CUT = 601                        # where the chained case splits the trace
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
@@ -105,13 +127,14 @@ def kernel_ms(fn, reps, name="grid_scan_kernel"):
     return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
 
-def bound_ms(inputs, record):
-    """Least time for K1's work on these inputs: the bytes it must move over
-    the memory rate, or its operations over the float32 rate, whichever is
-    larger.  Each input row the cells use is counted once; of a time-varying
-    wait table only the entries this run's demand consumes (one per lane
-    turning idle).  Also returns the byte bound with the whole wait table
-    counted, for comparison."""
+def bound_ms(inputs, record, stream=False):
+    """Least time for a scan kernel's work on these inputs: the bytes it must
+    move over the memory rate, or its operations over the float32 rate,
+    whichever is larger.  Outputs: K1's one-byte on-matrix (and counters),
+    or K2's x, per-lane totals and carry.  Each input row the cells use is
+    counted once; of a time-varying wait table only the entries this run's
+    demand consumes (one per lane turning idle).  Also returns the byte
+    bound with the whole wait table counted, for comparison."""
     import torch
 
     a, thr, cells = inputs["traces"], inputs["thresholds"], inputs["cell_trace"]
@@ -120,7 +143,10 @@ def bound_ms(inputs, record):
     def rows(c):
         return torch.unique(c).numel()
 
-    base = G * T * N + (G * 4 * N * 4 if record else 0)         # outputs
+    if stream:          # x, run/up/down (+ 4 counters), carry r/on/wait
+        base = G * T * 4 + G * (7 if record else 3) * N * 4 + G * N * 9
+    else:               # on-matrix (+ 4 counters)
+        base = G * T * N + (G * 4 * N * 4 if record else 0)
     base += rows(cells) * T * 4 + 4 * G * 4 + N * 4              # demand, cell maps, routes
     base += rows(inputs["cell_hor"]) * N * 4
     if inputs["horizon"]:
@@ -154,9 +180,10 @@ def main() -> int:
         Workload,
         msr_like_trace,
         provision,
+        provision_stream,
     )
     from repro_torch.core import torch_provision as engine
-    from repro_torch.kernels import provision_scan as k1
+    from repro_torch.kernels import provision_scan as kernels
     from repro_torch.kernels._build import load_provision_scan
 
     provision_module = importlib.import_module("repro_torch.core.provision")
@@ -172,7 +199,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     load_provision_scan()
-    print(f"build: K1 built from source in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: K1 and K2 built from source in {time.perf_counter() - t0:.2f} s", flush=True)
 
     demand = np.stack([
         msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
@@ -212,9 +239,9 @@ def main() -> int:
     max_err = 0
     for name, policy, costs, record in cases:
         inputs = grid_inputs(policy, costs)
-        launched_before = k1.launches
-        got = k1.provision_scan_grid(**inputs, record=record)
-        want = k1.provision_scan_grid_ref(**inputs, record=record)
+        launched_before = kernels.launches
+        got = kernels.provision_scan_grid(**inputs, record=record)
+        want = kernels.provision_scan_grid_ref(**inputs, record=record)
         torch.cuda.synchronize()
         got, want = (got, want) if record else ((got,), (want,))
         for g, w in zip(got, want):
@@ -222,9 +249,9 @@ def main() -> int:
             max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
             check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
         check(got[0].any() and not got[0].all(), f"K1 {name}: degenerate on-matrix")
-        ms = kernel_ms(lambda: k1.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
-        call = cuda_ms(lambda: k1.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
-        plain = cuda_ms(lambda: k1.provision_scan_grid_ref(**inputs, record=record),
+        ms = kernel_ms(lambda: kernels.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
+        call = cuda_ms(lambda: kernels.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
+        plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(**inputs, record=record),
                         PLAIN_REPS)
         bound, bound_by, bound_full = bound_ms(inputs, record)
         measured[name] = (ms, plain, bound, bound_by)
@@ -233,7 +260,7 @@ def main() -> int:
               f"equal=True kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.2f} "
               f"bound_ms={bound:.4f} "
               f"({bound_by}; {bound_full:.4f} counting the whole wait table) "
-              f"launches={k1.launches - launched_before} (check and timing) [{smi}]",
+              f"launches={kernels.launches - launched_before} (check and timing) [{smi}]",
               flush=True)
 
     # 4. provision() end to end: the main path, counted
@@ -247,11 +274,13 @@ def main() -> int:
 
     policies = ("A1", "A2", "offline")
     torch.cuda.synchronize()
-    k1.launches = 0
+    kernels.launches = kernels.stream_launches = 0
     results = {p: provision(spec(p)) for p in policies}
     torch.cuda.synchronize()
-    main_launches = k1.launches
-    check(main_launches == 2, f"provision(): K1 launched {main_launches} times, expected 2")
+    main_launches = kernels.launches
+    check(main_launches == 2 and kernels.stream_launches == 0,
+          f"provision(): K1 launched {main_launches} times and K2 "
+          f"{kernels.stream_launches}, expected 2 and 0")
     print(f"provision: main path ran A1, A2, offline with K1 launches={main_launches}",
           flush=True)
 
@@ -318,7 +347,206 @@ def main() -> int:
             if p == "A1":     # deterministic: the bound holds trace by trace
                 check(bool((cr[i] <= bound + 1e-6).all()), f"A1 window {w}: CR above bound")
 
+    # 6. K2 against its plain version on the card
+    def stream_inputs(policy, costs=PAPER_COSTS):
+        inputs = grid_inputs(policy, costs)
+        del inputs["delta"]                 # K2 examines `horizon` slots, no more
+        return inputs
+
+    def stream_diff(got, want, what):
+        """Largest difference of K2's outputs from the plain version's; they
+        must be equal."""
+        (gx, gacc, gcarry), (wx, wacc, wcarry) = got, want
+        pairs = [("x", gx, wx)] + [(k, gacc[k], wacc[k]) for k in wacc] \
+            + [(k, gcarry[k], wcarry[k]) for k in wcarry]
+        err = 0.0
+        for k, g, w in pairs:
+            check(g.shape == w.shape and g.dtype == w.dtype, f"K2 {what}: {k} shape/dtype")
+            err = max(err, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+            check(torch.equal(g, w), f"K2 {what}: {k} differs from the plain version")
+        return err
+
+    def timed(fn):
+        """``fn()`` and its milliseconds between two CUDA events."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    k2_err = 0.0
+    k2_measured = {}
+    for name, policy, costs, record in cases:
+        inputs = stream_inputs(policy, costs)
+        launched_before = kernels.stream_launches
+        for t_chunk in (STREAM_T_CHUNK, N_SLOTS):
+            def k2(t_chunk=t_chunk):
+                return kernels.provision_scan_stream(**inputs, t_chunk=t_chunk,
+                                                     record=record)
+            got = k2()
+            want, plain = timed(lambda: kernels.provision_scan_stream_ref(
+                **inputs, t_chunk=t_chunk, record=record))
+            k2_err = max(k2_err, stream_diff(got, want, f"{name} t_chunk={t_chunk}"))
+            check(got[1]["up"].sum() > 0 and got[1]["down"].sum() > 0,
+                  f"K2 {name}: no level toggled")
+            ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
+            call = cuda_ms(k2, KERNEL_REPS)
+            bound, bound_by, bound_full = bound_ms(inputs, record, stream=True)
+            if t_chunk == STREAM_T_CHUNK:
+                k2_measured[name] = (ms, plain, bound, bound_by)
+            print(f"stream kernel: K2 {name} t_chunk={t_chunk}: G={got[0].shape[0]} "
+                  f"T={N_SLOTS} N={N_LEVELS} horizon={inputs['horizon']} equal=True "
+                  f"kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.2f} "
+                  f"bound_ms={bound:.4f} ({bound_by}; {bound_full:.4f} counting the "
+                  f"whole wait table) [{smi}]", flush=True)
+        print(f"stream kernel: K2 {name}: launches={kernels.stream_launches - launched_before} "
+              "(check and timing)", flush=True)
+
+    # the chained case: a trace cut mid-tile and mid-wait, the carry threaded
+    inputs = stream_inputs("A2")
+
+    def halves(sl):
+        part = dict(inputs)
+        for k in ("traces", "predicted", "thresholds"):
+            part[k] = inputs[k][:, sl]
+        return part
+
+    first, second = halves(slice(None, CUT)), halves(slice(CUT, None))
+    chained = {}
+    for route, fn in (("kernel", kernels.provision_scan_stream),
+                      ("plain", kernels.provision_scan_stream_ref)):
+        one = fn(**first, t_chunk=STREAM_T_CHUNK, record=True)
+        two = fn(**second, t_chunk=STREAM_T_CHUNK, record=True, carry=one[2])
+        chained[route] = (one, two)
+    k2_err = max(k2_err, stream_diff(chained["kernel"][0], chained["plain"][0],
+                                     f"chained first {CUT} slots"))
+    k2_err = max(k2_err, stream_diff(chained["kernel"][1], chained["plain"][1],
+                                     "chained rest"))
+    mid = chained["kernel"][0][2]
+    mid_wait = int((mid["on"] & (mid["r"] > 0)).sum())
+    check(mid_wait > 0, "K2 chained: no lane is mid-wait at the cut")
+    print(f"stream kernel: K2 A2+record cut at slot {CUT} (t_chunk={STREAM_T_CHUNK}), "
+          f"carry threaded: equal=True, {mid_wait} lanes mid-wait at the cut", flush=True)
+
+    # 7. provision_stream() end to end: the main path, counted
+    stream_runs = (("A1", False), ("A2", False), ("A2", True))
+    want = {(p, rec): provision(spec(p), record_decisions=rec) for p, rec in stream_runs}
+    torch.cuda.synchronize()
+    kernels.launches = kernels.stream_launches = 0
+    got = {(p, rec): provision_stream(spec(p), record_decisions=rec) for p, rec in stream_runs}
+    torch.cuda.synchronize()
+    stream_main_launches, k1_in_stream = kernels.stream_launches, kernels.launches
+    check(stream_main_launches == len(stream_runs) and k1_in_stream == 0,
+          f"provision_stream(): K2 launched {stream_main_launches} times and K1 "
+          f"{k1_in_stream}, expected {len(stream_runs)} and 0")
+    print(f"provision_stream: main path ran A1, A2, A2+record with K2 launches="
+          f"{stream_main_launches}, K1 launches={k1_in_stream}", flush=True)
+    for (p, rec), res in got.items():
+        ref_res = want[(p, rec)]
+        for field in ("x", "level_cost", "cost"):
+            check(torch.equal(getattr(res, field), getattr(ref_res, field)),
+                  f"provision_stream {p}: {field} differs from provision()")
+        if rec:
+            for k, v in ref_res.decision_counts.items():
+                check(torch.equal(res.decision_counts[k], v),
+                      f"provision_stream {p}: decision_counts[{k}] differs from provision()")
+    print("provision_stream: x, level_cost, cost and decision_counts equal provision()'s "
+          "(K1) bit for bit", flush=True)
+
+    for p in ("A1", "A2"):
+        def run(p=p):
+            provision_stream(spec(p)).x.sum().item()
+        run()
+        walls = []
+        for _ in range(PROVISION_REPS):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"provision_stream: {p} median wall_ms={statistics.median(walls):.2f} "
+              f"per call (G={W * B} cells) [{smi}]", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      key=lambda e: -e.self_device_time_total)
+        if not rows:
+            print(f"breakdown: provision_stream {p} device time not measured (the "
+                  "profiler saw no device events)", flush=True)
+            continue
+        busy = sum(e.self_device_time_total for e in rows) / 1e3
+        k2_ms = sum(e.self_device_time_total for e in rows if "stream_scan" in e.key) / 1e3
+        print(f"breakdown: provision_stream {p} device busy {busy:.3f} ms in {len(rows)} "
+              f"kernels, K2 {k2_ms:.3f} ms [{smi}]", flush=True)
+        for e in rows[:6]:
+            print(f"breakdown: provision_stream {p}   {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<4d} {e.key[:80]}", flush=True)
+
+    # 8. a year of ten-minute slots through provision_stream()
+    del want, got, results, chained, first, second, inputs
+    year = torch.as_tensor(np.stack([
+        msr_like_trace(np.random.default_rng(SEED + b), n_slots=YEAR_SLOTS,
+                       mean_jobs=N_LEVELS / 4.0)
+        for b in range(N_TRACES)
+    ]), device=dev).to(torch.int32)
+
+    def year_spec(policy, demand, **pol):
+        return ProvisionSpec(costs=PAPER_COSTS, workload=Workload(demand=demand),
+                             policy=PolicySpec(policy, **pol), n_levels=N_LEVELS,
+                             device=dev)
+
+    year_res = {}
+    for p in ("A1", "delayedoff", "A2"):
+        if p == "A2":       # drawn here, so that the runs before do not hold them
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            u_year = engine._uniforms(gen, YEAR_TRACES_A2, YEAR_SLOTS, N_LEVELS, dev)
+            sp = year_spec(p, year[:YEAR_TRACES_A2], windows=WINDOWS, uniforms=u_year)
+        else:
+            sp = year_spec(p, year, windows=WINDOWS)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.launches = kernels.stream_launches = 0
+        t0 = time.perf_counter()
+        res = provision_stream(sp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(kernels.stream_launches == 1 and kernels.launches == 0,
+              f"year {p}: K2 launched {kernels.stream_launches} times, K1 {kernels.launches}")
+        check(bool(torch.isfinite(res.cost).all()) and res.x.shape[-1] == YEAR_SLOTS,
+              f"year {p}: bad result")
+        year_res[p] = res
+        n_traces = sp.workload.demand.shape[0]
+        n_cells = n_traces * (1 if p == "delayedoff" else len(WINDOWS))
+        print(f"year: {p} T={YEAR_SLOTS} B={n_traces} G={n_cells} N={N_LEVELS}: "
+              f"wall_s={wall:.3f} K2 launches={kernels.stream_launches} "
+              f"max_memory_allocated_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"(of which held before the call: {held / 1e9:.2f}) [{smi}]",
+              flush=True)
+
+    # three cells held to provision() run on that cell alone
+    cells = (("A1", 0, 0, {}), ("A1", len(WINDOWS) - 1, N_TRACES - 1, {}),
+             ("A2", 3, 1, {"uniforms": tuple(u[1] for u in u_year)}))
+    for p, w, b, pol in cells:
+        one = provision(year_spec(p, year[b], window=WINDOWS[w], **pol))
+        res = year_res[p]
+        check(torch.equal(one.x, res.x[w, b]) and torch.equal(one.level_cost,
+                                                              res.level_cost[w, b]),
+              f"year {p} window {WINDOWS[w]} trace {b}: differs from provision() on the cell")
+        print(f"year: {p} window={WINDOWS[w]} trace={b}: x and level_cost equal "
+              f"provision() on that cell alone", flush=True)
+    off = torch.stack([provision(year_spec("offline", year[b])).cost
+                       for b in range(N_TRACES)])                 # (B,)
+    cr = (year_res["A1"].cost / off).cpu().numpy()                # (W, B)
+    for i, w in enumerate(WINDOWS):
+        bound = 2.0 - min(1.0, (w + 1) / float(PAPER_COSTS.delta))
+        check(bool((cr[i] <= bound + 1e-6).all()), f"year A1 window {w}: CR above 2 - alpha")
+        print(f"year: A1 window={w} max_cr={cr[i].max():.4f} bound={bound:.4f}", flush=True)
+    del year_res, u_year
+
     ms, plain, bound, bound_by = measured["A2"]
+    k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
     print(f"device: {smi}")
     print(json.dumps({"kernels": [{
         "name": "provision_scan_grid",
@@ -331,6 +559,18 @@ def main() -> int:
         "plain_ms": plain,
         "bound_ms": bound,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "provision_scan_stream",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
+        "replaces": "src/repro/kernels/provision_scan.py:460",
+        "launches": stream_main_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms_a2,
+        "plain_ms": k2_plain,
+        "bound_ms": k2_bound,
+        "bound_by": k2_bound_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

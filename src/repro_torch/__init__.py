@@ -2,10 +2,11 @@
 
 A standalone package: it imports torch and numpy, never jax and never
 anything of ``repro`` (the JAX reference it is held against).  Its entry
-point ``provision(ProvisionSpec(...))`` runs on the card by default, with
-the provisioning scan as the hand-written CUDA kernel K1
+points ``provision(ProvisionSpec(...))`` and, for production-length traces,
+``provision_stream(ProvisionSpec(...))`` run on the card by default, with
+the provisioning scans as the hand-written CUDA kernels K1 and K2
 (:mod:`repro_torch.kernels.provision_scan`); ``ProvisionSpec(device="cpu")``
-runs the plain PyTorch version instead.
+runs the plain PyTorch versions instead.
 """
 from .core import (
     PAPER_COSTS,
@@ -23,6 +24,7 @@ from .core import (
     on_matrix_cost,
     pmr,
     provision,
+    provision_stream,
     scale_to_pmr,
     schedule_cost,
     with_prediction_error,
@@ -44,6 +46,7 @@ __all__ = [
     "on_matrix_cost",
     "pmr",
     "provision",
+    "provision_stream",
     "scale_to_pmr",
     "schedule_cost",
     "with_prediction_error",

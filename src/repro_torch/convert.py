@@ -42,3 +42,14 @@ def normals_from_numpy(z, device="cpu") -> torch.Tensor:
     """The reference's prediction-noise normals, (T,) or (B, T), as the
     float32 tensor ``PredictionNoise(normals=...)`` takes."""
     return torch.as_tensor(np.array(z, np.float32), device=device)
+
+
+def carry_from_numpy(r, on, wait, device="cpu") -> dict[str, torch.Tensor]:
+    """The reference streaming scan's carry — its ``{"r", "on", "wait"}``
+    (G, N) arrays — as the dict the port's ``provision_scan_stream(carry=)``
+    takes, so chained calls can be held to the reference."""
+    return {
+        "r": torch.as_tensor(np.array(r, np.float32), device=device),
+        "on": torch.as_tensor(np.array(on, bool), device=device),
+        "wait": torch.as_tensor(np.array(wait, np.float32), device=device),
+    }

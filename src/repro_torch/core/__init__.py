@@ -2,9 +2,10 @@
 provisioning through ``provision(ProvisionSpec(...))``.
 
 Ported so far: the cost model (scalar, per-level and typed fleets), the
-engine behind ``provision()`` for all seven policies, and the synthetic
-traces.  The brick/fluid numpy oracles, ``provision_stream()``, deferral
-and the multi-device route are still to come (ROADMAP.md).
+engine behind ``provision()`` for all seven policies, its streaming twin
+``provision_stream()`` for the online ones, and the synthetic traces.  The
+brick/fluid numpy oracles, deferral and the multi-device route are still to
+come (ROADMAP.md).
 """
 from .costs import PAPER_COSTS, CostModel, ServerGroup, schedule_cost
 from .provision import (
@@ -14,6 +15,7 @@ from .provision import (
     ProvisionSpec,
     Workload,
     provision,
+    provision_stream,
 )
 from .stepfn import StepFn
 from .torch_provision import (
@@ -37,6 +39,7 @@ __all__ = [
     "StepFn",
     "Workload",
     "provision",
+    "provision_stream",
     "on_matrix_cost",
     "msr_like_trace",
     "pmr",

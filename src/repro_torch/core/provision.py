@@ -1,8 +1,9 @@
 """One declarative provisioning API: ``provision(ProvisionSpec(...))``.
 
-The PyTorch port of ``repro.core.provision`` (``provision()`` and its spec;
-``provision_stream()`` and the multi-device ``mesh=`` route come in later
-slices).  The spec is three frozen dataclasses plus options:
+The PyTorch port of ``repro.core.provision``: ``provision()``,
+``provision_stream()`` and their spec (deferral and the multi-device
+``mesh=`` route come in later slices).  The spec is three frozen
+dataclasses plus options:
 
   * :class:`~repro_torch.core.costs.CostModel` — ``P``/``beta_on``/
     ``beta_off`` as scalars or ``(n_levels,)`` arrays; Δ is derived per
@@ -18,8 +19,10 @@ slices).  The spec is three frozen dataclasses plus options:
 grid and returns a :class:`ProvisionResult`.  It runs on the card
 (``ProvisionSpec.device`` defaults to ``"cuda"``), where every online
 policy's slot scan is one launch of kernel K1; ``device="cpu"`` runs the
-plain PyTorch scan.  Without CUDA and without ``device="cpu"`` it raises —
-it never falls back.
+plain PyTorch scan.  :func:`provision_stream` returns the same result for
+production-length traces through the streaming kernel K2, without the
+(T, N) on-matrix.  Without CUDA and without ``device="cpu"`` both raise —
+they never fall back.
 
 Shape convention: the result keeps a leading windows axis iff the spec used
 ``windows=``, a batch axis iff demand was ``(B, T)``, and an outermost
@@ -152,7 +155,8 @@ class ProvisionSpec:
 
     ``n_levels``: fleet size; defaults to the cost model's per-level length,
     else ``max(demand) + 1``.  ``device``: where the engine runs —
-    ``"cuda"`` (the default: kernel K1) or ``"cpu"`` (the plain scan).
+    ``"cuda"`` (the default: kernels K1 and K2) or ``"cpu"`` (the plain
+    scans).
     """
 
     costs: CostModel
@@ -177,7 +181,8 @@ class ProvisionResult:
     (..., N) int32 keyed by ``repro_torch.obs.provenance.COUNT_ORDER`` names,
     and — on the CPU route only — ``decisions``, the (..., T, N) uint8
     per-slot reason bitmask.  The CUDA route takes the counters straight
-    from K1 and leaves ``decisions`` None.
+    from K1 and leaves ``decisions`` None, as :func:`provision_stream` does
+    on both devices.
     """
 
     x: torch.Tensor
@@ -315,8 +320,6 @@ def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> 
         )
     device = _resolve_device(spec.device)
     pr = _prepare(spec, pol, device)
-    squeeze_b, squeeze_w, squeeze_s = pr["squeeze_b"], pr["squeeze_w"], pr["squeeze_s"]
-
     tel = get_telemetry()
     with tel.span("provision", policy=pol.name, route=device.type,
                   n_levels=pr["n_levels"], record=record_decisions):
@@ -326,18 +329,76 @@ def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> 
             n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
             record=record_decisions, kernel=kernel,
         )
+        out = _squeeze(out, pr)
+    return _result(spec, out, record_decisions, tel)
 
-        def _squeeze(o):                                 # leaves are (S, W, B, ...)
-            if squeeze_b:
-                o = o.squeeze(2)
-            if squeeze_w:
-                o = o.squeeze(1)
-            if squeeze_s:
-                o = o.squeeze(0)
-            return o
 
-        out = {k: _squeeze(v) for k, v in out.items()}
+def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
+                     record_decisions: bool = False) -> ProvisionResult:
+    """:func:`provision` for production-length traces: the same spec and the
+    same result, bit for bit, without the (T, N) on-matrix.
 
+    Every online policy's whole (S, W, B) grid is one call of the streaming
+    scan — one launch of kernel K2 on CUDA, its plain tiled loop on the CPU
+    — which returns x(t) and per-level totals, so the memory of a call is
+    O(cells · (T + levels)) plus the (T, N) wait tables of the randomized
+    policies, which the common-random-numbers contract pins to absolute
+    slots.  ``t_chunk`` (default
+    :data:`repro_torch.kernels.provision_scan.DEFAULT_T_CHUNK`, clamped to
+    the trace length) is the tile size; it never changes a result.
+
+    As in the reference: ``offline`` is rejected (a closed form over the
+    whole trace, nothing to stream), and ``record_decisions=True`` fills
+    ``decision_counts`` only — per-slot ``decisions`` are the O(T · N)
+    buffer streaming exists to avoid.  ``Workload(deferral=...)`` raises
+    ``NotImplementedError`` until deferral is ported.
+    """
+    from ..kernels.provision_scan import DEFAULT_T_CHUNK
+
+    pol = spec.policy.validate()
+    if pol.name == "offline":
+        raise ValueError(
+            "provision_stream is online-only: 'offline' is the closed-form "
+            "hindsight optimum over the whole trace — use provision()"
+        )
+    device = _resolve_device(spec.device)
+    pr = _prepare(spec, pol, device)
+    T = pr["ab"].shape[-1]
+    t_chunk = int(min(max(int(DEFAULT_T_CHUNK if t_chunk is None else t_chunk), 1),
+                      max(T, 1)))
+    tel = get_telemetry()
+    with tel.span("provision_stream", policy=pol.name, route=device.type,
+                  n_levels=pr["n_levels"], t_chunk=t_chunk, record=record_decisions):
+        out = _engine._run_stream(
+            pr["ab"], pr["predb"], pr["windows"], pr["delta_lv"], pr["P_lv"],
+            pr["bon_lv"], pr["boff_lv"], pr["uniforms"],
+            n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
+            t_chunk=t_chunk, record=record_decisions,
+        )
+        out = _squeeze(out, pr)
+    return _result(spec, out, record_decisions, tel)
+
+
+def _squeeze(out: dict, pr: dict) -> dict:
+    """Drop the engine's (S, W, B) leading axes that the spec did not ask for."""
+
+    def one(o):
+        if pr["squeeze_b"]:
+            o = o.squeeze(2)
+        if pr["squeeze_w"]:
+            o = o.squeeze(1)
+        if pr["squeeze_s"]:
+            o = o.squeeze(0)
+        return o
+
+    return {k: one(v) for k, v in out.items()}
+
+
+def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel) -> ProvisionResult:
+    """A :class:`ProvisionResult` from the engine's squeezed per-level terms:
+    the totals, the per-type reduction and, under ``record_decisions``, the
+    decision counters (summed from per-slot codes where the route kept
+    them, else taken from the kernel's counters)."""
     decisions = out.pop("decisions", None)
     counts = None
     if record_decisions:

@@ -14,6 +14,11 @@ the reference's sharded grid does, and runs it in one scan:
   * on the CPU through :func:`_on_matrix_scan`, a Python loop over slots of
     plain tensor ops — the CPU route and K1's oracle.
 
+:func:`_run_stream` is the streaming twin behind ``provision_stream()``:
+the same grid through K2 (:func:`repro_torch.kernels.provision_scan.
+provision_scan_stream`) or its plain version :func:`_stream_scan`, which
+return x(t) and per-level totals instead of the (T, N) on-matrix.
+
 Policies: ``A1`` (deterministic, ratio ``2 - α``), ``A2`` (randomized,
 ``(e-α)/(e-1)``), ``A3`` (randomized, ``e/(e-1+α)``), ``offline``
 (hindsight optimum, closed form), ``delayedoff``, and the typed-fleet pair
@@ -178,6 +183,86 @@ def _on_matrix_scan(traces, predicted, thresholds, cell_trace, cell_pred,
                 + off_now.to(torch.uint8) * _prov.TOGGLE_OFF
             )
     return ons, codes
+
+
+# ---------------------------------------------------------------------------
+# The streaming slot scan (all online policies): K2's plain version
+# ---------------------------------------------------------------------------
+
+#: the streaming scan's per-lane totals, in K2's row order (the four
+#: :data:`repro_torch.obs.provenance.COUNT_ORDER` counters follow under
+#: ``record``)
+STREAM_ACCS = ("run", "up", "down")
+
+
+def _stream_scan(traces, predicted, thresholds, cell_trace, cell_pred, cell_thr,
+                 cell_hor, *, level_horizon, routes, horizon, t_chunk, n_levels,
+                 carry=None, record=False):
+    """x(t), per-lane totals and the end carry over G cells, in tiles.
+
+    The arguments are K2's (:func:`repro_torch.kernels.provision_scan.
+    provision_scan_stream`) and mean what they mean for
+    :func:`_on_matrix_scan`; the slots run in ``t_chunk``-slot tiles, each
+    tile's predicted rows reaching ``horizon`` slots past it (0 past T), so
+    the tile size never changes a result.  Instead of the on-matrix it
+    returns ``(x, accs, carry)``:
+
+      * ``x`` (G, T) int32, the on lanes per slot with lane ``j`` counted
+        iff ``routes[j] < n_levels``;
+      * ``accs``, a dict of (G, N) int32 totals under the same lane mask:
+        :data:`STREAM_ACCS` (on-slots and toggle edges against the virtual
+        x(0) = a(0) boundary, without the forced final off, which only the
+        caller can add) plus the four decision counters under ``record``;
+      * ``carry``, the ``{"r", "on", "wait"}`` (G, N) state after the last
+        slot.
+
+    ``carry=None`` starts a fresh trace: at its first slot the previous
+    state is the busy pattern itself, so nothing turns on or off there.  A
+    carry from an earlier call continues that trace instead.  With a
+    constant threshold row the wait is the row and the carry's is ignored;
+    with a time-varying table it starts from the carry.
+    """
+    dev = traces.device
+    cell_trace, cell_pred, cell_thr, cell_hor = (
+        c.to(dev, torch.long) for c in (cell_trace, cell_pred, cell_thr, cell_hor))
+    G, T, n = cell_trace.shape[0], traces.shape[1], routes.shape[0]
+    hor = level_horizon[cell_hor]                            # (G, N)
+    time_varying = thresholds.shape[1] != 1
+    lane_ok = routes < n_levels
+    fresh = carry is None
+    if fresh:
+        r = torch.zeros((G, n), dtype=torch.float32, device=dev)
+        on = torch.zeros((G, n), dtype=torch.bool, device=dev)
+        wait = torch.zeros_like(r)
+    else:
+        r, on, wait = carry["r"], carry["on"], carry["wait"]
+    if not time_varying:
+        wait = thresholds[cell_thr, 0]
+    names = STREAM_ACCS + (_prov.COUNT_ORDER if record else ())
+    accs = torch.zeros((len(names), G, n), dtype=torch.int32, device=dev)
+    x = torch.empty((G, T), dtype=torch.int32, device=dev)
+    for t0 in range(0, T, t_chunk):
+        # a tile stops at T: the reference's pad tail past T freezes the
+        # state and the totals, which is what not running it does
+        a = traces[cell_trace, t0:t0 + t_chunk]
+        size = a.shape[1]
+        p = predicted[cell_pred, t0 + 1:t0 + 1 + size + horizon]   # slots t0 + 1 ...
+        p = torch.cat([p, p.new_zeros((G, size + horizon - p.shape[1]))], dim=1)
+        thr = thresholds[cell_thr, t0:t0 + size] if time_varying else None
+        for k in range(size):
+            busy = a[:, k, None] > routes
+            prev = busy if fresh and t0 + k == 0 else on     # virtual x(0) = a(0)
+            seen = torch.zeros_like(busy)
+            for h in range(horizon):
+                seen = seen | ((p[:, k + h, None] > routes) & (hor > float(h)))
+            (r, on, wait), expired, off_now = _slot_update(
+                r, on, wait, busy, seen, None if thr is None else thr[:, k])
+            x[:, t0 + k] = (on & lane_ok).sum(dim=-1, dtype=torch.int32)
+            inc = [on, on & ~prev, prev & ~on]
+            if record:
+                inc += [busy & ~prev, expired, expired & seen, off_now]
+            accs += (torch.stack(inc) & lane_ok).to(torch.int32)
+    return x, dict(zip(names, accs)), {"r": r, "on": on, "wait": wait}
 
 
 def _offline_levels(a, n_levels, delta):
@@ -358,6 +443,55 @@ def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
         out["decision_counts"] = counts.reshape(S, Wc, B, 4, n_levels)
     if codes is not None:
         out["decisions"] = codes.reshape(S, Wc, B, T, n_levels)
+    if Wc != W:                                              # window-free
+        out = {k: v.expand((S, W) + v.shape[2:]) for k, v in out.items()}
+    return out
+
+
+def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
+                n_levels, max_h, policy, t_chunk, record=False):
+    """Streaming twin of :func:`_run`, behind
+    :func:`repro_torch.core.provision.provision_stream`.
+
+    The same (S, W', B) cell grid, wait tables and common random numbers as
+    :func:`_run`, as one call of :func:`repro_torch.kernels.provision_scan.
+    provision_scan_stream` — K2 on CUDA tensors, its plain version on the
+    CPU — which returns x(t) and per-level totals instead of the (T, N)
+    on-matrix.  The forced x(T) = a(T) final off is added here from the
+    end carry.  Returns what :func:`_run` returns, bit for bit, with
+    ``decision_counts`` (S, W, B, 4, N) under ``record`` on both devices.
+    ``offline`` is rejected: it is a closed form over the whole trace.
+    """
+    if policy == "offline":
+        raise ValueError(
+            "offline is closed-form over the full trace; the streaming engine "
+            "is online-only — use provision() for offline"
+        )
+    from ..kernels.provision_scan import provision_scan_stream
+
+    T = ab.shape[1]
+    W = len(windows)
+    inputs, (S, Wc, B) = _grid_inputs(
+        ab, predb, windows, delta, uniforms,
+        n_levels=n_levels, max_h=max_h, policy=policy,
+    )
+    del inputs["delta"]
+    x, accs, carry = provision_scan_stream(
+        **inputs, t_chunk=t_chunk, n_levels=n_levels, record=record)
+    lead = (S, Wc, B, n_levels)
+    # close the trace: a level still on at T that the last slot's demand
+    # does not need turns off (every lane is a real level in this layout)
+    busy_end = ab[:, T - 1, None] > inputs["routes"]             # (B, N)
+    final_off = (carry["on"].reshape(lead) & ~busy_end).to(torch.int32)
+    out = {
+        "energy": P_lv * accs["run"].reshape(lead),
+        "on_cost": beta_on_lv * accs["up"].reshape(lead),
+        "off_cost": beta_off_lv * (accs["down"].reshape(lead) + final_off),
+        "x": x.reshape(S, Wc, B, T),
+    }
+    if record:
+        out["decision_counts"] = torch.stack(
+            [accs[name].reshape(lead) for name in _prov.COUNT_ORDER], dim=-2)
     if Wc != W:                                              # window-free
         out = {k: v.expand((S, W) + v.shape[2:]) for k, v in out.items()}
     return out

@@ -2,12 +2,13 @@
 
 The kernels are compiled from the sources in ``csrc/`` with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` (``-O3``, no
-``--use_fast_math``: the scan compares float32 values exactly), into
-``build/repro_torch_kernels/`` at the root of the checkout.  The sources
-include no PyTorch header and export a plain C interface, so the build
-takes seconds, and the library is bound with ``ctypes``; pointers and the
-stream travel as integers.  ``load`` caches by content: a second process
-reuses the library built by the first.
+``--use_fast_math``: the scans compare float32 values exactly), into one
+library in ``build/repro_torch_kernels/`` at the root of the checkout;
+``load`` hands the sources to ninja, which runs one ``nvcc`` for each, all
+at once.  The sources include no PyTorch header and export a plain C
+interface, so the build takes seconds, and the library is bound with
+``ctypes``; pointers and the stream travel as integers.  ``load`` caches by
+content: a second process reuses the library built by the first.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -26,7 +27,8 @@ _lib: ctypes.CDLL | None = None
 
 
 def load_provision_scan() -> ctypes.CDLL:
-    """Build (once per process, cached on disk) and bind K1's library."""
+    """Build (once per process, cached on disk) and bind the library of K1
+    (``provision_scan.cu``) and K2 (``provision_scan_stream.cu``)."""
     global _lib
     if _lib is None:
         from torch.utils.cpp_extension import load
@@ -34,7 +36,8 @@ def load_provision_scan() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         path = load(
             name="repro_torch_provision_scan",
-            sources=[str(_CSRC / "provision_scan.cu")],
+            sources=[str(_CSRC / name)
+                     for name in ("provision_scan.cu", "provision_scan_stream.cu")],
             extra_cuda_cflags=CUDA_FLAGS,
             build_directory=str(BUILD_DIR),
             is_python_module=False,
@@ -46,6 +49,10 @@ def load_provision_scan() -> ctypes.CDLL:
         lib.repro_provision_scan_grid.restype = i32
         lib.repro_provision_scan_max_horizon.argtypes = []
         lib.repro_provision_scan_max_horizon.restype = i32
+        lib.repro_provision_scan_stream.argtypes = [ptr] * 17 + [i32] * 8 + [ptr]
+        lib.repro_provision_scan_stream.restype = i32
+        lib.repro_provision_scan_stream_max_tile.argtypes = [i32]
+        lib.repro_provision_scan_stream_max_tile.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,25 +1,30 @@
-"""K1: the fused per-level provisioning scan, as a CUDA kernel for Hopper.
+"""K1 and K2: the per-level provisioning scans, as CUDA kernels for Hopper.
 
-The port of ``provision_scan_grid`` / ``provision_scan`` in
-``repro.kernels.provision_scan`` (the Pallas TPU kernel
-``_grid_scan_kernel``).  One call runs the whole (noise-std x window x
-trace) grid of a provisioning sweep: cell ``g`` scans demand row
-``traces[cell_trace[g]]`` over all ``T`` slots for every level, with its
-own predicted row, wait-threshold table and per-level peek reach, and
-writes a ``(G, T, N)`` bool on-matrix.
+The port of ``repro.kernels.provision_scan`` (the Pallas TPU kernels
+``_grid_scan_kernel`` and ``_stream_scan_kernel``).  One call runs the whole
+(noise-std x window x trace) grid of a provisioning sweep: cell ``g`` scans
+demand row ``traces[cell_trace[g]]`` for every level, with its own predicted
+row, wait-threshold table and per-level peek reach.
 
-Routes split by device, never by failure: on CUDA tensors the wrapper
-launches the kernel in ``csrc/provision_scan.cu`` (built at first use, see
+  * K1, :func:`provision_scan_grid` (``csrc/provision_scan.cu``), writes the
+    ``(G, T, N)`` bool on-matrix;
+  * K2, :func:`provision_scan_stream` (``csrc/provision_scan_stream.cu``),
+    returns what the engine reduces the on-matrix to — x(t), per-lane
+    totals and the carry that continues the trace in a later call — so its
+    memory stays O(G·(T + N)) at any trace length.
+
+Routes split by device, never by failure: on CUDA tensors a wrapper
+launches its kernel (built at first use, see
 :mod:`repro_torch.kernels._build`) and raises if it cannot; on CPU tensors
-it runs :func:`provision_scan_grid_ref`, the plain PyTorch version, which is
-also the kernel's oracle on the card.  :data:`launches` counts kernel
-launches, and nothing else.
+it runs the plain PyTorch version (``*_ref``), which is also the kernel's
+oracle on the card.  :data:`launches` and :data:`stream_launches` count
+kernel launches, and nothing else.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.torch_provision import _on_matrix_scan
+from ..core.torch_provision import STREAM_ACCS, _on_matrix_scan, _stream_scan
 from ..obs import provenance as _prov
 from ..obs.telemetry import get_telemetry
 
@@ -27,14 +32,19 @@ from ..obs.telemetry import get_telemetry
 #: padded lane's dispatcher compare is never true and it can never turn on
 PAD_ROUTE = 2**30
 
-#: K1 launches since import (or since a caller reset it); the plain version
-#: on CPU tensors never counts
+#: slots per tile of the streaming scan, as in the reference
+DEFAULT_T_CHUNK = 512
+
+#: K1 and K2 launches since import (or since a caller reset them); the plain
+#: versions on CPU tensors never count
 launches = 0
+stream_launches = 0
 
 
 def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
                base_level, routes, level_horizon):
-    """Shared argument checks and defaults of the kernel and its plain version."""
+    """Shared argument checks and defaults of the kernels and their plain
+    versions (``delta=None``: no upper bound on the horizon)."""
     traces = torch.as_tensor(traces).to(torch.int32)
     dev = traces.device
     if dev.type not in ("cpu", "cuda"):
@@ -48,7 +58,7 @@ def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
     T = traces.shape[1]
     if predicted.shape[1] != T:
         raise ValueError(f"predicted rows have {predicted.shape[1]} slots, traces {T}")
-    if not 0 <= horizon <= int(delta):
+    if horizon < 0 or (delta is not None and horizon > int(delta)):
         raise ValueError(f"need 0 <= horizon <= delta, got {horizon}, {delta}")
     thresholds = torch.as_tensor(thresholds, device=dev).to(torch.float32)
     if thresholds.ndim != 3 or thresholds.shape[1] not in (1, T):
@@ -199,3 +209,127 @@ def provision_scan(a, thresholds, *, delta, horizon, base_level=0, predicted=Non
         delta=delta, horizon=horizon, base_level=base_level, level_horizon=lh,
     )
     return out[0]
+
+
+def _stream_args(traces, predicted, thresholds, cells, *, horizon, t_chunk, n_levels,
+                 base_level, routes, level_horizon, carry):
+    """:func:`_normalize` plus the streaming scan's own checks — the tile
+    size (clamped to T, as in the reference), the lane mask's level count
+    and the carry's shapes — as the keyword arguments of
+    :func:`repro_torch.core.torch_provision._stream_scan`."""
+    traces, predicted, thresholds, cells, routes, level_horizon = _normalize(
+        traces, predicted, thresholds, cells, delta=None, horizon=horizon,
+        base_level=base_level, routes=routes, level_horizon=level_horizon,
+    )
+    if int(t_chunk) < 1:
+        raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")
+    G, n = cells[0].shape[0], thresholds.shape[-1]
+    if carry is not None:
+        dev = traces.device
+        carry = {
+            "r": torch.as_tensor(carry["r"], device=dev).to(torch.float32),
+            "on": torch.as_tensor(carry["on"], device=dev).to(torch.bool),
+            "wait": torch.as_tensor(carry["wait"], device=dev).to(torch.float32),
+        }
+        for name, v in carry.items():
+            if tuple(v.shape) != (G, n):
+                raise ValueError(
+                    f"carry[{name!r}] must be (G, N) = {(G, n)}, got {tuple(v.shape)}")
+    return dict(
+        traces=traces, predicted=predicted, thresholds=thresholds,
+        cell_trace=cells[0], cell_pred=cells[1], cell_thr=cells[2], cell_hor=cells[3],
+        level_horizon=level_horizon, routes=routes, horizon=horizon,
+        t_chunk=int(min(int(t_chunk), max(traces.shape[1], 1))),
+        n_levels=n if n_levels is None else int(n_levels), carry=carry,
+    )
+
+
+def provision_scan_stream_ref(traces, predicted, thresholds, cell_trace, cell_pred,
+                              cell_thr, cell_hor, *, horizon, t_chunk=DEFAULT_T_CHUNK,
+                              n_levels=None, base_level=0, routes=None,
+                              level_horizon=None, record=False, carry=None):
+    """The plain PyTorch version of :func:`provision_scan_stream`: the
+    engine's tiled slot loop (:func:`repro_torch.core.torch_provision.
+    _stream_scan`) on whatever device the tensors are on."""
+    args = _stream_args(
+        traces, predicted, thresholds, (cell_trace, cell_pred, cell_thr, cell_hor),
+        horizon=horizon, t_chunk=t_chunk, n_levels=n_levels, base_level=base_level,
+        routes=routes, level_horizon=level_horizon, carry=carry,
+    )
+    return _stream_scan(**args, record=record)
+
+
+def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
+                          cell_thr, cell_hor, *, horizon, t_chunk=DEFAULT_T_CHUNK,
+                          n_levels=None, base_level=0, routes=None, level_horizon=None,
+                          record=False, carry=None):
+    """The streaming scan: x(t), per-lane totals and the end carry, any T.
+
+    The arguments are :func:`provision_scan_grid`'s, less ``delta``
+    (``horizon`` peek slots are examined; the peek reads 0 past T), plus:
+
+      * ``t_chunk``: slots per tile, clamped to T; it never changes a
+        result (K2 also caps it at what its shared memory holds);
+      * ``n_levels``: lane ``j`` counts in ``x`` and every total iff
+        ``routes[j] < n_levels`` (default N);
+      * ``carry``: None for a fresh trace — the virtual x(0) = a(0) edge, so
+        nothing toggles at the first slot — or the ``{"r", "on", "wait"}``
+        (G, N) dict a previous call returned, to continue that trace.
+
+    Returns ``(x, accs, carry)``: ``x`` (G, T) int32; ``accs`` a dict of
+    (G, N) int32 totals ``run``/``up``/``down`` (plus the four
+    :data:`repro_torch.obs.provenance.COUNT_ORDER` counters under
+    ``record``), without the forced x(T) = a(T) final off, which is the
+    caller's to add; ``carry`` the state after the last slot.
+
+    CUDA tensors launch K2 (and count in :data:`stream_launches`); CPU
+    tensors run :func:`provision_scan_stream_ref`.
+    """
+    global stream_launches
+    args = _stream_args(
+        traces, predicted, thresholds, (cell_trace, cell_pred, cell_thr, cell_hor),
+        horizon=horizon, t_chunk=t_chunk, n_levels=n_levels, base_level=base_level,
+        routes=routes, level_horizon=level_horizon, carry=carry,
+    )
+    dev = args["traces"].device
+    if dev.type == "cpu":
+        return _stream_scan(**args, record=record)
+    from ._build import load_provision_scan
+
+    lib = load_provision_scan()
+    max_tile = lib.repro_provision_scan_stream_max_tile(horizon)
+    if max_tile < 1:
+        raise ValueError(
+            f"horizon {horizon} leaves no room for a tile in K2's shared memory "
+            "on this card"
+        )
+    G, T = args["cell_trace"].shape[0], args["traces"].shape[1]
+    n = args["thresholds"].shape[-1]
+    names = STREAM_ACCS + (_prov.COUNT_ORDER if record else ())
+    ins = [args[k].contiguous() for k in ("traces", "predicted", "thresholds", "cell_trace",
+                                          "cell_pred", "cell_thr", "cell_hor",
+                                          "level_horizon", "routes")]
+    carry = args["carry"]
+    ins += [None] * 3 if carry is None else [carry[k].contiguous()
+                                              for k in ("r", "on", "wait")]
+    x = torch.zeros((G, T), dtype=torch.int32, device=dev)      # K2 adds into it
+    accs = torch.empty((G, len(names), n), dtype=torch.int32, device=dev)
+    out = {"r": torch.empty((G, n), dtype=torch.float32, device=dev),
+           "on": torch.empty((G, n), dtype=torch.bool, device=dev),
+           "wait": torch.empty((G, n), dtype=torch.float32, device=dev)}
+    if G and n:                     # T = 0 still writes the totals and the carry
+        err = lib.repro_provision_scan_stream(
+            *[None if v is None else v.data_ptr() for v in ins],
+            x.data_ptr(), accs.data_ptr(), *[v.data_ptr() for v in out.values()],
+            G, T, n, horizon, min(args["t_chunk"], max_tile), args["n_levels"],
+            int(args["thresholds"].shape[1] != 1), int(record),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err:
+            raise RuntimeError(
+                "provision_scan_stream: K2 launch failed: "
+                + lib.repro_cuda_error_string(err).decode()
+            )
+        stream_launches += 1
+        get_telemetry().count("kernels/provision_scan_stream_launches")
+    return x, {name: accs[:, i] for i, name in enumerate(names)}, out

@@ -1,8 +1,9 @@
 """Host-side telemetry: counters, gauges, histograms, and span timers.
 
 A copy of ``repro.obs.telemetry`` (stdlib only) so that ``repro_torch``
-stands alone.  The port adds one counter name,
-``kernels/provision_scan_launches``, bumped by the K1 wrapper
+stands alone.  The port adds two counter names,
+``kernels/provision_scan_launches`` and
+``kernels/provision_scan_stream_launches``, bumped by the K1 and K2 wrappers
 (:mod:`repro_torch.kernels.provision_scan`) on every CUDA launch.
 
 One :class:`Telemetry` instance is a process-local registry of metrics plus
