@@ -15,7 +15,8 @@ Demand and random draws are made from ``SEED``.
 Phases, one line or more each:
 
 1. device — the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build — kernel K1 from ``src/repro_torch/kernels/csrc`` (timed);
+2. build — kernels K1 and K2 (one library) and K3 and K4 (another) from
+   ``src/repro_torch/kernels/csrc``, the two builds at once (timed);
 3. kernel — K1 against its plain PyTorch version on the card, on the inputs
    the main path gives it (A1, A2, A3, delayedoff, A2 with decision
    counters, and a typed two-group fleet with fractional Δ_l): the
@@ -48,12 +49,42 @@ Phases, one line or more each:
    memory of each; three cells held to ``provision()`` run on that cell
    alone, and every A1 cell's cost against offline's within 2 - α.
 
-The line before the last is a JSON object with K1's and K2's numbers; the
+9. flash — kernel K3 through the public wrapper
+   ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
+   the full attention widths of three models the repo supports: yi-9b
+   causal (B 1, S 4096, H 32, KVH 4, hd 128) in bf16 and in float32,
+   hymba-1.5b causal with its 2048-token window (S 4096, H 25, KVH 5, hd
+   64) in bf16, llama3.2-1b non-causal (S 1024, H 32, KVH 8, hd 64) in
+   float32; inputs from ``SEED``, q and k at std ``QK_STD`` so that each
+   softmax is peaked.  The launch count of that run, then each output
+   against K3's plain version on the same tensors: every element within
+   the reference's tolerance (float32 2e-5, bf16 2e-2; no TF32 anywhere)
+   and every row within that tolerance of its largest value; planted faults
+   (zeros, the window or the causal mask ignored) must fail that check.
+   K3's device time, the call's, the plain version's, the bound and what
+   sets it, and ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on
+   the same inputs as the library yardstick; then four instances the main
+   path does not reach (a ragged last tile in fp16, head dim 256, a window
+   without the causal mask, hymba's window in float32), each held to the
+   plain version;
+10. decode — kernel K4 (its split pass and merge) through
+   ``repro_torch.kernels.ops.decode_attention`` (block_k 1024): yi-9b at
+   B 16, S 32,768 in bf16 with ragged lengths from ``SEED`` (one at S, one
+   at 1), hymba-1.5b's long decode (B 1, S 524,288, length S) in bf16, and
+   yi-9b at B 4, S 8192 in float32 with lengths [0, 1, 4097, 8192], where
+   row 0 must be exactly zero; checked, timed and bounded as in phase 9,
+   the planted faults being zeros and the second half of each sequence
+   dropped; then four instances (lengths below 0 and above S in fp16, a
+   query-head group of 12, head dim 256, hymba's long decode in float32),
+   each held to the plain version.
+
+The line before the last is a JSON object with K1's to K4's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import importlib
 import json
 import math
@@ -75,8 +106,10 @@ CUT = 601                        # where the chained case splits the trace
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 and fp16 tensor cores
 OPS_PER_UPDATE = 8               # compares and selects of one (cell, slot, level) update
 KERNEL_REPS, PLAIN_REPS, PROVISION_REPS = 20, 3, 3
+PROFILE_ATTEMPTS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -107,24 +140,40 @@ def cuda_ms(fn, reps):
 
 
 def kernel_ms(fn, reps, name="grid_scan_kernel"):
-    """Mean device milliseconds of the kernel ``name`` over ``reps`` calls of
-    ``fn()``, from the profiler's CUPTI records: the kernel's own time on
-    the card, without the wrapper's host work around it."""
+    """Mean device milliseconds per ``fn()`` call of the kernel ``name`` (or
+    of the kernels of a tuple of names, each launched once a call) over
+    ``reps`` calls, from the profiler's CUPTI records: the kernels' own time
+    on the card, without the wrapper's host work around it.
+
+    Without a launch before them, the profiler on the card lost one record
+    in most sessions, always of the kernel a call launches first (K3, K4's
+    split pass, never its merge), so each session opens with one untimed
+    fill before the ``reps`` calls.  It must then hold exactly ``reps``
+    records of each kernel; a session that holds another number is profiled
+    again, at most ``PROFILE_ATTEMPTS`` times, and the run fails after
+    that."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and name in e.key]
-    launched = sum(e.count for e in events)
-    check(launched == reps, f"profiler saw {launched} launches of {name}, expected {reps}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = {n: sum(e.count for e in events if n in e.key) for n in names}
+        if all(seen[n] == reps for n in names):
+            return sum(e.self_device_time_total for e in events
+                       if any(n in e.key for n in names)) / 1e3 / reps
+        print(f"profiler: kept {seen} of {reps} launches each; profiling again", flush=True)
+    raise SmokeFailure(f"profiler kept {seen} of {reps} launches each in "
+                       f"{PROFILE_ATTEMPTS} sessions")
 
 
 def bound_ms(inputs, record, stream=False):
@@ -163,6 +212,278 @@ def bound_ms(inputs, record, stream=False):
     return max(by_bytes, by_ops), kind, (base + full) / HBM_BYTES_PER_S * 1e3
 
 
+# phase 9: (name, B, S, H, KVH, hd, causal, window, dtype name)
+FLASH_CASES = (
+    ("yi-9b causal bf16", 1, 4096, 32, 4, 128, True, 0, "bfloat16"),
+    ("yi-9b causal f32", 1, 4096, 32, 4, 128, True, 0, "float32"),
+    ("hymba-1.5b causal window 2048 bf16", 1, 4096, 25, 5, 64, True, 2048, "bfloat16"),
+    ("llama3.2-1b non-causal f32", 1, 1024, 32, 8, 64, False, 0, "float32"),
+)
+# phase 10: (name, B, S, H, KVH, hd, lengths or None to draw, dtype name)
+DECODE_CASES = (
+    ("yi-9b bf16", 16, 32768, 32, 4, 128, None, "bfloat16"),
+    ("hymba-1.5b long decode bf16", 1, 524288, 25, 5, 64, (524288,), "bfloat16"),
+    ("yi-9b f32", 4, 8192, 32, 4, 128, (0, 1, 4097, 8192), "float32"),
+)
+# instances and edges the main path does not reach, each held to the plain version:
+# (name, B, S, H, KVH, hd, causal, window, dtype name); S = 200 leaves a ragged tile
+FLASH_EDGES = (
+    ("ragged S, fp16", 2, 200, 6, 2, 64, True, 0, "float16"),
+    ("hd 256, MQA", 1, 512, 8, 1, 256, True, 0, "float32"),
+    ("window 70, non-causal", 1, 320, 4, 4, 128, False, 70, "float32"),
+    ("hymba-1.5b window 2048, f32", 1, 4096, 25, 5, 64, True, 2048, "float32"),
+)
+# (name, B, S, H, KVH, hd, lengths, dtype name)
+DECODE_EDGES = (
+    ("negative and above-S lengths, fp16", 3, 2048, 8, 2, 64, (-3, 5000, 700), "float16"),
+    ("group of 12 (command-r)", 2, 4096, 24, 2, 128, (4096, 65), "float32"),
+    ("hd 256, MQA", 2, 1024, 8, 1, 256, (1024, 3), "bfloat16"),
+    ("hymba-1.5b long decode, f32", 1, 524288, 25, 5, 64, (524288,), "float32"),
+)
+ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}  # the reference's
+# q and k are drawn at this standard deviation, v at 1: the scores then have
+# a deviation of QK_STD ** 2, so that a few per cent of the keys carry each
+# softmax and a missing key, tile or window moves the output by far more
+# than the tolerance of the row-relative check (``compare``)
+QK_STD = 1.5
+
+
+def admitted_pairs(S, causal, window):
+    """(query, key) pairs the attention mask admits: key j of query i when
+    j <= i (causal) and j > i - window (window > 0)."""
+    import torch
+
+    i = torch.arange(S, dtype=torch.int64)
+    lo = (i - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(i)
+    hi = i + 1 if causal else torch.full_like(i, S)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def attention_bound_ms(flops, nbytes, dtype_name):
+    """Least time for an attention call: its flops over the card's peak for
+    the inputs' type (bf16 on the tensor cores, float32 outside them) or its
+    bytes over the memory rate, whichever is larger."""
+    rate = FP32_OPS_PER_S if dtype_name == "float32" else BF16_OPS_PER_S
+    by_ops, by_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def attention_phases(smi):
+    """Phases 9 and 10: K3 and K4 driven through ``repro_torch.kernels.ops``
+    with their launch counts, then held to their plain versions and timed;
+    returns their entries of the kernels JSON line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    # the plain versions and the yardstick compute float32 in float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def qkv(q_shape, kv_shape, dtype):
+        """q, k and v from ``gen``: q and k at ``QK_STD``, v at 1."""
+        return tuple((torch.randn(*shape, generator=gen, device=dev) * std)
+                     .to(getattr(torch, dtype))
+                     for shape, std in ((q_shape, QK_STD), (kv_shape, QK_STD), (kv_shape, 1.0)))
+
+    def row_err(got, want):
+        """Largest |got - want| of each output row (one query head) over that
+        row's largest |want|."""
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        return err / want.float().abs().amax(dim=-1).clamp_min(1e-30)
+
+    def compare(got, want, dtype, what):
+        """Largest absolute and row-relative differences of ``got`` from
+        ``want``.  Every element must be within the reference's tolerance
+        (atol = rtol = tol), and every row within tol of its largest |want|,
+        so that the check scales with what it compares: a row of zeros
+        passes only where the kernel's is zero."""
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape/dtype")
+        check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+        err = (got.float() - want.float()).abs()
+        tol = ATTENTION_TOL[dtype]
+        check(bool((err <= tol + tol * want.float().abs()).all()),
+              f"{what}: kernel and plain version differ by {float(err.max())}")
+        rel = float(row_err(got, want).max())
+        check(rel <= tol, f"{what}: a row differs by {rel:.3e} of its largest value, above {tol}")
+        return float(err.max()), rel
+
+    def rejects(faults, want, dtype, what):
+        """The check must fail on each planted fault: names of the faults and
+        the row-relative error of each."""
+        seen = []
+        for fault, bad in faults:
+            try:
+                compare(bad, want, dtype, f"{what} planted {fault}")
+            except SmokeFailure:
+                seen.append(f"{fault} ({float(row_err(bad, want).max()):.2e})")
+                continue
+            raise SmokeFailure(f"{what}: the check passed a planted fault ({fault})")
+        return ", ".join(seen)
+
+    # 9. K3 through the ops entry point: the main path, counted
+    t_phase = time.perf_counter()
+    inputs = [qkv((b, s, h, hd), (b, s, kvh, hd), dt)
+              for _, b, s, h, kvh, hd, _, _, dt in FLASH_CASES]
+    torch.cuda.synchronize()
+    flash.flash_launches = 0
+    outs = [ops.flash_attention(q, k, v, causal=causal, window=window)
+            for (q, k, v), (_, _, _, _, _, _, causal, window, _) in zip(inputs, FLASH_CASES)]
+    torch.cuda.synchronize()
+    k3_launches = flash.flash_launches
+    check(k3_launches == len(FLASH_CASES),
+          f"flash: K3 launched {k3_launches} times for {len(FLASH_CASES)} calls")
+    print(f"flash: main path ran {len(FLASH_CASES)} ops.flash_attention calls with K3 "
+          f"launches={k3_launches}", flush=True)
+    k3 = {}
+    for (q, k, v), got, case in zip(inputs, outs, FLASH_CASES):
+        name, b, s, h, kvh, hd, causal, window, dt = case
+        want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+        err, rel = compare(got, want, dt, f"K3 {name}")
+        faults = [("zeros", torch.zeros_like(want))]
+        if window:
+            faults.append(("window ignored", flash.flash_attention_plain(
+                q, k, v, causal=causal, window=0)))
+        elif causal:
+            faults.append(("causal mask ignored", flash.flash_attention_plain(
+                q, k, v, causal=False)))
+        rejected = rejects(faults, want, dt, f"K3 {name}")
+        del want, faults
+
+        def run(q=q, k=k, v=v, causal=causal, window=window):
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain(q=q, k=k, v=v, causal=causal, window=window):
+            return flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+        mask = None
+        if window:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+        def library(q=q, k=k, v=v, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        ms = kernel_ms(run, KERNEL_REPS, name="flash_kernel")
+        call, plain_ms = cuda_ms(run, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS)
+        lib_ms = cuda_ms(library, KERNEL_REPS)
+        pairs = admitted_pairs(s, causal, window)
+        nbytes = q.element_size() * 2 * b * s * (h + kvh) * hd       # q, k, v read; out written
+        bound, bound_by = attention_bound_ms(4 * b * h * hd * pairs, nbytes, dt)
+        k3[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
+                        bound_by=bound_by)
+        print(f"flash: K3 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
+              f"window={window}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+              f"(planted faults rejected: {rejected}) kernel_ms={ms:.4f} "
+              f"call_ms={call:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={bound:.4f} ({bound_by}; {4 * b * h * hd * pairs / 1e9:.2f} GFLOP) "
+              f"[{smi}]", flush=True)
+    del inputs, outs
+    for name, b, s, h, kvh, hd, causal, window, dt in FLASH_EDGES:
+        q, k, v = qkv((b, s, h, hd), (b, s, kvh, hd), dt)
+        err, rel = compare(flash.flash_attention(q, k, v, causal=causal, window=window),
+                           flash.flash_attention_plain(q, k, v, causal=causal, window=window),
+                           dt, f"K3 {name}")
+        print(f"flash: K3 edge {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
+              f"window={window}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e}",
+              flush=True)
+    print(f"flash: phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 10. K4 through the ops entry point: the main path, counted
+    t_phase = time.perf_counter()
+    inputs = []
+    for _, b, s, h, kvh, hd, lens, dt in DECODE_CASES:
+        if lens is None:          # ragged, with one sequence full and one of length 1
+            lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+            lengths[0], lengths[1] = s, 1
+        else:
+            lengths = torch.tensor(lens, device=dev)
+        inputs.append(qkv((b, h, hd), (b, s, kvh, hd), dt) + (lengths.to(torch.int32),))
+    torch.cuda.synchronize()
+    decode.decode_launches = 0
+    outs = [ops.decode_attention(*args) for args in inputs]
+    torch.cuda.synchronize()
+    k4_launches = decode.decode_launches
+    check(k4_launches == 2 * len(DECODE_CASES),
+          f"decode: K4 launched {k4_launches} times for {len(DECODE_CASES)} calls")
+    print(f"decode: main path ran {len(DECODE_CASES)} ops.decode_attention calls with K4 "
+          f"launches={k4_launches} (split pass and merge)", flush=True)
+    k4 = {}
+    for args, got, case in zip(inputs, outs, DECODE_CASES):
+        name, b, s, h, kvh, hd, lens, dt = case
+        q, kc, vc, lengths = args
+        want = decode.decode_attention_plain(*args)
+        err, rel = compare(got, want, dt, f"K4 {name}")
+        empty = (lengths <= 0).nonzero().flatten().tolist()
+        check(all(not got[i].any() for i in empty), f"K4 {name}: a length-0 row is not zero")
+        rejected = rejects(
+            [("zeros", torch.zeros_like(want)),
+             ("second half of each sequence dropped",
+              decode.decode_attention_plain(q, kc, vc, (lengths + 1) // 2))],
+            want, dt, f"K4 {name}")
+        del want
+        valid = int(lengths.clamp(0, s).sum())
+        mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+        def library(q=q, kc=kc, vc=vc, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+
+        def run(args=args):
+            return ops.decode_attention(*args)
+
+        ms = kernel_ms(run, KERNEL_REPS, name=("decode_split_kernel", "decode_combine_kernel"))
+        call = cuda_ms(run, KERNEL_REPS)
+        plain_ms = cuda_ms(lambda args=args: decode.decode_attention_plain(*args), PLAIN_REPS)
+        lib_ms = cuda_ms(library, KERNEL_REPS)
+        nbytes = (q.element_size() * (2 * valid * kvh * hd + 2 * b * h * hd)  # cache rows, q, out
+                  + 4 * b)
+        bound, bound_by = attention_bound_ms(4 * h * hd * valid, nbytes, dt)
+        k4[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
+                        bound_by=bound_by)
+        n_split, chunk = decode.splits(b, kvh, s, torch.cuda.get_device_properties(dev)
+                                       .multi_processor_count)
+        print(f"decode: K4 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} valid "
+              f"positions={valid} (rows of length 0: {empty}) splits={n_split}x{chunk}: "
+              f"close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} (planted faults "
+              f"rejected: {rejected}) kernel_ms={ms:.4f} call_ms={call:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
+              f"({bound_by}; {nbytes / 1e9:.3f} GB) [{smi}]", flush=True)
+    del inputs, outs
+    for name, b, s, h, kvh, hd, lens, dt in DECODE_EDGES:
+        args = qkv((b, h, hd), (b, s, kvh, hd), dt) + (torch.tensor(lens, device=dev),)
+        got = decode.decode_attention(*args)
+        err, rel = compare(got, decode.decode_attention_plain(*args), dt, f"K4 {name}")
+        check(all(not got[i].any() for i, n in enumerate(lens) if n <= 0),
+              f"K4 {name}: a row of length <= 0 is not zero")
+        print(f"decode: K4 edge {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} lengths={lens}: "
+              f"close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e}", flush=True)
+    print(f"decode: phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def entry(name, source, replaces, launches, cases, headline):
+        one = cases[headline]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(c["err"] for c in cases.values()),
+                "ms": one["ms"], "plain_ms": one["plain"], "bound_ms": one["bound"],
+                "bound_by": one["bound_by"], "library_ms": one["library"]}
+
+    return [entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:94", k3_launches, k3,
+                  FLASH_CASES[0][0]),
+            entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                  "src/repro/kernels/decode_attention.py:78", k4_launches, k4,
+                  DECODE_CASES[0][0])]
+
+
 def main() -> int:
     import torch
 
@@ -184,7 +505,7 @@ def main() -> int:
     )
     from repro_torch.core import torch_provision as engine
     from repro_torch.kernels import provision_scan as kernels
-    from repro_torch.kernels._build import load_provision_scan
+    from repro_torch.kernels._build import load_attention, load_provision_scan
 
     provision_module = importlib.import_module("repro_torch.core.provision")
     dev = torch.device("cuda")
@@ -196,10 +517,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
-    # 2. build
+    # 2. build: both libraries at once, each one nvcc per source
     t0 = time.perf_counter()
-    load_provision_scan()
-    print(f"build: K1 and K2 built from source in {time.perf_counter() - t0:.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for build in [pool.submit(load_provision_scan), pool.submit(load_attention)]:
+            build.result()
+    print(f"build: K1 and K2, and K3 and K4, built from source in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     demand = np.stack([
         msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
@@ -543,7 +867,11 @@ def main() -> int:
         bound = 2.0 - min(1.0, (w + 1) / float(PAPER_COSTS.delta))
         check(bool((cr[i] <= bound + 1e-6).all()), f"year A1 window {w}: CR above 2 - alpha")
         print(f"year: A1 window={w} max_cr={cr[i].max():.4f} bound={bound:.4f}", flush=True)
-    del year_res, u_year
+    del year_res, u_year, year
+    torch.cuda.empty_cache()
+
+    # 9 and 10. the attention kernels K3 and K4
+    attention_entries = attention_phases(smi)
 
     ms, plain, bound, bound_by = measured["A2"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
@@ -572,7 +900,7 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_bound_by,
         "library_ms": None,
-    }]}))
+    }] + attention_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -2,13 +2,16 @@
 
 The kernels are compiled from the sources in ``csrc/`` with
 ``torch.utils.cpp_extension.load`` for ``sm_90a`` (``-O3``, no
-``--use_fast_math``: the scans compare float32 values exactly), into one
-library in ``build/repro_torch_kernels/`` at the root of the checkout;
-``load`` hands the sources to ninja, which runs one ``nvcc`` for each, all
-at once.  The sources include no PyTorch header and export a plain C
-interface, so the build takes seconds, and the library is bound with
-``ctypes``; pointers and the stream travel as integers.  ``load`` caches by
-content: a second process reuses the library built by the first.
+``--use_fast_math``: the scans compare float32 values exactly, and the
+attention kernels are held to the reference's float32 tolerance), into two
+libraries under ``build/repro_torch_kernels/`` at the root of the checkout:
+the provisioning scans K1 and K2 there, the attention kernels K3 and K4 in
+``attention/`` below it.  ``load`` hands a library's sources to ninja,
+which runs one ``nvcc`` for each, all at once.  The sources include no
+PyTorch header and export a plain C interface, so the build takes
+seconds, and the library is bound with ``ctypes``; pointers and the stream
+travel as integers.  ``load`` caches by content: a second process reuses
+the library built by the first.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
@@ -24,6 +27,24 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lib: ctypes.CDLL | None = None
+_attention_lib: ctypes.CDLL | None = None
+
+
+def _compile(name, sources, build_dir) -> ctypes.CDLL:
+    """Build the library ``name`` from ``csrc/`` sources into ``build_dir``
+    (or reuse the build there) and open it."""
+    from torch.utils.cpp_extension import load
+
+    build_dir.mkdir(parents=True, exist_ok=True)
+    path = load(
+        name=name,
+        sources=[str(_CSRC / source) for source in sources],
+        extra_cuda_cflags=CUDA_FLAGS,
+        build_directory=str(build_dir),
+        is_python_module=False,
+        verbose=False,
+    )
+    return ctypes.CDLL(path)
 
 
 def load_provision_scan() -> ctypes.CDLL:
@@ -31,19 +52,8 @@ def load_provision_scan() -> ctypes.CDLL:
     (``provision_scan.cu``) and K2 (``provision_scan_stream.cu``)."""
     global _lib
     if _lib is None:
-        from torch.utils.cpp_extension import load
-
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path = load(
-            name="repro_torch_provision_scan",
-            sources=[str(_CSRC / name)
-                     for name in ("provision_scan.cu", "provision_scan_stream.cu")],
-            extra_cuda_cflags=CUDA_FLAGS,
-            build_directory=str(BUILD_DIR),
-            is_python_module=False,
-            verbose=False,
-        )
-        lib = ctypes.CDLL(path)
+        lib = _compile("repro_torch_provision_scan",
+                       ("provision_scan.cu", "provision_scan_stream.cu"), BUILD_DIR)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_provision_scan_grid.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
         lib.repro_provision_scan_grid.restype = i32
@@ -57,3 +67,23 @@ def load_provision_scan() -> ctypes.CDLL:
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def load_attention() -> ctypes.CDLL:
+    """Build (once per process, cached on disk) and bind the library of K3
+    (``flash_attention.cu``) and K4 (``decode_attention.cu``)."""
+    global _attention_lib
+    if _attention_lib is None:
+        lib = _compile("repro_torch_attention",
+                       ("flash_attention.cu", "decode_attention.cu"), BUILD_DIR / "attention")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.repro_flash_attention.argtypes = [ptr] * 4 + [i32] * 8 + [f32, ptr]
+        lib.repro_flash_attention.restype = i32
+        lib.repro_decode_attention.argtypes = [ptr] * 8 + [i32] * 8 + [f32, ptr]
+        lib.repro_decode_attention.restype = i32
+        lib.repro_decode_attention_max_rep.argtypes = [i32]
+        lib.repro_decode_attention_max_rep.restype = i32
+        lib.repro_attention_error_string.argtypes = [i32]
+        lib.repro_attention_error_string.restype = ctypes.c_char_p
+        _attention_lib = lib
+    return _attention_lib

@@ -1,0 +1,131 @@
+"""K3: flash attention (causal / sliding-window / full, GQA) as a CUDA kernel
+for Hopper.
+
+The port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel
+``_flash_kernel``), in the reference's (B, S, H, hd) layout.  Routes split
+by device, never by failure: a CUDA tensor launches K3
+(``csrc/flash_attention.cu``, built at first use, see
+:mod:`repro_torch.kernels._build`) and raises if it cannot; a CPU tensor
+runs :func:`flash_attention_plain`, which is also the kernel's oracle on the
+card.  :data:`flash_launches` counts kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..obs.telemetry import get_telemetry
+
+DEFAULT_BQ = 512
+DEFAULT_BK = 512
+NEG_INF = -1e30
+
+#: element types K3 loads (q, k, v and the output share one); ids of its C interface
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: head dims K3 and K4 have instances for
+HEAD_DIMS = (64, 128, 256)
+
+#: K3 launches since import (or since a caller reset it); the plain version
+#: on CPU tensors never counts
+flash_launches = 0
+
+
+def _check(q, k, v, block_q, block_k):
+    """The reference's shape contract, and its rejection of blocks that do
+    not divide S, as ``ValueError`` on both routes."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"need q (B, S, H, hd) and k, v (B, S, KVH, hd), got {tuple(q.shape)}, "
+            f"{tuple(k.shape)} and {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+        raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if k.shape[2] < 1 or H % k.shape[2]:
+        raise ValueError(f"{H} query heads do not split into groups of {k.shape[2]} kv heads")
+    bq, bk = min(block_q, S), min(block_k, S)
+    if bq < 1 or bk < 1 or S % bq or S % bk:
+        raise ValueError(f"S = {S} is not a multiple of the blocks ({bq}, {bk})")
+
+
+def _mask(S, causal, window, device):
+    pos = torch.arange(S, device=device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
+    """The plain PyTorch version of K3's function: scores in float32 for
+    each query-head group against its kv head (no repeat of k or v), masked
+    scores set to -1e30, probabilities zeroed by the mask, and
+    ``(P V) / max(l, 1e-30)`` cast to q's type."""
+    B, S, H, hd = q.shape
+    kvh = k.shape[2]
+    rep = H // kvh
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.float().reshape(B, S, kvh, rep, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, kvh, rep * S, hd)
+    kf = k.float().permute(0, 2, 1, 3)                      # (B, KVH, S, hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    s = torch.matmul(qg, kf.transpose(-1, -2)).view(B, kvh, rep, S, S) * scale
+    mask = _mask(S, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.matmul(p.view(B, kvh, rep * S, S), vf).view(B, kvh, rep, S, hd) / denom
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAULT_BQ,
+                    block_k=DEFAULT_BK):
+    """Attention of q (B, S, H, hd) over k, v (B, S, KVH, hd), H a multiple
+    of KVH: causal (key j <= query i), sliding-window (j > i - window, when
+    ``window > 0``), both, or full; ``scale`` defaults to hd ** -0.5.
+    Returns (B, S, H, hd) in q's type.
+
+    ``block_q`` and ``block_k`` are the reference's tile sizes: S must be a
+    multiple of ``min(block, S)`` for each, or ``ValueError``, but they do
+    not change the result.  K3 picks its own tiles for the card's shared
+    memory (64 query rows by 64 keys).
+
+    CUDA tensors launch K3 (float32, bf16 or fp16, one type for q, k and v;
+    head dim 64, 128 or 256) and count in :data:`flash_launches`; CPU
+    tensors run :func:`flash_attention_plain`.
+    """
+    global flash_launches
+    _check(q, k, v, block_q, block_k)
+    window = max(int(window), 0)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}, "
+                         f"{k.device} and {v.device}")
+    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"K3 takes one of {list(DTYPE_IDS)} for q, k and v, got "
+                         f"{q.dtype}, {k.dtype} and {v.dtype}")
+    B, S, H, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"K3 has no instance for head dim {hd}; it takes {HEAD_DIMS}")
+    from ._build import load_attention
+
+    lib = load_attention()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel():
+        scale = hd ** -0.5 if scale is None else scale
+        with torch.cuda.device(dev):
+            err = lib.repro_flash_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, H, k.shape[2], hd, DTYPE_IDS[q.dtype], int(bool(causal)), window,
+                float(scale), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err:
+            raise RuntimeError("flash_attention: K3 launch failed: "
+                               + lib.repro_attention_error_string(err).decode())
+        flash_launches += 1
+        get_telemetry().count("kernels/flash_attention_launches")
+    return out

@@ -1,10 +1,14 @@
 """Host-side telemetry: counters, gauges, histograms, and span timers.
 
 A copy of ``repro.obs.telemetry`` (stdlib only) so that ``repro_torch``
-stands alone.  The port adds two counter names,
-``kernels/provision_scan_launches`` and
-``kernels/provision_scan_stream_launches``, bumped by the K1 and K2 wrappers
-(:mod:`repro_torch.kernels.provision_scan`) on every CUDA launch.
+stands alone.  The port adds four counter names, bumped by its kernel
+wrappers on every CUDA launch: ``kernels/provision_scan_launches`` and
+``kernels/provision_scan_stream_launches`` (K1 and K2,
+:mod:`repro_torch.kernels.provision_scan`),
+``kernels/flash_attention_launches`` (K3,
+:mod:`repro_torch.kernels.flash_attention`) and
+``kernels/decode_attention_launches`` (K4,
+:mod:`repro_torch.kernels.decode_attention`, two launches per call).
 
 One :class:`Telemetry` instance is a process-local registry of metrics plus
 a buffer of timing events, exportable two ways:

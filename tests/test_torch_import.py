@@ -22,7 +22,9 @@ MODULES = sorted(
 def test_port_modules_found():
     for m in ("repro_torch", "repro_torch.convert", "repro_torch.core.provision",
               "repro_torch.core.torch_provision", "repro_torch.kernels._build",
-              "repro_torch.kernels.provision_scan", "repro_torch.obs.telemetry"):
+              "repro_torch.kernels.provision_scan", "repro_torch.kernels.ops",
+              "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
+              "repro_torch.kernels.ref", "repro_torch.obs.telemetry"):
         assert m in MODULES
 
 
