@@ -16,7 +16,12 @@ Phases, one line or more each:
 
 1. device — the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build — kernels K1 and K2 (one library) and K3 and K4 (another) from
-   ``src/repro_torch/kernels/csrc``, the two builds at once (timed);
+   ``src/repro_torch/kernels/csrc``, the two builds at once (timed); then
+   the attention library's SASS (``cuobjdump --dump-sass``) must hold
+   ``HGMMA`` in every instance of K3's tensor-core kernel
+   ``flash_wgmma_kernel`` (bf16 and fp16), and ``UTMALDG`` (TMA) or
+   ``LDGSTS`` (cp.async) in each of those and in every instance of K4's
+   split pass;
 3. kernel — K1 against its plain PyTorch version on the card, on the inputs
    the main path gives it (A1, A2, A3, delayedoff, A2 with decision
    counters, and a typed two-group fleet with fractional Δ_l): the
@@ -61,22 +66,27 @@ Phases, one line or more each:
    the reference's tolerance (float32 2e-5, bf16 2e-2; no TF32 anywhere)
    and every row within that tolerance of its largest value; planted faults
    (zeros, the window or the causal mask ignored) must fail that check.
-   K3's device time, the call's, the plain version's, the bound and what
-   sets it, and ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on
-   the same inputs as the library yardstick; then four instances the main
-   path does not reach (a ragged last tile in fp16, head dim 256, a window
-   without the causal mask, hymba's window in float32), each held to the
-   plain version;
+   K3's device time (of the kernel the type picks: ``flash_wgmma_kernel``
+   for bf16, ``flash_kernel`` for float32), the call's, the plain
+   version's, the bound and what sets it, and
+   ``F.scaled_dot_product_attention(..., enable_gqa=True)`` on the same
+   inputs as the library yardstick, with the TFLOP/s of both and K3's share
+   of the bound; then seven instances the main
+   path does not reach (a ragged last tile in fp16, head dim 256 in float32
+   and in bf16, a window without the causal mask in float32 and in fp16,
+   hymba's window in float32, a ragged S of 500 with a window in bf16),
+   each held to the plain version;
 10. decode — kernel K4 (its split pass and merge) through
    ``repro_torch.kernels.ops.decode_attention`` (block_k 1024): yi-9b at
    B 16, S 32,768 in bf16 with ragged lengths from ``SEED`` (one at S, one
    at 1), hymba-1.5b's long decode (B 1, S 524,288, length S) in bf16, and
    yi-9b at B 4, S 8192 in float32 with lengths [0, 1, 4097, 8192], where
-   row 0 must be exactly zero; checked, timed and bounded as in phase 9,
+   row 0 must be exactly zero; checked, timed and bounded as in phase 9
+   (TB/s in place of TFLOP/s),
    the planted faults being zeros and the second half of each sequence
-   dropped; then four instances (lengths below 0 and above S in fp16, a
-   query-head group of 12, head dim 256, hymba's long decode in float32),
-   each held to the plain version.
+   dropped; then five instances (lengths below 0 and above S in fp16, a
+   query-head group of 12, head dim 256, hymba's long decode in float32, a
+   group of 32 in bf16), each held to the plain version.
 
 The line before the last is a JSON object with K1's to K4's numbers; the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -233,12 +243,23 @@ FLASH_EDGES = (
     ("window 70, non-causal", 1, 320, 4, 4, 128, False, 70, "float32"),
     ("hymba-1.5b window 2048, f32", 1, 4096, 25, 5, 64, True, 2048, "float32"),
 )
+# the tensor-core kernel's other instances: hd 256 (32-key tiles), a window
+# without the causal mask, and several query blocks with a ragged tail; drawn
+# from a generator of their own, so that phase 10's inputs stay those of runs
+# before these were added
+FLASH_TC_EDGES = (
+    ("hd 256, MQA, bf16", 1, 512, 8, 1, 256, True, 0, "bfloat16"),
+    ("window 70, non-causal, fp16", 1, 320, 4, 4, 128, False, 70, "float16"),
+    ("ragged S 500, window 300, bf16", 2, 500, 10, 5, 128, True, 300, "bfloat16"),
+)
 # (name, B, S, H, KVH, hd, lengths, dtype name)
 DECODE_EDGES = (
     ("negative and above-S lengths, fp16", 3, 2048, 8, 2, 64, (-3, 5000, 700), "float16"),
     ("group of 12 (command-r)", 2, 4096, 24, 2, 128, (4096, 65), "float32"),
     ("hd 256, MQA", 2, 1024, 8, 1, 256, (1024, 3), "bfloat16"),
     ("hymba-1.5b long decode, f32", 1, 524288, 25, 5, 64, (524288,), "float32"),
+    # bf16 with two m-tiles of 16 heads (a group of 32 at hd 64)
+    ("group of 32, bf16", 2, 2048, 32, 1, 64, (2048, 100), "bfloat16"),
 )
 ATTENTION_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}  # the reference's
 # q and k are drawn at this standard deviation, v at 1: the scores then have
@@ -268,6 +289,37 @@ def attention_bound_ms(flops, nbytes, dtype_name):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def sass_check(library):
+    """The attention library as built: every instance of K3's tensor-core
+    kernel must hold ``HGMMA`` (wgmma) in its SASS, and every instance of
+    it and of K4's split pass an asynchronous load, ``UTMALDG`` (TMA) or
+    ``LDGSTS`` (cp.async), or the run fails.  Returns the instances counted
+    of each."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    ops = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            ops[name] = set()
+        elif name:
+            ops[name].update(op for op in ("HGMMA", "LDGSTS", "UTMALDG") if op in line)
+    flash = [n for n in ops if "flash_wgmma_kernel" in n]
+    split = [n for n in ops if "decode_split" in n]
+    check(len(flash) == 6, f"sass: {len(flash)} instances of flash_wgmma_kernel, expected 6 "
+          "(bf16 and fp16 at head dims 64, 128, 256)")
+    check(split, "sass: no instance of K4's split pass")
+    for n in flash:
+        check("HGMMA" in ops[n], f"sass: no HGMMA in {n}")
+    for n in flash + split:
+        check(ops[n] & {"LDGSTS", "UTMALDG"}, f"sass: no LDGSTS or UTMALDG in {n}")
+    return len(flash), len(split)
+
+
 def attention_phases(smi):
     """Phases 9 and 10: K3 and K4 driven through ``repro_torch.kernels.ops``
     with their launch counts, then held to their plain versions and timed;
@@ -286,9 +338,9 @@ def attention_phases(smi):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def qkv(q_shape, kv_shape, dtype):
-        """q, k and v from ``gen``: q and k at ``QK_STD``, v at 1."""
-        return tuple((torch.randn(*shape, generator=gen, device=dev) * std)
+    def qkv(q_shape, kv_shape, dtype, g=gen):
+        """q, k and v from ``g``: q and k at ``QK_STD``, v at 1."""
+        return tuple((torch.randn(*shape, generator=g, device=dev) * std)
                      .to(getattr(torch, dtype))
                      for shape, std in ((q_shape, QK_STD), (kv_shape, QK_STD), (kv_shape, 1.0)))
 
@@ -372,7 +424,7 @@ def attention_phases(smi):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
 
-        ms = kernel_ms(run, KERNEL_REPS, name="flash_kernel")
+        ms = kernel_ms(run, KERNEL_REPS, name=flash.k3_instance(q.dtype, hd)[0])
         call, plain_ms = cuda_ms(run, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS)
         lib_ms = cuda_ms(library, KERNEL_REPS)
         pairs = admitted_pairs(s, causal, window)
@@ -380,6 +432,9 @@ def attention_phases(smi):
         bound, bound_by = attention_bound_ms(4 * b * h * hd * pairs, nbytes, dt)
         k3[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
                         bound_by=bound_by)
+        print(f"flash: K3 {name}: {4 * b * h * hd * pairs / ms / 1e9:.1f} TFLOP/s "
+              f"({bound / ms:.1%} of the bound; SDPA "
+              f"{4 * b * h * hd * pairs / lib_ms / 1e9:.1f} TFLOP/s) [{smi}]", flush=True)
         print(f"flash: K3 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
               f"window={window}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
               f"(planted faults rejected: {rejected}) kernel_ms={ms:.4f} "
@@ -387,14 +442,17 @@ def attention_phases(smi):
               f"bound_ms={bound:.4f} ({bound_by}; {4 * b * h * hd * pairs / 1e9:.2f} GFLOP) "
               f"[{smi}]", flush=True)
     del inputs, outs
-    for name, b, s, h, kvh, hd, causal, window, dt in FLASH_EDGES:
-        q, k, v = qkv((b, s, h, hd), (b, s, kvh, hd), dt)
-        err, rel = compare(flash.flash_attention(q, k, v, causal=causal, window=window),
-                           flash.flash_attention_plain(q, k, v, causal=causal, window=window),
-                           dt, f"K3 {name}")
-        print(f"flash: K3 edge {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
-              f"window={window}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e}",
-              flush=True)
+    tc_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for edges, g in ((FLASH_EDGES, gen), (FLASH_TC_EDGES, tc_gen)):
+        for name, b, s, h, kvh, hd, causal, window, dt in edges:
+            q, k, v = qkv((b, s, h, hd), (b, s, kvh, hd), dt, g)
+            err, rel = compare(
+                flash.flash_attention(q, k, v, causal=causal, window=window),
+                flash.flash_attention_plain(q, k, v, causal=causal, window=window),
+                dt, f"K3 {name}")
+            print(f"flash: K3 edge {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} "
+                  f"causal={causal} window={window}: close=True max_abs_err={err:.3e} "
+                  f"max_row_rel_err={rel:.3e}", flush=True)
     print(f"flash: phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # 10. K4 through the ops entry point: the main path, counted
@@ -441,7 +499,7 @@ def attention_phases(smi):
         def run(args=args):
             return ops.decode_attention(*args)
 
-        ms = kernel_ms(run, KERNEL_REPS, name=("decode_split_kernel", "decode_combine_kernel"))
+        ms = kernel_ms(run, KERNEL_REPS, name=("decode_split", "decode_combine_kernel"))
         call = cuda_ms(run, KERNEL_REPS)
         plain_ms = cuda_ms(lambda args=args: decode.decode_attention_plain(*args), PLAIN_REPS)
         lib_ms = cuda_ms(library, KERNEL_REPS)
@@ -450,6 +508,8 @@ def attention_phases(smi):
         bound, bound_by = attention_bound_ms(4 * h * hd * valid, nbytes, dt)
         k4[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
                         bound_by=bound_by)
+        print(f"decode: K4 {name}: {nbytes / ms / 1e9:.3f} TB/s ({bound / ms:.1%} of the "
+              f"bound; SDPA {nbytes / lib_ms / 1e9:.3f} TB/s) [{smi}]", flush=True)
         n_split, chunk = decode.splits(b, kvh, s, torch.cuda.get_device_properties(dev)
                                        .multi_processor_count)
         print(f"decode: K4 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} valid "
@@ -524,6 +584,10 @@ def main() -> int:
             build.result()
     print(f"build: K1 and K2, and K3 and K4, built from source in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    n_flash, n_split = sass_check(load_attention()._name)
+    print(f"build: SASS holds HGMMA and an asynchronous load in all {n_flash} instances of "
+          f"K3's flash_wgmma_kernel, and an asynchronous load in all {n_split} of K4's split "
+          "pass", flush=True)
 
     demand = np.stack([
         msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,

@@ -1,7 +1,8 @@
-// Element types of the attention kernels K3 and K4: float32, bf16 and fp16
-// are widened to float32 as they are loaded and rounded back as the output
-// is stored.  The build defines __CUDA_NO_BFLOAT16_CONVERSIONS__ and its
-// fp16 twin, so conversions go through the intrinsics.
+// Element types of the attention kernels K3 and K4.  The float32 kernels
+// read float32 (`to_float`); every kernel rounds its float32 result to the
+// output's type (`from_float`).  The build defines
+// __CUDA_NO_BFLOAT16_CONVERSIONS__ and its fp16 twin, so conversions go
+// through the intrinsics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,8 +13,6 @@ namespace repro_attention {
 constexpr float kNegInf = -1e30f;   // the reference's masked score
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

@@ -14,12 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..obs.telemetry import get_telemetry
-from .flash_attention import DTYPE_IDS, HEAD_DIMS, NEG_INF
+from .flash_attention import DTYPE_IDS, HEAD_DIMS, NEG_INF, aligned
 
 DEFAULT_BK = 1024
-#: cache positions per tile of K4's loop; its chunks are multiples of it
+#: the unit of K4's split plan: its chunks are multiples of it, and the
+#: kernel's tiles (8 to 64 positions, 8 KB of K each) divide it
 TILE = 64
-#: blocks K4's split pass aims for on each SM (it holds three to five)
+#: blocks K4's split pass aims for on each SM
 BLOCKS_PER_SM = 4
 
 #: K4 launches since import (or since a caller reset it), two per call; the
@@ -109,7 +110,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, block_k=DEFAUL
     if H // kvh > lib.repro_decode_attention_max_rep(hd):
         raise ValueError(f"K4 has no instance for {H // kvh} query heads per kv head at "
                          f"head dim {hd}")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    q, k_cache, v_cache = aligned(q), aligned(k_cache), aligned(v_cache)
     lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if out.numel():

@@ -24,6 +24,15 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: head dims K3 and K4 have instances for
 HEAD_DIMS = (64, 128, 256)
 
+#: K3's instances: the element type picks the kernel of ``csrc/flash_attention.cu``
+#: (``flash_wgmma_kernel`` on the tensor cores, ``flash_kernel`` on the CUDA
+#: cores) and the head dim its tiles, as (query rows, keys) per block
+INSTANCES = {
+    torch.bfloat16: ("flash_wgmma_kernel", {64: (128, 128), 128: (128, 128), 256: (128, 32)}),
+    torch.float16: ("flash_wgmma_kernel", {64: (128, 128), 128: (128, 128), 256: (128, 32)}),
+    torch.float32: ("flash_kernel", {64: (64, 64), 128: (64, 64), 256: (64, 64)}),
+}
+
 #: K3 launches since import (or since a caller reset it); the plain version
 #: on CPU tensors never counts
 flash_launches = 0
@@ -44,6 +53,28 @@ def _check(q, k, v, block_q, block_k):
     bq, bk = min(block_q, S), min(block_k, S)
     if bq < 1 or bk < 1 or S % bq or S % bk:
         raise ValueError(f"S = {S} is not a multiple of the blocks ({bq}, {bk})")
+
+
+def k3_instance(dtype, hd):
+    """``(kernel, (query rows, keys))``: the K3 kernel that runs q, k and v of
+    ``dtype`` at head dim ``hd``, and its tiles.  bf16 and fp16 run on the
+    tensor cores, float32 on the CUDA cores (TF32 would break its 2e-5
+    tolerance); ``ValueError`` for a type or head dim with no instance, as
+    the C entry point returns ``cudaErrorInvalidValue`` for them."""
+    if dtype not in INSTANCES:
+        raise ValueError(f"K3 takes one of {list(INSTANCES)} for q, k and v, got {dtype}")
+    kernel, tiles = INSTANCES[dtype]
+    if hd not in tiles:
+        raise ValueError(f"K3 has no instance for head dim {hd}; it takes {HEAD_DIMS}")
+    return kernel, tiles[hd]
+
+
+def aligned(t):
+    """``t`` contiguous, and at a 16-byte aligned address (the kernels'
+    TMA loads and 16-byte copies need it; a view may start anywhere in its
+    storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _mask(S, causal, window, device):
@@ -88,8 +119,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAU
 
     ``block_q`` and ``block_k`` are the reference's tile sizes: S must be a
     multiple of ``min(block, S)`` for each, or ``ValueError``, but they do
-    not change the result.  K3 picks its own tiles for the card's shared
-    memory (64 query rows by 64 keys).
+    not change the result.  K3 picks its own tiles (:func:`k3_instance`):
+    bf16 and fp16 run on the tensor cores in blocks of 128 query rows
+    against key tiles of 128 (32 at head dim 256); float32 runs on the CUDA
+    cores, 64 query rows by 64 keys.
 
     CUDA tensors launch K3 (float32, bf16 or fp16, one type for q, k and v;
     head dim 64, 128 or 256) and count in :data:`flash_launches`; CPU
@@ -104,16 +137,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAU
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}, "
                          f"{k.device} and {v.device}")
-    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"K3 takes one of {list(DTYPE_IDS)} for q, k and v, got "
-                         f"{q.dtype}, {k.dtype} and {v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"K3 takes one type for q, k and v, got {q.dtype}, {k.dtype} and "
+                         f"{v.dtype}")
     B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"K3 has no instance for head dim {hd}; it takes {HEAD_DIMS}")
+    k3_instance(q.dtype, hd)
     from ._build import load_attention
 
     lib = load_attention()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     if out.numel():
         scale = hd ** -0.5 if scale is None else scale
