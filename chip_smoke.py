@@ -24,35 +24,52 @@ Phases, one line or more each:
    split pass;
 3. kernel — K1 against its plain PyTorch version on the card, on the inputs
    the main path gives it (A1, A2, A3, delayedoff, A2 with decision
-   counters, and a typed two-group fleet with fractional Δ_l): the
-   on-matrices and counters must be equal bit for bit (the same input
-   tensors, so no tolerance); K1's device time (the profiler's CUPTI
-   records, mean of 20 launches), the wrapper call's time and the plain
-   version's (CUDA events, medians of 20 and 3 calls);
-4. provision — A1, A2 and offline end to end through K1, with the launch
-   count of that run; ``x`` and ``level_cost`` must equal the plain route's
-   on the card, offline must cost no more than any online policy on every
-   trace and window, and the mean competitive ratio must meet the paper's
-   bound (plus the eval harness's 0.05 tolerance); median wall time per
-   call;
-5. breakdown — one A1 and one A2 call under ``torch.profiler``: device
-   busy time, K1's share, and the kernels that take the most;
-6. stream kernel — kernel K2 (the streaming scan) against its plain version
-   on the card, on the inputs ``provision_stream()`` gives it, for the six
-   cases of phase 3, each at ``t_chunk`` 512 (which leaves a part tile at
-   the end) and at ``t_chunk`` = T, plus one trace cut at slot 601 with the
-   carry threaded into a second call: x, every per-lane total and the carry
-   must be equal bit for bit; K2's device time, call time, plain time and
-   bound as in phase 3;
+   counters and reason codes, and a typed two-group fleet with fractional
+   Δ_l), and on straddling demand (A1, and A2 with codes) that sits on the
+   first and last level of blocks of 128 and changes on the slot loop's
+   32-slot sub-tile boundaries: the on-matrices, counters and codes must
+   be equal bit for bit (the same input tensors, so no tolerance), and the
+   straddling cases must take every path of the loop; the share of
+   sub-tiles each path took; K1's device time (the profiler's CUPTI
+   records, mean of 20 launches) with each way of prefetching the wait
+   table, the wrapper call's time and the plain version's (CUDA events,
+   medians of 20 and 3 calls), and the bound, whose operations count only
+   the updates that are not in a steady state (the old bound, which
+   counts every update, beside it);
+4. provision — A1, A2 and offline end to end, each call counted on its
+   own: one K2 launch per online call and no K1 launch; then A2 with
+   ``record_decisions``: one K1 launch and no K2 launch.  ``x``,
+   ``level_cost`` and ``cost`` must equal the plain route's on the card,
+   and the recorded call's ``decisions`` and ``decision_counts`` too;
+   offline must cost no more than any online policy on every trace and
+   window, and the mean competitive ratio must meet the paper's bound
+   (plus the eval harness's 0.05 tolerance); median wall time per call;
+5. breakdown — one A1, one A2 and one recorded A2 call under
+   ``torch.profiler``: device busy time, K1's and K2's share, and the
+   kernels that take the most;
+6. stream kernel — first the uniforms route's waits (``uniform_waits``)
+   against PyTorch's ``log1p`` route on every entry of the A2, A3 and
+   AQ-rand tables of the smoke inputs, which must be equal in every bit;
+   then kernel K2 against its plain version on the card, on the inputs
+   ``provision_stream()`` gives it, for the cases of phase 3 plus AQ-rand,
+   the keyed policies on the uniforms route and on the table route, each
+   at ``t_chunk`` 512 (which leaves a part tile at the end) and at
+   ``t_chunk`` = T, plus one trace cut at slot 601 with the carry threaded
+   into a second call: x, every per-lane total and the carry must be equal
+   bit for bit; K2's device time on each route and way of prefetching,
+   call time, plain time, bound and path shares as in phase 3;
 7. provision_stream — A1, A2 and A2 with decision counters end to end
    through K2: ``x``, ``level_cost``, ``cost`` and ``decision_counts`` must
-   equal ``provision()``'s (K1) bit for bit, with one K2 launch per call and
-   no K1 launch; median wall time and a ``torch.profiler`` breakdown;
+   equal ``provision()``'s bit for bit, and ``x``, ``level_cost`` and
+   ``cost`` the plain route's, with one K2 launch per call and no K1
+   launch; median wall time and a ``torch.profiler`` breakdown;
 8. year — ``provision_stream()`` over a year of ten-minute slots
-   (T = 52,560): A1 and delayedoff at B = 8, A2 at B = 2 (its CRN wait
-   tables are (W·B, T, N) float32); wall time, K2 launches and peak device
-   memory of each; three cells held to ``provision()`` run on that cell
-   alone, and every A1 cell's cost against offline's within 2 - α.
+   (T = 52,560) at B = 8: A1, delayedoff and A2 (the uniforms route: its
+   uniforms take 13.8 GB where the table route's waits would take 41);
+   wall time, K2 launches and peak device memory of each; the uniforms
+   route against the table route over the year on two traces; three cells
+   held to ``provision()`` run on that cell alone, every A1 cell's cost
+   against offline's within 2 - α, and A2's mean ratio within its bound.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -110,7 +127,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 N_LEVELS, N_SLOTS, N_TRACES = 4096, 1008, 8
 WINDOWS = list(range(6))
 YEAR_SLOTS = 52560               # a year of ten-minute slots
-YEAR_TRACES_A2 = 2               # A2's wait tables at B = 8 would take 41 GB
+YEAR_TABLE_TRACES = 2            # the table route's (W*B, T, N) waits at B = 8: 41 GB
+STRADDLE_BLOCKS = (0, 5, 17, 31) # level blocks whose edges the straddling demand sits on
 STREAM_T_CHUNK = 512             # K2's default tile; 1008 = 512 + 496
 CUT = 601                        # where the chained case splits the trace
 SEED = 0
@@ -186,40 +204,90 @@ def kernel_ms(fn, reps, name="grid_scan_kernel"):
                        f"{PROFILE_ATTEMPTS} sessions")
 
 
-def bound_ms(inputs, record, stream=False):
+def bound_ms(inputs, record, ons, stream=False):
     """Least time for a scan kernel's work on these inputs: the bytes it must
     move over the memory rate, or its operations over the float32 rate,
-    whichever is larger.  Outputs: K1's one-byte on-matrix (and counters),
-    or K2's x, per-lane totals and carry.  Each input row the cells use is
-    counted once; of a time-varying wait table only the entries this run's
-    demand consumes (one per lane turning idle).  Also returns the byte
-    bound with the whole wait table counted, for comparison."""
+    whichever is larger.  Outputs: K1's one-byte on-matrix (with the counters
+    and the one-byte codes under record), or K2's x, per-lane totals and
+    carry.  Each input row the cells use is counted once; of the waits only
+    the entries this run's demand consumes (one per lane turning idle: busy
+    at t - 1, not at t), as table entries or, on the uniforms route, as one
+    or two uniforms each.  The operations are ``OPS_PER_UPDATE`` for each
+    (cell, slot, level) update that is not in a steady state — the lane was
+    on at t - 1 and is not busy at t — counted from ``ons``, the plain
+    version's (G, T, N) on-matrix of the same inputs.  Returns the bound,
+    what sets it, and the bound that counts all G·T·N updates (the one of
+    earlier runs)."""
     import torch
 
+    from repro_torch.core.torch_provision import UniformWaits
+
     a, thr, cells = inputs["traces"], inputs["thresholds"], inputs["cell_trace"]
-    G, T, N = cells.shape[0], a.shape[1], thr.shape[-1]
+    drawn = isinstance(thr, UniformWaits)
+    G, T, N = cells.shape[0], a.shape[1], (thr.span if drawn else thr).shape[-1]
 
     def rows(c):
         return torch.unique(c).numel()
 
     if stream:          # x, run/up/down (+ 4 counters), carry r/on/wait
         base = G * T * 4 + G * (7 if record else 3) * N * 4 + G * N * 9
-    else:               # on-matrix (+ 4 counters)
-        base = G * T * N + (G * 4 * N * 4 if record else 0)
+    else:               # on-matrix (+ 4 counters and the codes)
+        base = G * T * N + (G * 4 * N * 4 + G * T * N if record else 0)
     base += rows(cells) * T * 4 + 4 * G * 4 + N * 4              # demand, cell maps, routes
     base += rows(inputs["cell_hor"]) * N * 4
     if inputs["horizon"]:
         base += rows(inputs["cell_pred"]) * T * 4
-    if thr.shape[1] == 1:
-        needed = full = rows(inputs["cell_thr"]) * N * 4
-    else:   # a lane consumes an entry when it turns idle: busy at t-1, not at t
-        level = torch.clamp(a[cells.long()], max=N)
-        needed = int(torch.clamp(level[:, :-1] - level[:, 1:], min=0).sum()) * 4
-        full = rows(inputs["cell_thr"]) * T * N * 4
+    level = torch.clamp(a[cells.long()], max=N)
+    crossings = int(torch.clamp(level[:, :-1] - level[:, 1:], min=0).sum())
+    if drawn:           # the uniforms a lane consumes, and the span (and p0) rows
+        per = 2 if thr.p0 is not None else 1
+        needed = crossings * 4 * per + rows(inputs["cell_thr"]) * N * 4 * per
+    elif thr.shape[1] == 1:
+        needed = rows(inputs["cell_thr"]) * N * 4
+    else:
+        needed = crossings * 4
+    busy = a[cells.long()][:, :, None] > inputs["routes"]
+    updates = int((ons[:, :-1] & ~busy[:, 1:]).sum())
     by_bytes = (base + needed) / HBM_BYTES_PER_S * 1e3
-    by_ops = G * T * N * OPS_PER_UPDATE / FP32_OPS_PER_S * 1e3
+    by_ops = updates * OPS_PER_UPDATE / FP32_OPS_PER_S * 1e3
     kind = "bytes" if by_bytes >= by_ops else "operations"
-    return max(by_bytes, by_ops), kind, (base + full) / HBM_BYTES_PER_S * 1e3
+    old = max(by_bytes, G * T * N * OPS_PER_UPDATE / FP32_OPS_PER_S * 1e3)
+    return max(by_bytes, by_ops), kind, old
+
+
+def path_shares(paths):
+    """The share of (level block, cell, sub-tile) triples that took each path
+    of the slot loop, from a kernel's path counters."""
+    n = [int(v) for v in paths.tolist()]
+    total = max(sum(n), 1)
+    return (f"paths of {sum(n)} (block, cell, sub-tile): step {n[0] / total:.1%}, "
+            f"all busy {n[1] / total:.1%}, all idle {n[2] / total:.1%}")
+
+
+def straddle_demand():
+    """(8, T) demand rows that sit on the edges of a block of 128 levels: at
+    its first level j0 (no lane busy), j0 + 1, its last level j0 + 127 (all
+    but the last lane busy), j0 + 128 (every lane busy) and one either side,
+    constant over each 32-slot sub-tile of the slot loop and changing on its
+    boundaries, with single-slot dips and bumps at a sub-tile's last and
+    first slot.  Rows 2i and 2i + 1 take block ``STRADDLE_BLOCKS[i]``; the
+    odd rows are shifted by 16 slots, so that they change inside sub-tiles."""
+    import numpy as np
+
+    offsets = (128, 0, 0, 127, 128, 1, 0, 129, 128, -1, -1, 128, 127, 127, 0)
+    rows = []
+    for block in STRADDLE_BLOCKS:
+        j0 = block * 128
+        row = np.empty(N_SLOTS, np.int64)
+        for s in range(0, N_SLOTS, 32):
+            row[s:s + 32] = j0 + offsets[(s // 32) % len(offsets)]
+            if (s // 32) % 7 == 3:
+                row[min(s + 31, N_SLOTS - 1)] -= 1
+            if (s // 32) % 7 == 5:
+                row[s] += 1
+        row = np.clip(row, 0, None)
+        rows += [row, np.roll(row, 16)]
+    return np.stack(rows).astype(np.int32)
 
 
 # phase 9: (name, B, S, H, KVH, hd, causal, window, dtype name)
@@ -595,41 +663,49 @@ def main() -> int:
         for b in range(N_TRACES)
     ])
     ab = torch.as_tensor(demand, device=dev).to(torch.int32)
-    predb = ab[None]
+    straddle = torch.as_tensor(straddle_demand(), device=dev)
 
-    def grid_inputs(policy, costs=PAPER_COSTS):
+    def grid_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False):
         delta = torch.as_tensor(costs.delta, dtype=torch.float32,
                                 device=dev).broadcast_to((N_LEVELS,))
         uniforms = None
         if policy in engine.KEYED:
             gen = torch.Generator(device=dev).manual_seed(SEED)
-            uniforms = engine._uniforms(gen, N_TRACES, N_SLOTS, N_LEVELS, dev)
+            uniforms = engine._uniforms(gen, a.shape[0], a.shape[1], N_LEVELS, dev)
         inputs, _ = engine._grid_inputs(
-            ab, predb, WINDOWS, delta, uniforms, n_levels=N_LEVELS,
-            max_h=costs.delta_slots(), policy=policy,
+            a, a[None], WINDOWS, delta, uniforms, n_levels=N_LEVELS,
+            max_h=costs.delta_slots(), policy=policy, uniform_waits=uniform_waits,
         )
         return inputs
+
+    def new_paths():
+        return torch.zeros(3, dtype=torch.int32, device=dev)
 
     # 3. kernel against plain version
     typed = CostModel.from_groups(
         ServerGroup("efficient", N_LEVELS // 2, P=1.0, beta_on=1.25, beta_off=1.25),
         ServerGroup("legacy", N_LEVELS // 2, P=2.0, beta_on=3.0, beta_off=3.0),
     )
+    # (name, policy, costs, record, demand); record also asks K1 for the codes
     cases = [
-        ("A1", "A1", PAPER_COSTS, False),
-        ("A2", "A2", PAPER_COSTS, False),
-        ("A3", "A3", PAPER_COSTS, False),
-        ("delayedoff", "delayedoff", PAPER_COSTS, False),
-        ("A2+record", "A2", PAPER_COSTS, True),
-        ("typed A1, Δ 2.5/3.0", "A1", typed, False),
+        ("A1", "A1", PAPER_COSTS, False, ab),
+        ("A2", "A2", PAPER_COSTS, False, ab),
+        ("A3", "A3", PAPER_COSTS, False, ab),
+        ("delayedoff", "delayedoff", PAPER_COSTS, False, ab),
+        ("A2+record", "A2", PAPER_COSTS, True, ab),
+        ("typed A1, Δ 2.5/3.0", "A1", typed, False, ab),
+        ("straddle A1", "A1", PAPER_COSTS, False, straddle),
+        ("straddle A2+record", "A2", PAPER_COSTS, True, straddle),
     ]
     measured = {}
     max_err = 0
-    for name, policy, costs, record in cases:
-        inputs = grid_inputs(policy, costs)
+    plain_ons = {}              # the plain on-matrices, for the bounds of phase 6
+    for name, policy, costs, record, a in cases:
+        inputs = grid_inputs(policy, costs, a)
         launched_before = kernels.launches
-        got = kernels.provision_scan_grid(**inputs, record=record)
-        want = kernels.provision_scan_grid_ref(**inputs, record=record)
+        paths = new_paths()
+        got = kernels.provision_scan_grid(**inputs, record=record, codes=record, paths=paths)
+        want = kernels.provision_scan_grid_ref(**inputs, record=record, codes=record)
         torch.cuda.synchronize()
         got, want = (got, want) if record else ((got,), (want,))
         for g, w in zip(got, want):
@@ -637,21 +713,36 @@ def main() -> int:
             max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
             check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
         check(got[0].any() and not got[0].all(), f"K1 {name}: degenerate on-matrix")
-        ms = kernel_ms(lambda: kernels.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
-        call = cuda_ms(lambda: kernels.provision_scan_grid(**inputs, record=record), KERNEL_REPS)
-        plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(**inputs, record=record),
-                        PLAIN_REPS)
-        bound, bound_by, bound_full = bound_ms(inputs, record)
-        measured[name] = (ms, plain, bound, bound_by)
         G, T, N = got[0].shape
-        print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
-              f"equal=True kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.2f} "
-              f"bound_ms={bound:.4f} "
-              f"({bound_by}; {bound_full:.4f} counting the whole wait table) "
-              f"launches={kernels.launches - launched_before} (check and timing) [{smi}]",
-              flush=True)
+        plain_ons[name] = want[0]
+        if a is straddle:       # the edges of both skips: each path taken, nothing timed
+            check(all(int(v) > 0 for v in paths.tolist()),
+                  f"K1 {name}: a path of the slot loop was never taken ({paths.tolist()})")
+            print(f"kernel: K1 {name}: G={G} T={T} N={N} equal=True; {path_shares(paths)}",
+                  flush=True)
+            continue
 
-    # 4. provision() end to end: the main path, counted
+        def k1(prefetch=None, inputs=inputs, record=record):
+            return kernels.provision_scan_grid(**inputs, record=record, codes=record,
+                                               prefetch=prefetch)
+
+        ms = kernel_ms(k1, KERNEL_REPS)
+        other = ""              # the wait table read ahead by registers, not the ring
+        if inputs["thresholds"].shape[1] != 1:
+            other = f" register_prefetch_ms={kernel_ms(lambda: k1('register'), KERNEL_REPS):.4f}"
+        call = cuda_ms(k1, KERNEL_REPS)
+        plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(
+            **inputs, record=record, codes=record), PLAIN_REPS)
+        bound, bound_by, bound_old = bound_ms(inputs, record, want[0])
+        measured[name] = (ms, plain, bound, bound_by)
+        print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
+              f"codes={record} equal=True kernel_ms={ms:.4f}{other} call_ms={call:.4f} "
+              f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
+              f"counting every update) launches={kernels.launches - launched_before} "
+              f"(check and timing); {path_shares(paths)} [{smi}]", flush=True)
+        del got, want
+
+    # 4. provision() end to end: the main path, counted call by call
     def spec(policy):
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return ProvisionSpec(
@@ -660,67 +751,112 @@ def main() -> int:
             n_levels=N_LEVELS, device=dev,
         )
 
+    def counted(fn):
+        """``fn()`` with the launch counters set to 0 just before it and read
+        just after: its result, K1's launches and K2's."""
+        torch.cuda.synchronize()
+        kernels.launches = kernels.stream_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.launches, kernels.stream_launches
+
     policies = ("A1", "A2", "offline")
-    torch.cuda.synchronize()
-    kernels.launches = kernels.stream_launches = 0
-    results = {p: provision(spec(p)) for p in policies}
-    torch.cuda.synchronize()
-    main_launches = kernels.launches
-    check(main_launches == 2 and kernels.stream_launches == 0,
-          f"provision(): K1 launched {main_launches} times and K2 "
-          f"{kernels.stream_launches}, expected 2 and 0")
-    print(f"provision: main path ran A1, A2, offline with K1 launches={main_launches}",
-          flush=True)
+    results = {}
+    main_k2 = 0
+    for p in policies:
+        results[p], n1, n2 = counted(lambda p=p: provision(spec(p)))
+        want = (0, 0) if p == "offline" else (0, 1)
+        check((n1, n2) == want, f"provision({p}): K1 launched {n1} times and K2 {n2}, "
+              f"expected {want[0]} and {want[1]}")
+        main_k2 += n2
+    recorded, main_k1, n2 = counted(lambda: provision(spec("A2"), record_decisions=True))
+    check((main_k1, n2) == (1, 0), f"provision(A2, record_decisions=True): K1 launched "
+          f"{main_k1} times and K2 {n2}, expected 1 and 0")
+    print(f"provision: main path ran A1, A2, offline with K2 launches={main_k2} (1 per "
+          f"online call) and K1 launches=0; A2 with record_decisions with K1 "
+          f"launches={main_k1} and K2 launches=0", flush=True)
 
     W, B = len(WINDOWS), N_TRACES
+    plain_results = {}
     for p in policies:
         res = results[p]
         plain = provision_module._provision(spec(p), record_decisions=False, kernel=False)
+        plain_results[p] = plain
         check(tuple(res.x.shape) == (W, B, N_SLOTS) and res.x.dtype == torch.int32,
               f"provision {p}: x shape {tuple(res.x.shape)}")
         check(bool(torch.isfinite(res.cost).all()), f"provision {p}: cost not finite")
-        check(torch.equal(res.x, plain.x), f"provision {p}: x differs from plain route")
-        check(torch.equal(res.level_cost, plain.level_cost),
-              f"provision {p}: level_cost differs from plain route")
+        for field in ("x", "level_cost", "cost"):
+            check(torch.equal(getattr(res, field), getattr(plain, field)),
+                  f"provision {p}: {field} differs from plain route")
+    plain_rec = provision_module._provision(spec("A2"), record_decisions=True, kernel=False)
+    check(recorded.decisions is not None and recorded.decisions.dtype == torch.uint8
+          and tuple(recorded.decisions.shape) == (W, B, N_SLOTS, N_LEVELS),
+          "provision(record_decisions=True): no (W, B, T, N) uint8 decisions on the card")
+    check(torch.equal(recorded.decisions, plain_rec.decisions),
+          "provision(record_decisions=True): decisions differ from the plain route's")
+    for k, v in plain_rec.decision_counts.items():
+        check(torch.equal(recorded.decision_counts[k], v),
+              f"provision(record_decisions=True): decision_counts[{k}] differs")
+    for field in ("x", "level_cost", "cost"):
+        check(torch.equal(getattr(recorded, field), getattr(plain_rec, field))
+              and torch.equal(getattr(recorded, field), getattr(results["A2"], field)),
+              f"provision(A2, record_decisions=True): {field} differs from the plain "
+              "route's or from the K2 route's")
+    print(f"provision: x, level_cost and cost equal the plain route's bit for bit for A1, "
+          f"A2, offline; A2 with record_decisions: decisions "
+          f"({int((recorded.decisions != 0).sum())} nonzero codes) and decision_counts "
+          "equal the plain route's too", flush=True)
+    del plain_rec
     off = results["offline"].cost
     for p in ("A1", "A2"):
         check(bool((off <= results[p].cost).all()),
               f"provision: offline costs more than {p} somewhere")
 
-    for p in policies:
-        def run(p=p):
-            provision(spec(p)).x.sum().item()
-        run()
+    def wall_ms(fn):
+        fn()
         walls = []
         for _ in range(PROVISION_REPS):
             t0 = time.perf_counter()
-            run()
+            fn()
             walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"provision: {p} median wall_ms={statistics.median(walls):.2f} "
-              f"per call (G={W * B} cells) [{smi}]", flush=True)
+        return statistics.median(walls)
+
+    for p in policies:
+        wall = wall_ms(lambda p=p: provision(spec(p)).x.sum().item())
+        print(f"provision: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) [{smi}]",
+              flush=True)
+    wall = wall_ms(lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
+    print(f"provision: A2 record_decisions median wall_ms={wall:.2f} per call [{smi}]",
+          flush=True)
 
     # 5. where the time goes in one provision() call (torch.profiler)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for p in ("A1", "A2"):
-        provision(spec(p)).x.sum().item()
+    def breakdown(label, fn):
+        fn()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            provision(spec(p)).x.sum().item()
+            fn()
         rows = sorted((e for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       key=lambda e: -e.self_device_time_total)
         if not rows:
-            print(f"breakdown: {p} device time not measured (the profiler saw no "
+            print(f"breakdown: {label} device time not measured (the profiler saw no "
                   "device events)", flush=True)
-            continue
+            return
         busy = sum(e.self_device_time_total for e in rows) / 1e3
         k1_ms = sum(e.self_device_time_total for e in rows if "grid_scan" in e.key) / 1e3
-        print(f"breakdown: {p} device busy {busy:.3f} ms in {len(rows)} kernels, "
-              f"K1 {k1_ms:.3f} ms [{smi}]", flush=True)
+        k2_ms = sum(e.self_device_time_total for e in rows if "stream_scan" in e.key) / 1e3
+        print(f"breakdown: {label} device busy {busy:.3f} ms in {len(rows)} kernels, "
+              f"K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms [{smi}]", flush=True)
         for e in rows[:6]:
-            print(f"breakdown: {p}   {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:90]}", flush=True)
+            print(f"breakdown: {label}   {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<4d} {e.key[:80]}", flush=True)
+
+    for p in ("A1", "A2"):
+        breakdown(f"provision {p}", lambda p=p: provision(spec(p)).x.sum().item())
+    breakdown("provision A2 record_decisions",
+              lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
 
     delta = float(PAPER_COSTS.delta)
     for p, bound_of in (("A1", lambda a: 2.0 - a), ("A2", lambda a: (math.e - a) / (math.e - 1))):
@@ -736,8 +872,29 @@ def main() -> int:
                 check(bool((cr[i] <= bound + 1e-6).all()), f"A1 window {w}: CR above bound")
 
     # 6. K2 against its plain version on the card
-    def stream_inputs(policy, costs=PAPER_COSTS):
-        inputs = grid_inputs(policy, costs)
+    # first the uniforms route's arithmetic: its waits against the table
+    # route's (PyTorch's log1p) on every entry of the smoke tables
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u0, u = engine._uniforms(gen, N_TRACES, N_SLOTS, N_LEVELS, dev)
+    delta_lv = torch.as_tensor(PAPER_COSTS.delta, dtype=torch.float32,
+                               device=dev).broadcast_to((N_LEVELS,))
+    entries = differ = 0
+    for policy in ("A2", "A3", "AQ-rand"):
+        span, p0 = engine._wait_rows(policy, [0] if policy == "AQ-rand" else WINDOWS, delta_lv)
+        for k in range(span.shape[0]):
+            row0 = None if p0 is None else p0[k]
+            want = engine._waits(u0 if p0 is not None else None, u, span[k], row0)
+            got = kernels.uniform_waits(u0 if p0 is not None else None, u, span[k], row0)
+            torch.cuda.synchronize()
+            entries += want.numel()
+            differ += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    del got, want, u0, u
+    print(f"stream kernel: uniforms route: {entries} wait entries of the A2, A3 and AQ-rand "
+          f"tables, {differ} differ in any bit from PyTorch's log1p route", flush=True)
+    check(differ == 0, "the uniforms route's waits differ from the table route's")
+
+    def stream_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False):
+        inputs = grid_inputs(policy, costs, a, uniform_waits)
         del inputs["delta"]                 # K2 examines `horizon` slots, no more
         return inputs
 
@@ -766,31 +923,61 @@ def main() -> int:
 
     k2_err = 0.0
     k2_measured = {}
-    for name, policy, costs, record in cases:
-        inputs = stream_inputs(policy, costs)
+    stream_cases = cases[:6] + [("AQ-rand", "AQ-rand", PAPER_COSTS, False, ab)] + cases[6:]
+    for name, policy, costs, record, a in stream_cases:
+        table = stream_inputs(policy, costs, a)
+        # the route the main path takes: the uniforms route for the keyed policies
+        drawn = stream_inputs(policy, costs, a, uniform_waits=True) \
+            if policy in engine.KEYED else table
         launched_before = kernels.stream_launches
+        ons = plain_ons.get(name)
+        if ons is None:
+            ons = kernels.provision_scan_grid_ref(**grid_inputs(policy, costs, a))
         for t_chunk in (STREAM_T_CHUNK, N_SLOTS):
-            def k2(t_chunk=t_chunk):
-                return kernels.provision_scan_stream(**inputs, t_chunk=t_chunk,
-                                                     record=record)
-            got = k2()
+            def k2(route=drawn, t_chunk=t_chunk, prefetch=None, paths=None):
+                return kernels.provision_scan_stream(**route, t_chunk=t_chunk, record=record,
+                                                     prefetch=prefetch, paths=paths)
             want, plain = timed(lambda: kernels.provision_scan_stream_ref(
-                **inputs, t_chunk=t_chunk, record=record))
-            k2_err = max(k2_err, stream_diff(got, want, f"{name} t_chunk={t_chunk}"))
-            check(got[1]["up"].sum() > 0 and got[1]["down"].sum() > 0,
+                **table, t_chunk=t_chunk, record=record))
+            paths = new_paths()
+            k2_err = max(k2_err, stream_diff(k2(paths=paths), want,
+                                             f"{name} t_chunk={t_chunk}"))
+            if drawn is not table:
+                k2_err = max(k2_err, stream_diff(k2(route=table), want,
+                                                 f"{name} table route t_chunk={t_chunk}"))
+            check(want[1]["up"].sum() > 0 and want[1]["down"].sum() > 0,
                   f"K2 {name}: no level toggled")
+            if a is straddle:
+                check(all(int(v) > 0 for v in paths.tolist()),
+                      f"K2 {name}: a path of the slot loop was never taken ({paths.tolist()})")
+                print(f"stream kernel: K2 {name} t_chunk={t_chunk}: equal=True; "
+                      f"{path_shares(paths)}", flush=True)
+                continue
             ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
+            extra = ""          # the other ways to the same waits, timed beside it
+            if drawn is not table:
+                extra = " " + " ".join(
+                    f"{label}_ms={kernel_ms(fn, KERNEL_REPS, name='stream_scan_kernel'):.4f}"
+                    for label, fn in (
+                        ("uniforms_register" if policy != "A3" else "uniforms_ring",
+                         lambda: k2(prefetch="register" if policy != "A3" else "ring")),
+                        ("table_ring", lambda: k2(table, prefetch="ring")),
+                        ("table_register", lambda: k2(table, prefetch="register"))))
             call = cuda_ms(k2, KERNEL_REPS)
-            bound, bound_by, bound_full = bound_ms(inputs, record, stream=True)
+            bound, bound_by, bound_old = bound_ms(drawn, record, ons, stream=True)
             if t_chunk == STREAM_T_CHUNK:
                 k2_measured[name] = (ms, plain, bound, bound_by)
-            print(f"stream kernel: K2 {name} t_chunk={t_chunk}: G={got[0].shape[0]} "
-                  f"T={N_SLOTS} N={N_LEVELS} horizon={inputs['horizon']} equal=True "
-                  f"kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.2f} "
-                  f"bound_ms={bound:.4f} ({bound_by}; {bound_full:.4f} counting the "
-                  f"whole wait table) [{smi}]", flush=True)
+            route = "uniforms" if drawn is not table else "table" \
+                if table["thresholds"].shape[1] != 1 else "constant row"
+            print(f"stream kernel: K2 {name} t_chunk={t_chunk} ({route} route): "
+                  f"G={want[0].shape[0]} T={N_SLOTS} N={N_LEVELS} horizon={table['horizon']} "
+                  f"equal=True kernel_ms={ms:.4f}{extra} call_ms={call:.4f} "
+                  f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
+                  f"counting every update); {path_shares(paths)} [{smi}]", flush=True)
         print(f"stream kernel: K2 {name}: launches={kernels.stream_launches - launched_before} "
               "(check and timing)", flush=True)
+        del table, drawn, ons, want
+    del plain_ons
 
     # the chained case: a trace cut mid-tile and mid-wait, the carry threaded
     inputs = stream_inputs("A2")
@@ -821,58 +1008,36 @@ def main() -> int:
     # 7. provision_stream() end to end: the main path, counted
     stream_runs = (("A1", False), ("A2", False), ("A2", True))
     want = {(p, rec): provision(spec(p), record_decisions=rec) for p, rec in stream_runs}
-    torch.cuda.synchronize()
-    kernels.launches = kernels.stream_launches = 0
-    got = {(p, rec): provision_stream(spec(p), record_decisions=rec) for p, rec in stream_runs}
-    torch.cuda.synchronize()
-    stream_main_launches, k1_in_stream = kernels.stream_launches, kernels.launches
+    got, k1_in_stream, stream_main_launches = counted(
+        lambda: {(p, rec): provision_stream(spec(p), record_decisions=rec)
+                 for p, rec in stream_runs})
     check(stream_main_launches == len(stream_runs) and k1_in_stream == 0,
           f"provision_stream(): K2 launched {stream_main_launches} times and K1 "
           f"{k1_in_stream}, expected {len(stream_runs)} and 0")
     print(f"provision_stream: main path ran A1, A2, A2+record with K2 launches="
           f"{stream_main_launches}, K1 launches={k1_in_stream}", flush=True)
     for (p, rec), res in got.items():
-        ref_res = want[(p, rec)]
-        for field in ("x", "level_cost", "cost"):
-            check(torch.equal(getattr(res, field), getattr(ref_res, field)),
-                  f"provision_stream {p}: {field} differs from provision()")
+        for ref_res, what in ((want[(p, rec)], "provision()"),
+                              (plain_results[p], "the plain route")):
+            for field in ("x", "level_cost", "cost"):
+                check(torch.equal(getattr(res, field), getattr(ref_res, field)),
+                      f"provision_stream {p}: {field} differs from {what}")
         if rec:
-            for k, v in ref_res.decision_counts.items():
+            for k, v in want[(p, rec)].decision_counts.items():
                 check(torch.equal(res.decision_counts[k], v),
                       f"provision_stream {p}: decision_counts[{k}] differs from provision()")
     print("provision_stream: x, level_cost, cost and decision_counts equal provision()'s "
-          "(K1) bit for bit", flush=True)
+          "(K1's with record_decisions) bit for bit, and x, level_cost and cost the plain "
+          "route's", flush=True)
 
     for p in ("A1", "A2"):
-        def run(p=p):
-            provision_stream(spec(p)).x.sum().item()
-        run()
-        walls = []
-        for _ in range(PROVISION_REPS):
-            t0 = time.perf_counter()
-            run()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"provision_stream: {p} median wall_ms={statistics.median(walls):.2f} "
-              f"per call (G={W * B} cells) [{smi}]", flush=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                      key=lambda e: -e.self_device_time_total)
-        if not rows:
-            print(f"breakdown: provision_stream {p} device time not measured (the "
-                  "profiler saw no device events)", flush=True)
-            continue
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        k2_ms = sum(e.self_device_time_total for e in rows if "stream_scan" in e.key) / 1e3
-        print(f"breakdown: provision_stream {p} device busy {busy:.3f} ms in {len(rows)} "
-              f"kernels, K2 {k2_ms:.3f} ms [{smi}]", flush=True)
-        for e in rows[:6]:
-            print(f"breakdown: provision_stream {p}   {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:80]}", flush=True)
+        wall = wall_ms(lambda p=p: provision_stream(spec(p)).x.sum().item())
+        print(f"provision_stream: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) "
+              f"[{smi}]", flush=True)
+        breakdown(f"provision_stream {p}", lambda p=p: provision_stream(spec(p)).x.sum().item())
 
     # 8. a year of ten-minute slots through provision_stream()
-    del want, got, results, chained, first, second, inputs
+    del want, got, results, plain_results, chained, first, second, inputs, recorded
     year = torch.as_tensor(np.stack([
         msr_like_trace(np.random.default_rng(SEED + b), n_slots=YEAR_SLOTS,
                        mean_jobs=N_LEVELS / 4.0)
@@ -888,30 +1053,50 @@ def main() -> int:
     for p in ("A1", "delayedoff", "A2"):
         if p == "A2":       # drawn here, so that the runs before do not hold them
             gen = torch.Generator(device=dev).manual_seed(SEED)
-            u_year = engine._uniforms(gen, YEAR_TRACES_A2, YEAR_SLOTS, N_LEVELS, dev)
-            sp = year_spec(p, year[:YEAR_TRACES_A2], windows=WINDOWS, uniforms=u_year)
+            u_year = engine._uniforms(gen, N_TRACES, YEAR_SLOTS, N_LEVELS, dev)
+            sp = year_spec(p, year, windows=WINDOWS, uniforms=u_year)
         else:
             sp = year_spec(p, year, windows=WINDOWS)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        kernels.launches = kernels.stream_launches = 0
         t0 = time.perf_counter()
-        res = provision_stream(sp)
-        torch.cuda.synchronize()
+        res, n1, n2 = counted(lambda sp=sp: provision_stream(sp))
         wall = time.perf_counter() - t0
-        check(kernels.stream_launches == 1 and kernels.launches == 0,
-              f"year {p}: K2 launched {kernels.stream_launches} times, K1 {kernels.launches}")
+        check(n2 == 1 and n1 == 0, f"year {p}: K2 launched {n2} times, K1 {n1}")
         check(bool(torch.isfinite(res.cost).all()) and res.x.shape[-1] == YEAR_SLOTS,
               f"year {p}: bad result")
         year_res[p] = res
-        n_traces = sp.workload.demand.shape[0]
-        n_cells = n_traces * (1 if p == "delayedoff" else len(WINDOWS))
-        print(f"year: {p} T={YEAR_SLOTS} B={n_traces} G={n_cells} N={N_LEVELS}: "
-              f"wall_s={wall:.3f} K2 launches={kernels.stream_launches} "
+        n_cells = N_TRACES * (1 if p == "delayedoff" else len(WINDOWS))
+        print(f"year: {p} T={YEAR_SLOTS} B={N_TRACES} G={n_cells} N={N_LEVELS}: "
+              f"wall_s={wall:.3f} K2 launches={n2} "
               f"max_memory_allocated_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
               f"(of which held before the call: {held / 1e9:.2f}) [{smi}]",
               flush=True)
+
+    # the uniforms route against the table route over the year, on the
+    # traces whose (W*B, T, N) wait tables fit
+    part = year[:YEAR_TABLE_TRACES]
+    args = dict(delta=delta_lv, uniforms=tuple(v[:YEAR_TABLE_TRACES] for v in u_year),
+                n_levels=N_LEVELS, max_h=PAPER_COSTS.delta_slots(), policy="A2")
+    runs = {}
+    for route in (True, False):
+        inputs, _ = engine._grid_inputs(part, part[None], WINDOWS, args["delta"],
+                                        args["uniforms"], n_levels=N_LEVELS,
+                                        max_h=args["max_h"], policy="A2", uniform_waits=route)
+        del inputs["delta"]
+        paths = new_paths()
+        runs[route] = kernels.provision_scan_stream(**inputs, t_chunk=STREAM_T_CHUNK,
+                                                    record=True, paths=paths)
+        torch.cuda.synchronize()
+        if route:
+            shares = path_shares(paths)
+        del inputs
+    k2_err = max(k2_err, stream_diff(runs[True], runs[False], "year, uniforms route"))
+    print(f"year: A2 B={YEAR_TABLE_TRACES}: the uniforms route equals the table route bit for "
+          f"bit (x, every total, the carry); {shares}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
 
     # three cells held to provision() run on that cell alone
     cells = (("A1", 0, 0, {}), ("A1", len(WINDOWS) - 1, N_TRACES - 1, {}),
@@ -931,13 +1116,18 @@ def main() -> int:
         bound = 2.0 - min(1.0, (w + 1) / float(PAPER_COSTS.delta))
         check(bool((cr[i] <= bound + 1e-6).all()), f"year A1 window {w}: CR above 2 - alpha")
         print(f"year: A1 window={w} max_cr={cr[i].max():.4f} bound={bound:.4f}", flush=True)
+    cr = (year_res["A2"].cost / off).cpu().numpy()
+    for i, w in enumerate(WINDOWS):
+        bound = (math.e - min(1.0, (w + 1) / float(PAPER_COSTS.delta))) / (math.e - 1)
+        print(f"year: A2 window={w} mean_cr={cr[i].mean():.4f} bound={bound:.4f}", flush=True)
+        check(float(cr[i].mean()) <= bound + 0.05, f"year A2 window {w}: mean CR above bound")
     del year_res, u_year, year
     torch.cuda.empty_cache()
 
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
 
-    ms, plain, bound, bound_by = measured["A2"]
+    ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
     print(f"device: {smi}")
     print(json.dumps({"kernels": [{
@@ -945,7 +1135,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan.cu",
         "replaces": "src/repro/kernels/provision_scan.py:184",
-        "launches": main_launches,
+        "launches": main_k1,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,
@@ -957,7 +1147,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
-        "launches": stream_main_launches,
+        "launches": main_k2 + stream_main_launches,
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
         "plain_ms": k2_plain,

@@ -18,11 +18,11 @@ dataclasses plus options:
 :func:`provision` runs the whole (noise-stds × windows × traces × levels)
 grid and returns a :class:`ProvisionResult`.  It runs on the card
 (``ProvisionSpec.device`` defaults to ``"cuda"``), where every online
-policy's slot scan is one launch of kernel K1; ``device="cpu"`` runs the
-plain PyTorch scan.  :func:`provision_stream` returns the same result for
-production-length traces through the streaming kernel K2, without the
-(T, N) on-matrix.  Without CUDA and without ``device="cpu"`` both raise —
-they never fall back.
+policy's slot scan is one launch of kernel K2 (of K1 under
+``record_decisions``); ``device="cpu"`` runs the plain PyTorch scan.
+:func:`provision_stream` returns the same result through K2 at any tile
+size, for production-length traces.  Without CUDA and without
+``device="cpu"`` both raise — they never fall back.
 
 Shape convention: the result keeps a leading windows axis iff the spec used
 ``windows=``, a batch axis iff demand was ``(B, T)``, and an outermost
@@ -176,13 +176,13 @@ class ProvisionResult:
     per-type totals for typed fleets (``CostModel.from_groups``); None for
     ungrouped models.
 
-    ``provision(spec, record_decisions=True)`` fills the provenance pair:
-    ``decision_counts``, a dict of the four aggregate per-level counters
-    (..., N) int32 keyed by ``repro_torch.obs.provenance.COUNT_ORDER`` names,
-    and — on the CPU route only — ``decisions``, the (..., T, N) uint8
-    per-slot reason bitmask.  The CUDA route takes the counters straight
-    from K1 and leaves ``decisions`` None, as :func:`provision_stream` does
-    on both devices.
+    ``provision(spec, record_decisions=True)`` fills the provenance pair on
+    both devices: ``decisions``, the (..., T, N) uint8 per-slot reason
+    bitmask (written by K1 on CUDA), and ``decision_counts``, a dict of the
+    four aggregate per-level counters (..., N) int32 keyed by
+    ``repro_torch.obs.provenance.COUNT_ORDER`` names (K1's counters on
+    CUDA, the codes' sums on the CPU).
+    :func:`provision_stream` fills ``decision_counts`` only.
     """
 
     x: torch.Tensor
@@ -294,13 +294,17 @@ def provision(spec: ProvisionSpec, *, record_decisions: bool = False) -> Provisi
     """Run a :class:`ProvisionSpec` end to end on ``spec.device``.
 
     On CUDA every online policy's whole (S, W, B) grid is one launch of
-    kernel K1; on the CPU it is the plain PyTorch slot loop.  ``offline`` is
-    the closed-form hindsight optimum on both.
+    kernel K2, which returns x(t) and the per-level totals without a (T, N)
+    on-matrix (A2/A3/AQ-rand draw their waits from the uniforms inside it);
+    on the CPU it is the plain PyTorch slot loop.  ``offline`` is the
+    closed-form hindsight optimum on both.
 
-    ``record_decisions=True`` fills ``ProvisionResult.decision_counts`` (and
-    ``decisions`` on the CPU route) with the per-level reason counters of
-    :mod:`repro_torch.obs.provenance`.  Rejected for ``offline``, which is a
-    closed form with no slot scan to record.
+    ``record_decisions=True`` fills ``ProvisionResult.decisions`` and
+    ``decision_counts`` with the per-slot reason codes of
+    :mod:`repro_torch.obs.provenance` and their per-level counts; on CUDA
+    the grid is then one launch of K1, which writes the on-matrix and the
+    codes.  Rejected for ``offline``, which is a closed form with no slot
+    scan to record.
     """
     device = _resolve_device(spec.device)
     return _provision(spec, record_decisions=record_decisions,
@@ -308,9 +312,10 @@ def provision(spec: ProvisionSpec, *, record_decisions: bool = False) -> Provisi
 
 
 def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> ProvisionResult:
-    """:func:`provision` with the scan route chosen by the caller: K1
-    (``kernel=True``, CUDA only) or the plain scan on ``spec.device`` — the
-    latter on a CUDA spec is how the kernel route is checked on the card."""
+    """:func:`provision` with the scan route chosen by the caller: the
+    kernels (``kernel=True``, CUDA only: K2, or K1 under record) or the plain
+    scan on ``spec.device`` — the latter on a CUDA spec is how the kernel
+    route is checked on the card."""
     pol = spec.policy.validate()
     if record_decisions and pol.name == "offline":
         raise ValueError(
@@ -341,9 +346,10 @@ def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
     Every online policy's whole (S, W, B) grid is one call of the streaming
     scan — one launch of kernel K2 on CUDA, its plain tiled loop on the CPU
     — which returns x(t) and per-level totals, so the memory of a call is
-    O(cells · (T + levels)) plus the (T, N) wait tables of the randomized
-    policies, which the common-random-numbers contract pins to absolute
-    slots.  ``t_chunk`` (default
+    O(cells · (T + levels)) plus the two (B, T, N) uniform tables of the
+    randomized policies, which the common-random-numbers contract pins to
+    absolute slots (on the CPU, plus their (W·B, T, N) wait tables; on CUDA
+    K2 draws each wait from the uniforms itself).  ``t_chunk`` (default
     :data:`repro_torch.kernels.provision_scan.DEFAULT_T_CHUNK`, clamped to
     the trace length) is the tile size; it never changes a result.
 
@@ -397,19 +403,19 @@ def _squeeze(out: dict, pr: dict) -> dict:
 def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel) -> ProvisionResult:
     """A :class:`ProvisionResult` from the engine's squeezed per-level terms:
     the totals, the per-type reduction and, under ``record_decisions``, the
-    decision counters (summed from per-slot codes where the route kept
-    them, else taken from the kernel's counters)."""
+    decision counters (the kernel's where a kernel counted them, else
+    summed from the per-slot codes)."""
     decisions = out.pop("decisions", None)
+    rows = out.pop("decision_counts", None)             # (..., 4, N) int32
     counts = None
     if record_decisions:
-        if decisions is not None:
+        if rows is not None:
+            counts = {name: rows[..., i, :] for i, name in enumerate(_prov.COUNT_ORDER)}
+        else:
             counts = {
                 name: ((decisions & bit) != 0).sum(dim=-2, dtype=torch.int32)
                 for name, bit in zip(_prov.COUNT_ORDER, _prov.COUNT_BITS)
             }
-        else:
-            rows = out.pop("decision_counts")           # (..., 4, N) int32
-            counts = {name: rows[..., i, :] for i, name in enumerate(_prov.COUNT_ORDER)}
         if tel.enabled:
             tel.count("provision/decision_toggle_offs", float(counts["toggle_off"].sum()))
 

@@ -8,16 +8,18 @@ combination of a :class:`~repro_torch.core.provision.ProvisionSpec`'s
 sweep; the engine lays the whole ``(S, W, B)`` grid out as cells, the way
 the reference's sharded grid does, and runs it in one scan:
 
-  * on a CUDA device through kernel K1
-    (:func:`repro_torch.kernels.provision_scan.provision_scan_grid`), one
-    thread per (cell, level) looping over the slots on the card;
+  * on a CUDA device through kernel K2
+    (:func:`repro_torch.kernels.provision_scan.provision_scan_stream`, via
+    :func:`_run_stream`), one thread per (cell, level) looping over the
+    slots on the card and returning x(t) and per-level totals; under
+    ``record`` through K1 (:func:`repro_torch.kernels.provision_scan.
+    provision_scan_grid`), which also writes the (T, N) on-matrix and the
+    per-slot reason codes;
   * on the CPU through :func:`_on_matrix_scan`, a Python loop over slots of
     plain tensor ops — the CPU route and K1's oracle.
 
-:func:`_run_stream` is the streaming twin behind ``provision_stream()``:
-the same grid through K2 (:func:`repro_torch.kernels.provision_scan.
-provision_scan_stream`) or its plain version :func:`_stream_scan`, which
-return x(t) and per-level totals instead of the (T, N) on-matrix.
+:func:`_run_stream` is also the engine of ``provision_stream()``: the same
+grid through K2 or its plain version :func:`_stream_scan`.
 
 Policies: ``A1`` (deterministic, ratio ``2 - α``), ``A2`` (randomized,
 ``(e-α)/(e-1)``), ``A3`` (randomized, ``e/(e-1+α)``), ``offline``
@@ -34,6 +36,7 @@ reference's draws bit for bit.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -83,26 +86,71 @@ def _uniforms(generator: torch.Generator, B: int, T: int, n_levels: int,
     return u0.to(device), u.to(device)
 
 
-def _waits_from_uniforms(policy, u0, u, window, delta):
-    """Transform uniform tables into wait thresholds for a given window.
+def _wait_rows(policy, windows, delta):
+    """Per-window rows of A2/A3's inverse CDF: ``span`` (W, N) and, for A3,
+    the atom probability ``p0`` (W, N) (else None).
 
-    A2: Z ~ e^{z/((1-α)Δ)} / ((e-1)(1-α)Δ) on [0, (1-α)Δ]  (inverse CDF).
-    A3: atom at 0 w.p. α/(e-1+α), else A2's density.  AQ-rand: the no-peek
-    α = 0 case.  ``delta`` is a float32 ``(N,)`` tensor.  The op order is
-    the reference's, so the same uniforms give the same waits up to the
-    device's ``log1p``.
+    A2: Z ~ e^{z/((1-α)Δ)} / ((e-1)(1-α)Δ) on [0, (1-α)Δ], so span =
+    (1-α)Δ.  A3: an atom at 0 w.p. α/(e-1+α), else A2's density.  AQ-rand:
+    the no-peek α = 0 case.  ``delta`` is a float32 ``(N,)`` tensor;
+    ``windows`` python ints.  The op order is the reference's.
     """
     b = delta
-    alpha = torch.clamp((torch.tensor(float(window), dtype=torch.float32,
-                                      device=b.device) + 1.0) / b, 0.0, 1.0)
+    wf = torch.tensor([float(w) for w in windows], dtype=torch.float32, device=b.device)
+    alpha = torch.clamp((wf[:, None] + 1.0) / b, 0.0, 1.0)
     if policy == "AQ-rand":             # no peek: the window never enters
         alpha = torch.zeros_like(alpha)
     span = (1.0 - alpha) * b
+    p0 = alpha / (E - 1.0 + alpha) if policy == "A3" else None
+    return span, p0
+
+
+def _waits(u0, u, span, p0):
+    """Wait thresholds from uniform tables: ``span * log1p(u * (e-1))``, and 0
+    where ``u0 < p0`` when there is an atom (``p0`` not None).  ``span`` and
+    ``p0`` broadcast over the tables' last (level) axis.  The same uniforms
+    give the same waits up to the device's ``log1p``."""
     waits = span * torch.log1p(u * (E - 1.0))
-    if policy == "A3":
-        p0 = alpha / (E - 1.0 + alpha)
+    if p0 is not None:
         waits = torch.where(u0 < p0, 0.0, waits)
     return waits
+
+
+def _waits_from_uniforms(policy, u0, u, window, delta):
+    """Transform uniform tables into wait thresholds for a given window
+    (:func:`_wait_rows` for that window, then :func:`_waits`)."""
+    span, p0 = _wait_rows(policy, [window], delta)
+    return _waits(u0, u, span[0], None if p0 is None else p0[0])
+
+
+class UniformWaits(NamedTuple):
+    """The waits of a keyed policy as the uniforms they are drawn from: K2's
+    uniforms route, which applies :func:`_waits` to the entries a lane
+    consumes instead of reading a built (K·Bu, T, N) table.
+
+    Cell ``g`` draws from ``u[cell[g]]`` (and ``u0[cell[g]]``) with span row
+    ``span[cell_thr[g]]`` (and ``p0[cell_thr[g]]``); ``u0`` and ``p0`` are
+    None for policies without A3's atom.
+    """
+
+    u0: torch.Tensor | None     # (Bu, T, N) float32
+    u: torch.Tensor             # (Bu, T, N) float32
+    span: torch.Tensor          # (K, N) float32
+    p0: torch.Tensor | None     # (K, N) float32
+    cell: torch.Tensor          # (G,) int32
+
+    def table(self, cell_thr):
+        """The same waits as a (K·Bu, T, N) table and the cells' rows of it:
+        row ``k·Bu + b`` holds span row ``k`` over uniforms ``b``.  This is
+        the table route, and the uniforms route's plain version."""
+        Bu = self.u.shape[0]
+        table = torch.stack([
+            _waits(self.u0, self.u, self.span[k], None if self.p0 is None else self.p0[k])
+            for k in range(self.span.shape[0])
+        ]).reshape(-1, *self.u.shape[1:])
+        cell_thr = torch.as_tensor(cell_thr)                 # the rows stay where the map is
+        return table, (cell_thr.long() * Bu
+                       + self.cell.to(cell_thr.device, torch.long)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +250,8 @@ def _stream_scan(traces, predicted, thresholds, cell_trace, cell_pred, cell_thr,
 
     The arguments are K2's (:func:`repro_torch.kernels.provision_scan.
     provision_scan_stream`) and mean what they mean for
-    :func:`_on_matrix_scan`; the slots run in ``t_chunk``-slot tiles, each
+    :func:`_on_matrix_scan`; ``thresholds`` may also be a
+    :class:`UniformWaits`, whose table is built first.  The slots run in ``t_chunk``-slot tiles, each
     tile's predicted rows reaching ``horizon`` slots past it (0 past T), so
     the tile size never changes a result.  Instead of the on-matrix it
     returns ``(x, accs, carry)``:
@@ -223,6 +272,8 @@ def _stream_scan(traces, predicted, thresholds, cell_trace, cell_pred, cell_thr,
     with a time-varying table it starts from the carry.
     """
     dev = traces.device
+    if isinstance(thresholds, UniformWaits):     # the uniforms route: its waits as a table
+        thresholds, cell_thr = thresholds.table(cell_thr)
     cell_trace, cell_pred, cell_thr, cell_hor = (
         c.to(dev, torch.long) for c in (cell_trace, cell_pred, cell_thr, cell_hor))
     G, T, n = cell_trace.shape[0], traces.shape[1], routes.shape[0]
@@ -334,7 +385,8 @@ def on_matrix_cost(a, on_matrix, costs):
 # The one engine body: the (S, W, B) grid as cells
 # ---------------------------------------------------------------------------
 
-def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy):
+def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy,
+                 uniform_waits=False):
     """K1's inputs for one online policy over the (S, W', B) cell grid.
 
     ``ab`` (B, T) int32 demand; ``predb`` (S, B, T) int32 predicted rows;
@@ -343,9 +395,12 @@ def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy
     run one window column (W' = 1), the others W' = len(windows).  Cell
     ``g = (s, w, b)`` in row-major order, as in the reference's sharded
     grid: A2/A3 read wait table ``w*B + b``, AQ-rand table ``b``, the
-    deterministic policies the constant row ``w``.  Returns the keyword
-    arguments of :func:`repro_torch.kernels.provision_scan.
-    provision_scan_grid` plus the cell-grid shape ``(S, W', B)``.
+    deterministic policies the constant row ``w``.  With ``uniform_waits``
+    the keyed policies' ``thresholds`` are a :class:`UniformWaits` instead
+    (K2's uniforms route: span row ``w``, uniforms ``b``), which builds no
+    table.  Returns the keyword arguments of
+    :func:`repro_torch.kernels.provision_scan.provision_scan_grid` plus the
+    cell-grid shape ``(S, W', B)``.
     """
     S, B, T = predb.shape
     dev = ab.device
@@ -354,14 +409,18 @@ def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy
         windows = [0]
     W = len(windows)
     wf = torch.tensor(windows, dtype=torch.float32, device=dev)
-    if policy in RANDOMIZED:
+    s_ix, w_ix, b_ix = torch.meshgrid(     # on the host: K1's wrapper checks them there
+        torch.arange(S), torch.arange(W), torch.arange(B), indexing="ij",
+    )
+    i32 = torch.int32
+    cell_thr = w_ix.reshape(-1).to(i32)   # span or A1's row per window; the timers' one row
+    if policy in KEYED:
         u0, u = uniforms
-        thresholds = torch.stack([
-            _waits_from_uniforms(policy, u0, u, w, b) for w in windows
-        ]).reshape(W * B, T, n_levels)                       # (W*B, T, N)
-    elif policy == "AQ-rand":
-        u0, u = uniforms
-        thresholds = _waits_from_uniforms(policy, u0, u, 0, b)   # (B, T, N)
+        span, p0 = _wait_rows(policy, windows, b)
+        thresholds = UniformWaits(u0 if p0 is not None else None, u, span, p0,
+                                  b_ix.reshape(-1).to(i32))
+        if not uniform_waits:           # (W'·B, T, N) waits, row w·B + b
+            thresholds, cell_thr = thresholds.table(cell_thr)
     elif policy in NO_PEEK:                                  # timer Δ_l
         thresholds = b[None, None, :].contiguous()           # (1, 1, N)
     else:                                                    # A1 per window
@@ -372,22 +431,12 @@ def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy
     else:
         horizon = int(min(max(windows) + 1, max_h))
         level_horizon = torch.minimum(wf[:, None] + 1.0, b[None, :])   # (W, N)
-    # the cell maps are made on the host: K1's wrapper checks them there
-    s_ix, w_ix, b_ix = torch.meshgrid(
-        torch.arange(S), torch.arange(W), torch.arange(B), indexing="ij",
-    )
-    if policy in RANDOMIZED:
-        cell_thr = w_ix * B + b_ix
-    elif policy == "AQ-rand":
-        cell_thr = b_ix
-    else:           # A1's row per window; the timers' one row (W' = 1, w = 0)
-        cell_thr = w_ix
-    i32 = torch.int32
     kwargs = dict(
         traces=ab, predicted=predb.reshape(S * B, T),
-        thresholds=thresholds.contiguous(),
+        thresholds=thresholds if isinstance(thresholds, UniformWaits)
+        else thresholds.contiguous(),
         cell_trace=b_ix.reshape(-1).to(i32), cell_pred=(s_ix * B + b_ix).reshape(-1).to(i32),
-        cell_thr=cell_thr.reshape(-1).to(i32), cell_hor=w_ix.reshape(-1).to(i32),
+        cell_thr=cell_thr, cell_hor=w_ix.reshape(-1).to(i32),
         delta=max_h, horizon=horizon,
         routes=torch.arange(n_levels, dtype=i32, device=dev),
         level_horizon=level_horizon.contiguous(),
@@ -404,12 +453,19 @@ def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
     ``uniforms``: the injected or drawn (B, T, N) pair for the keyed
     policies, else None.  Returns a dict of ``x`` (S, W, B, T) int32 and
     per-level cost terms (S, W, B, N) float32; window-free policies run once
-    and are broadcast over the W axis (expanded views).
+    and are broadcast over the W axis (expanded views).  ``record=True``
+    adds the per-slot ``decisions`` (S, W, B, T, N) uint8, and on the K1
+    route K1's ``decision_counts`` (S, W, B, 4, N) int32 beside them.
 
-    ``kernel=True`` runs the slot scan through K1 (CUDA tensors only);
-    ``kernel=False`` through :func:`_on_matrix_scan`.  ``record=True`` adds
-    the aggregate ``decision_counts`` (S, W, B, 4, N) int32 on the K1 route,
-    and the per-slot ``decisions`` (S, W, B, T, N) uint8 on the plain route.
+    The online policies' slot scan, by route:
+
+      * ``kernel=False``: :func:`_on_matrix_scan` (the CPU route, and the
+        kernels' oracle on the card), reduced by :func:`_cost_terms`;
+      * ``kernel=True`` (CUDA tensors only), without ``record``:
+        :func:`_run_stream`, one launch of K2, which returns x and the
+        per-level totals itself — no (T, N) on-matrix is built;
+      * ``kernel=True`` with ``record``: K1, which writes the on-matrix and
+        the reason codes, reduced by :func:`_cost_terms`.
     """
     if record and policy == "offline":
         raise ValueError("record=True: offline has no slot scan to record")
@@ -421,17 +477,22 @@ def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
         out = _cost_terms(ab, ons, P_lv, beta_on_lv, beta_off_lv)
         out["x"] = ons.sum(dim=-1, dtype=torch.int32)
         return {k: v.expand((S, W) + v.shape) for k, v in out.items()}
+    if kernel and not record:
+        from ..kernels.provision_scan import DEFAULT_T_CHUNK
+
+        return _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv,
+                           uniforms, n_levels=n_levels, max_h=max_h, policy=policy,
+                           t_chunk=DEFAULT_T_CHUNK)
 
     inputs, (S, Wc, B) = _grid_inputs(
         ab, predb, windows, delta, uniforms,
         n_levels=n_levels, max_h=max_h, policy=policy,
     )
-    counts = codes = None
+    counts = None
     if kernel:
         from ..kernels.provision_scan import provision_scan_grid
 
-        res = provision_scan_grid(**inputs, record=record)
-        ons, counts = res if record else (res, None)
+        ons, counts, codes = provision_scan_grid(**inputs, record=True, codes=True)
     else:
         ons, codes = _on_matrix_scan(
             **{k: v for k, v in inputs.items() if k != "delta"}, record=record,
@@ -439,10 +500,10 @@ def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
     ons = ons.reshape(S, Wc, B, T, n_levels)
     out = _cost_terms(ab, ons, P_lv, beta_on_lv, beta_off_lv)
     out["x"] = ons.sum(dim=-1, dtype=torch.int32)
-    if counts is not None:
-        out["decision_counts"] = counts.reshape(S, Wc, B, 4, n_levels)
     if codes is not None:
         out["decisions"] = codes.reshape(S, Wc, B, T, n_levels)
+    if counts is not None:
+        out["decision_counts"] = counts.reshape(S, Wc, B, 4, n_levels)
     if Wc != W:                                              # window-free
         out = {k: v.expand((S, W) + v.shape[2:]) for k, v in out.items()}
     return out
@@ -453,11 +514,13 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     """Streaming twin of :func:`_run`, behind
     :func:`repro_torch.core.provision.provision_stream`.
 
-    The same (S, W', B) cell grid, wait tables and common random numbers as
+    The same (S, W', B) cell grid, waits and common random numbers as
     :func:`_run`, as one call of :func:`repro_torch.kernels.provision_scan.
     provision_scan_stream` — K2 on CUDA tensors, its plain version on the
     CPU — which returns x(t) and per-level totals instead of the (T, N)
-    on-matrix.  The forced x(T) = a(T) final off is added here from the
+    on-matrix.  On CUDA the keyed policies take K2's uniforms route: the
+    kernel draws each wait from the (B, T, N) uniforms where it is consumed,
+    and no (W·B, T, N) wait table is built.  The forced x(T) = a(T) final off is added here from the
     end carry.  Returns what :func:`_run` returns, bit for bit, with
     ``decision_counts`` (S, W, B, 4, N) under ``record`` on both devices.
     ``offline`` is rejected: it is a closed form over the whole trace.
@@ -474,6 +537,7 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     inputs, (S, Wc, B) = _grid_inputs(
         ab, predb, windows, delta, uniforms,
         n_levels=n_levels, max_h=max_h, policy=policy,
+        uniform_waits=ab.device.type == "cuda",
     )
     del inputs["delta"]
     x, accs, carry = provision_scan_stream(

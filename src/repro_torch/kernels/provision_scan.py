@@ -7,11 +7,20 @@ demand row ``traces[cell_trace[g]]`` for every level, with its own predicted
 row, wait-threshold table and per-level peek reach.
 
   * K1, :func:`provision_scan_grid` (``csrc/provision_scan.cu``), writes the
-    ``(G, T, N)`` bool on-matrix;
+    ``(G, T, N)`` bool on-matrix, and on request the decision counters and
+    the per-slot reason codes;
   * K2, :func:`provision_scan_stream` (``csrc/provision_scan_stream.cu``),
     returns what the engine reduces the on-matrix to — x(t), per-lane
     totals and the carry that continues the trace in a later call — so its
-    memory stays O(G·(T + N)) at any trace length.
+    memory stays O(G·(T + N)) at any trace length.  Its uniforms route
+    (``thresholds`` a :class:`~repro_torch.core.torch_provision.
+    UniformWaits`) draws the waits from the uniforms itself.
+
+Both kernels run one slot loop (``csrc/slot_step.cuh``), which skips the
+sub-tiles of slots in a steady state and loads wait entries ahead of their
+slot, by cp.async of a sub-tile's entries into a shared-memory ring
+(``prefetch="ring"``) or by a register load one step ahead
+(``"register"``); neither changes a result.
 
 Routes split by device, never by failure: on CUDA tensors a wrapper
 launches its kernel (built at first use, see
@@ -24,7 +33,13 @@ from __future__ import annotations
 
 import torch
 
-from ..core.torch_provision import STREAM_ACCS, _on_matrix_scan, _stream_scan
+from ..core.torch_provision import (
+    STREAM_ACCS,
+    UniformWaits,
+    _on_matrix_scan,
+    _stream_scan,
+    _waits,
+)
 from ..obs import provenance as _prov
 from ..obs.telemetry import get_telemetry
 
@@ -34,6 +49,12 @@ PAD_ROUTE = 2**30
 
 #: slots per tile of the streaming scan, as in the reference
 DEFAULT_T_CHUNK = 512
+
+#: how the kernels bring a wait entry ahead of its slot: the C interface's
+#: codes.  ``prefetch=None`` takes the faster on the H100 (PERF.md § 6): the
+#: ring, except on A3's uniforms route, whose two rings cost more in
+#: occupancy than they save
+PREFETCH = {"register": 0, "ring": 1}
 
 #: K1 and K2 launches since import (or since a caller reset them); the plain
 #: versions on CPU tensors never count
@@ -60,15 +81,19 @@ def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
         raise ValueError(f"predicted rows have {predicted.shape[1]} slots, traces {T}")
     if horizon < 0 or (delta is not None and horizon > int(delta)):
         raise ValueError(f"need 0 <= horizon <= delta, got {horizon}, {delta}")
-    thresholds = torch.as_tensor(thresholds, device=dev).to(torch.float32)
-    if thresholds.ndim != 3 or thresholds.shape[1] not in (1, T):
-        raise ValueError(
-            f"thresholds must be (K, 1, N) or (K, T={T}, N), got {tuple(thresholds.shape)}"
-        )
-    n = thresholds.shape[-1]
     cells = [torch.as_tensor(c).to(torch.int32).reshape(-1) for c in cells]
     if len({c.shape[0] for c in cells}) != 1:
         raise ValueError(f"cell maps differ in length: {[c.shape[0] for c in cells]}")
+    if isinstance(thresholds, UniformWaits):
+        thresholds = _uniform_waits_args(thresholds, T, cells[0].shape[0], dev)
+        rows, n = thresholds.span.shape
+    else:
+        thresholds = torch.as_tensor(thresholds, device=dev).to(torch.float32)
+        if thresholds.ndim != 3 or thresholds.shape[1] not in (1, T):
+            raise ValueError(
+                f"thresholds must be (K, 1, N) or (K, T={T}, N), got {tuple(thresholds.shape)}"
+            )
+        rows, n = thresholds.shape[0], thresholds.shape[-1]
     if level_horizon is None:
         level_horizon = torch.full((1, n), float(horizon), dtype=torch.float32, device=dev)
     level_horizon = torch.as_tensor(level_horizon, device=dev).to(torch.float32)
@@ -79,8 +104,7 @@ def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
         # the host first: free for maps made on the host (as the engine's
         # are), one device sync for maps that already live on the card
         lo, hi = torch.stack(cells).aminmax(dim=1)
-        rows = (traces.shape[0], predicted.shape[0], thresholds.shape[0],
-                level_horizon.shape[0])
+        rows = (traces.shape[0], predicted.shape[0], rows, level_horizon.shape[0])
         for name, a, b, k in zip(("cell_trace", "cell_pred", "cell_thr", "cell_hor"),
                                  lo.tolist(), hi.tolist(), rows):
             if a < 0 or b >= k:
@@ -94,39 +118,96 @@ def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
     return traces, predicted, thresholds, cells, routes, level_horizon
 
 
+def _uniform_waits_args(w, T, G, dev):
+    """A :class:`UniformWaits` checked and on ``dev``: (Bu, T, N) uniforms,
+    (K, N) span rows, u0 and p0 together or not at all, a cell map of G
+    rows into the uniforms."""
+    f32 = [None if v is None else torch.as_tensor(v, device=dev).to(torch.float32)
+           for v in (w.u0, w.u, w.span, w.p0)]
+    u0, u, span, p0 = f32
+    if u.ndim != 3 or u.shape[1] != T:
+        raise ValueError(f"uniforms must be (Bu, T={T}, N), got {tuple(u.shape)}")
+    n = u.shape[-1]
+    if span.ndim != 2 or span.shape[1] != n:
+        raise ValueError(f"span must be (K, {n}), got {tuple(span.shape)}")
+    if (u0 is None) != (p0 is None):
+        raise ValueError("u0 and p0 come together (A3's atom) or not at all")
+    if u0 is not None and (u0.shape != u.shape or p0.shape != span.shape):
+        raise ValueError(f"u0/p0 must be shaped as u/span, got {tuple(u0.shape)}, "
+                         f"{tuple(p0.shape)}")
+    cell = torch.as_tensor(w.cell).to(torch.int32).reshape(-1)
+    if cell.shape[0] != G:
+        raise ValueError(f"the uniforms' cell map has {cell.shape[0]} rows, the cells {G}")
+    if G:
+        lo, hi = cell.aminmax()
+        if int(lo) < 0 or int(hi) >= u.shape[0]:
+            raise ValueError(f"the uniforms' cell map indexes rows [{int(lo)}, {int(hi)}] "
+                             f"of {u.shape[0]}")
+    return UniformWaits(u0, u, span, p0, cell.to(dev, non_blocking=True))
+
+
+def _grid_args(traces, predicted, thresholds, cells, *, delta, horizon, base_level, routes,
+               level_horizon, record, codes):
+    if codes and not record:
+        raise ValueError("codes=True needs record=True")
+    if isinstance(thresholds, UniformWaits):
+        raise ValueError("K1 takes wait tables; the uniforms route is K2's")
+    return _normalize(traces, predicted, thresholds, cells, delta=delta, horizon=horizon,
+                      base_level=base_level, routes=routes, level_horizon=level_horizon)
+
+
 def provision_scan_grid_ref(traces, predicted, thresholds, cell_trace, cell_pred,
                             cell_thr, cell_hor, *, delta, horizon, base_level=0,
-                            routes=None, level_horizon=None, record=False):
+                            routes=None, level_horizon=None, record=False, codes=False):
     """The plain PyTorch version of :func:`provision_scan_grid`: the engine's
     slot loop (:func:`repro_torch.core.torch_provision._on_matrix_scan`) on
     whatever device the tensors are on, with the per-slot reason codes
     summed into K1's ``(G, 4, N)`` counters under ``record``."""
-    traces, predicted, thresholds, cells, routes, level_horizon = _normalize(
-        traces, predicted, thresholds, (cell_trace, cell_pred, cell_thr, cell_hor),
-        delta=delta, horizon=horizon, base_level=base_level, routes=routes,
-        level_horizon=level_horizon,
-    )
-    return _plain(traces, predicted, thresholds, cells, routes, level_horizon,
-                  horizon=horizon, record=record)
+    args = _grid_args(traces, predicted, thresholds,
+                      (cell_trace, cell_pred, cell_thr, cell_hor), delta=delta,
+                      horizon=horizon, base_level=base_level, routes=routes,
+                      level_horizon=level_horizon, record=record, codes=codes)
+    return _plain(*args, horizon=horizon, record=record, codes=codes)
 
 
-def _plain(traces, predicted, thresholds, cells, routes, level_horizon, *, horizon, record):
-    ons, codes = _on_matrix_scan(
+def _plain(traces, predicted, thresholds, cells, routes, level_horizon, *, horizon, record,
+           codes):
+    ons, bits = _on_matrix_scan(
         traces, predicted, thresholds, *cells, level_horizon=level_horizon,
         routes=routes, horizon=horizon, record=record,
     )
     if not record:
         return ons
     counts = torch.stack(
-        [((codes & bit) != 0).sum(dim=1, dtype=torch.int32) for bit in _prov.COUNT_BITS],
+        [((bits & bit) != 0).sum(dim=1, dtype=torch.int32) for bit in _prov.COUNT_BITS],
         dim=1,
     )
-    return ons, counts
+    return (ons, counts, bits) if codes else (ons, counts)
+
+
+def _prefetch_code(prefetch, two_rings=False):
+    if prefetch is None:
+        prefetch = "register" if two_rings else "ring"
+    if prefetch not in PREFETCH:
+        raise ValueError(f"prefetch must be one of {sorted(PREFETCH)} or None, "
+                         f"got {prefetch!r}")
+    return PREFETCH[prefetch]
+
+
+def _paths_ptr(paths, dev):
+    """The pointer of a (3,) int32 path-counter tensor on ``dev``, or None."""
+    if paths is None:
+        return None
+    if paths.dtype != torch.int32 or tuple(paths.shape) != (3,) or paths.device != dev \
+            or not paths.is_contiguous():
+        raise ValueError("paths must be a contiguous (3,) int32 tensor on the kernel's device")
+    return paths.data_ptr()
 
 
 def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
                         cell_thr, cell_hor, *, delta, horizon, base_level=0,
-                        routes=None, level_horizon=None, record=False):
+                        routes=None, level_horizon=None, record=False, codes=False,
+                        paths=None, prefetch=None):
     """(G, T, N) bool on-matrix: one (noise, window, trace) cell per row.
 
     ``traces`` (B, T) int32 demand rows; ``predicted`` (R, T) int32 rows the
@@ -140,21 +221,28 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
 
     ``record=True`` returns ``(ons, counts)`` with ``counts`` (G, 4, N)
     int32 — per-lane decision counters in
-    :data:`repro_torch.obs.provenance.COUNT_ORDER` row order.
+    :data:`repro_torch.obs.provenance.COUNT_ORDER` row order — and with
+    ``codes=True`` also the (G, T, N) uint8 per-slot reason bitmask of
+    :mod:`repro_torch.obs.provenance`, as ``(ons, counts, codes)``.
 
     CUDA tensors launch K1 (and count in :data:`launches`); CPU tensors run
-    :func:`provision_scan_grid_ref`.
+    :func:`provision_scan_grid_ref`.  On CUDA, ``paths`` (a zeroed (3,)
+    int32 tensor) receives the number of (level block, cell, sub-tile)
+    triples that ran the slot step, were all busy, or had nothing on and
+    nothing to turn on; ``prefetch`` picks how wait entries are loaded
+    ahead (:data:`PREFETCH`; None for the default).  Neither changes a
+    result.
     """
     global launches
-    traces, predicted, thresholds, cells, routes, level_horizon = _normalize(
-        traces, predicted, thresholds, (cell_trace, cell_pred, cell_thr, cell_hor),
-        delta=delta, horizon=horizon, base_level=base_level, routes=routes,
-        level_horizon=level_horizon,
-    )
+    args = _grid_args(traces, predicted, thresholds,
+                      (cell_trace, cell_pred, cell_thr, cell_hor), delta=delta,
+                      horizon=horizon, base_level=base_level, routes=routes,
+                      level_horizon=level_horizon, record=record, codes=codes)
+    traces, predicted, thresholds, cells, routes, level_horizon = args
+    prefetch_code = _prefetch_code(prefetch)
     dev = traces.device
     if dev.type == "cpu":
-        return _plain(traces, predicted, thresholds, cells, routes, level_horizon,
-                      horizon=horizon, record=record)
+        return _plain(*args, horizon=horizon, record=record, codes=codes)
     from ._build import load_provision_scan
 
     lib = load_provision_scan()
@@ -171,12 +259,13 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
     ins = [x.contiguous() for x in ins]
     out = torch.empty((G, T, n), dtype=torch.bool, device=dev)
     counts = torch.empty((G, 4, n), dtype=torch.int32, device=dev) if record else None
+    bits = torch.empty((G, T, n), dtype=torch.uint8, device=dev) if codes else None
     if G and T and n:
         err = lib.repro_provision_scan_grid(
             *[x.data_ptr() for x in ins], out.data_ptr(),
-            None if counts is None else counts.data_ptr(),
-            G, T, n, horizon, int(thresholds.shape[1] != 1), int(record),
-            torch.cuda.current_stream(dev).cuda_stream,
+            *[None if v is None else v.data_ptr() for v in (counts, bits)],
+            _paths_ptr(paths, dev), G, T, n, horizon, int(thresholds.shape[1] != 1),
+            int(record), prefetch_code, torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:
             raise RuntimeError(
@@ -185,7 +274,9 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
             )
         launches += 1
         get_telemetry().count("kernels/provision_scan_launches")
-    return (out, counts) if record else out
+    if not record:
+        return out
+    return (out, counts, bits) if codes else (out, counts)
 
 
 def provision_scan(a, thresholds, *, delta, horizon, base_level=0, predicted=None,
@@ -223,7 +314,8 @@ def _stream_args(traces, predicted, thresholds, cells, *, horizon, t_chunk, n_le
     )
     if int(t_chunk) < 1:
         raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")
-    G, n = cells[0].shape[0], thresholds.shape[-1]
+    G = cells[0].shape[0]
+    n = (thresholds.span if isinstance(thresholds, UniformWaits) else thresholds).shape[-1]
     if carry is not None:
         dev = traces.device
         carry = {
@@ -262,7 +354,7 @@ def provision_scan_stream_ref(traces, predicted, thresholds, cell_trace, cell_pr
 def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
                           cell_thr, cell_hor, *, horizon, t_chunk=DEFAULT_T_CHUNK,
                           n_levels=None, base_level=0, routes=None, level_horizon=None,
-                          record=False, carry=None):
+                          record=False, carry=None, paths=None, prefetch=None):
     """The streaming scan: x(t), per-lane totals and the end carry, any T.
 
     The arguments are :func:`provision_scan_grid`'s, less ``delta``
@@ -276,6 +368,10 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
         nothing toggles at the first slot — or the ``{"r", "on", "wait"}``
         (G, N) dict a previous call returned, to continue that trace.
 
+    ``thresholds`` may be a :class:`~repro_torch.core.torch_provision.
+    UniformWaits` (the uniforms route): K2 then draws each wait from the
+    uniforms where a lane consumes it, and ``cell_thr`` picks span rows.
+
     Returns ``(x, accs, carry)``: ``x`` (G, T) int32; ``accs`` a dict of
     (G, N) int32 totals ``run``/``up``/``down`` (plus the four
     :data:`repro_torch.obs.provenance.COUNT_ORDER` counters under
@@ -283,7 +379,8 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
     caller's to add; ``carry`` the state after the last slot.
 
     CUDA tensors launch K2 (and count in :data:`stream_launches`); CPU
-    tensors run :func:`provision_scan_stream_ref`.
+    tensors run :func:`provision_scan_stream_ref`.  ``paths`` and
+    ``prefetch`` are as for :func:`provision_scan_grid`.
     """
     global stream_launches
     args = _stream_args(
@@ -291,6 +388,9 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
         horizon=horizon, t_chunk=t_chunk, n_levels=n_levels, base_level=base_level,
         routes=routes, level_horizon=level_horizon, carry=carry,
     )
+    thr = args["thresholds"]
+    prefetch_code = _prefetch_code(
+        prefetch, two_rings=isinstance(thr, UniformWaits) and thr.p0 is not None)
     dev = args["traces"].device
     if dev.type == "cpu":
         return _stream_scan(**args, record=record)
@@ -304,11 +404,19 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
             "on this card"
         )
     G, T = args["cell_trace"].shape[0], args["traces"].shape[1]
-    n = args["thresholds"].shape[-1]
+    if isinstance(thr, UniformWaits):       # spans in place of the table, then the draws
+        source = 2 if thr.p0 is None else 3
+        draws = [thr.u, thr.u0, thr.p0, thr.cell]
+        thr = thr.span
+    else:
+        source = int(thr.shape[1] != 1)
+        draws = [None] * 4
+    n = thr.shape[-1]
     names = STREAM_ACCS + (_prov.COUNT_ORDER if record else ())
-    ins = [args[k].contiguous() for k in ("traces", "predicted", "thresholds", "cell_trace",
-                                          "cell_pred", "cell_thr", "cell_hor",
-                                          "level_horizon", "routes")]
+    ins = [args[k] for k in ("traces", "predicted")] + [thr] + [
+        args[k] for k in ("cell_trace", "cell_pred", "cell_thr", "cell_hor", "level_horizon",
+                          "routes")] + draws
+    ins = [None if v is None else v.contiguous() for v in ins]
     carry = args["carry"]
     ins += [None] * 3 if carry is None else [carry[k].contiguous()
                                               for k in ("r", "on", "wait")]
@@ -321,8 +429,8 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
         err = lib.repro_provision_scan_stream(
             *[None if v is None else v.data_ptr() for v in ins],
             x.data_ptr(), accs.data_ptr(), *[v.data_ptr() for v in out.values()],
-            G, T, n, horizon, min(args["t_chunk"], max_tile), args["n_levels"],
-            int(args["thresholds"].shape[1] != 1), int(record),
+            _paths_ptr(paths, dev), G, T, n, horizon, min(args["t_chunk"], max_tile),
+            args["n_levels"], source, int(record), prefetch_code,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:
@@ -333,3 +441,39 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
         stream_launches += 1
         get_telemetry().count("kernels/provision_scan_stream_launches")
     return x, {name: accs[:, i] for i, name in enumerate(names)}, out
+
+
+def uniform_waits(u0, u, span, p0=None):
+    """The waits K2's uniforms route draws, for every entry of ``u`` (..., N)
+    against one (N,) ``span`` row (and A3's ``p0`` row with ``u0``): on CUDA
+    tensors by the kernel's own arithmetic, on CPU tensors by
+    :func:`repro_torch.core.torch_provision._waits`, the table route's.
+    ``chip_smoke.py`` holds the two equal on every entry of its tables, which
+    is what makes the uniforms route exact."""
+    u = torch.as_tensor(u).to(torch.float32)
+    dev = u.device
+    span = torch.as_tensor(span, device=dev).to(torch.float32).reshape(-1)
+    if (u0 is None) != (p0 is None):
+        raise ValueError("u0 and p0 come together (A3's atom) or not at all")
+    if p0 is not None:
+        u0 = torch.as_tensor(u0, device=dev).to(torch.float32)
+        p0 = torch.as_tensor(p0, device=dev).to(torch.float32).reshape(-1)
+    if span.shape[0] != u.shape[-1] or (p0 is not None and (
+            p0.shape != span.shape or u0.shape != u.shape)):
+        raise ValueError("span/p0 must be (N,) rows for u/u0 of shape (..., N)")
+    if dev.type == "cpu":
+        return _waits(u0, u, span, p0)
+    from ._build import load_provision_scan
+
+    lib = load_provision_scan()
+    ins = [v if v is None else v.contiguous() for v in (u, u0, span, p0)]
+    out = torch.empty_like(u)
+    if u.numel():
+        err = lib.repro_uniform_waits(
+            *[None if v is None else v.data_ptr() for v in ins], out.data_ptr(),
+            u.numel(), span.shape[0], int(p0 is not None),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError("uniform_waits: launch failed: "
+                               + lib.repro_cuda_error_string(err).decode())
+    return out

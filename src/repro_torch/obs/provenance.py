@@ -36,9 +36,10 @@ The codes *reconstruct the schedule exactly* (property-tested): with
     ``x(t) = x(0) + Σ_{u<=t} (#DEMAND_RISE(u) − #TOGGLE_OFF(u))``
 
 which is what :func:`reconstruct_schedule` computes and
-:func:`toggles_from_decisions` exposes per slot.  The CUDA route (kernel
-K1) records aggregate per-level counters only
-(``ProvisionResult.decision_counts``); the CPU route records both.
+:func:`toggles_from_decisions` exposes per slot.  Both routes of
+``provision()`` record both (on CUDA, kernel K1 writes the codes);
+``provision_stream()`` records the aggregate per-level counters only
+(``ProvisionResult.decision_counts``).
 
 Everything here is plain numpy over host arrays; nothing imports the
 engine, so the engine can import these constants without a cycle.
