@@ -29,13 +29,15 @@ Phases, one line or more each:
    first and last level of blocks of 128 and changes on the slot loop's
    32-slot sub-tile boundaries: the on-matrices, counters and codes must
    be equal bit for bit (the same input tensors, so no tolerance), and the
-   straddling cases must take every path of the loop; the share of
-   sub-tiles each path took; K1's device time (the profiler's CUPTI
-   records, mean of 20 launches) with each way of prefetching the wait
-   table, the wrapper call's time and the plain version's (CUDA events,
-   medians of 20 and 3 calls), and the bound, whose operations count only
-   the updates that are not in a steady state (the old bound, which
-   counts every update, beside it);
+   straddling cases must take every path of the loop; then two peeks the
+   loop does not tabulate (longer than its 64 slots): A2 with codes at Δ =
+   100 over 300 slots, and A2 at the longest horizon the card takes (one
+   more must be refused), held to the plain version peeking the whole
+   trace; the share of sub-tiles each path took; K1's device time (the
+   profiler's CUPTI records, mean of 20 launches), the wrapper call's time
+   and the plain version's (CUDA events, medians of 20 and 3 calls), and
+   the bound, whose operations count only the updates that are not in a
+   steady state (the old bound, which counts every update, beside it);
 4. provision — A1, A2 and offline end to end, each call counted on its
    own: one K2 launch per online call and no K1 launch; then A2 with
    ``record_decisions``: one K1 launch and no K2 launch.  ``x``,
@@ -47,17 +49,19 @@ Phases, one line or more each:
 5. breakdown — one A1, one A2 and one recorded A2 call under
    ``torch.profiler``: device busy time, K1's and K2's share, and the
    kernels that take the most;
-6. stream kernel — first the uniforms route's waits (``uniform_waits``)
-   against PyTorch's ``log1p`` route on every entry of the A2, A3 and
-   AQ-rand tables of the smoke inputs, which must be equal in every bit;
+6. stream kernel — first the uniforms route's waits (the test-only probe
+   ``_uniform_waits_probe``, K2's arithmetic on every entry) against
+   PyTorch's ``log1p`` route on every entry of the A2, A3 and AQ-rand
+   tables of the smoke inputs, which must be equal in every bit;
    then kernel K2 against its plain version on the card, on the inputs
    ``provision_stream()`` gives it, for the cases of phase 3 plus AQ-rand,
    the keyed policies on the uniforms route and on the table route, each
    at ``t_chunk`` 512 (which leaves a part tile at the end) and at
    ``t_chunk`` = T, plus one trace cut at slot 601 with the carry threaded
-   into a second call: x, every per-lane total and the carry must be equal
-   bit for bit; K2's device time on each route and way of prefetching,
-   call time, plain time, bound and path shares as in phase 3;
+   into a second call, and the two untabulated peeks of phase 3 on A3's
+   uniforms route: x, every per-lane total and the carry must be equal
+   bit for bit; K2's device time on each route, call time, plain time,
+   bound and path shares as in phase 3;
 7. provision_stream — A1, A2 and A2 with decision counters end to end
    through K2: ``x``, ``level_cost``, ``cost`` and ``decision_counts`` must
    equal ``provision()``'s bit for bit, and ``x``, ``level_cost`` and
@@ -131,6 +135,8 @@ YEAR_TABLE_TRACES = 2            # the table route's (W*B, T, N) waits at B = 8:
 STRADDLE_BLOCKS = (0, 5, 17, 31) # level blocks whose edges the straddling demand sits on
 STREAM_T_CHUNK = 512             # K2's default tile; 1008 = 512 + 496
 CUT = 601                        # where the chained case splits the trace
+LONG_WINDOWS = [70, 99]          # a peek of 100 slots, past the loop's 64-slot table
+LONG_SLOTS, LIMIT_SLOTS = 300, 80  # slots of the long-peek and the longest-peek cases
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
@@ -176,10 +182,12 @@ def kernel_ms(fn, reps, name="grid_scan_kernel"):
     Without a launch before them, the profiler on the card lost one record
     in most sessions, always of the kernel a call launches first (K3, K4's
     split pass, never its merge), so each session opens with one untimed
-    fill before the ``reps`` calls.  It must then hold exactly ``reps``
+    fill before the ``reps`` calls.  It should then hold exactly ``reps``
     records of each kernel; a session that holds another number is profiled
-    again, at most ``PROFILE_ATTEMPTS`` times, and the run fails after
-    that."""
+    again, at most ``PROFILE_ATTEMPTS`` times.  If every session lost
+    records (one in 20 of K3's, in three sessions of one run), the time is
+    the mean over the records the last session kept, each kernel's own,
+    provided it kept at least half of them; else the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -200,6 +208,10 @@ def kernel_ms(fn, reps, name="grid_scan_kernel"):
             return sum(e.self_device_time_total for e in events
                        if any(n in e.key for n in names)) / 1e3 / reps
         print(f"profiler: kept {seen} of {reps} launches each; profiling again", flush=True)
+    if all(2 * seen[n] >= reps for n in names):
+        print(f"profiler: timed from the {seen} records kept", flush=True)
+        return sum(sum(e.self_device_time_total for e in events if n in e.key) / seen[n]
+                   for n in names) / 1e3
     raise SmokeFailure(f"profiler kept {seen} of {reps} launches each in "
                        f"{PROFILE_ATTEMPTS} sessions")
 
@@ -211,13 +223,14 @@ def bound_ms(inputs, record, ons, stream=False):
     and the one-byte codes under record), or K2's x, per-lane totals and
     carry.  Each input row the cells use is counted once; of the waits only
     the entries this run's demand consumes (one per lane turning idle: busy
-    at t - 1, not at t), as table entries or, on the uniforms route, as one
-    or two uniforms each.  The operations are ``OPS_PER_UPDATE`` for each
-    (cell, slot, level) update that is not in a steady state — the lane was
-    on at t - 1 and is not busy at t — counted from ``ons``, the plain
-    version's (G, T, N) on-matrix of the same inputs.  Returns the bound,
-    what sets it, and the bound that counts all G·T·N updates (the one of
-    earlier runs)."""
+    at t - 1, not at t), each once however many cells read it (the windows
+    of a trace read the same uniforms), as table entries or, on the
+    uniforms route, as one or two uniforms each.  The operations are
+    ``OPS_PER_UPDATE`` for each (cell, slot, level) update that is not in a
+    steady state — the lane was on at t - 1 and is not busy at t — counted
+    from ``ons``, the plain version's (G, T, N) on-matrix of the same
+    inputs.  Returns the bound, what sets it, and the bound that counts all
+    G·T·N updates (the one of earlier runs)."""
     import torch
 
     from repro_torch.core.torch_provision import UniformWaits
@@ -237,17 +250,24 @@ def bound_ms(inputs, record, ons, stream=False):
     base += rows(inputs["cell_hor"]) * N * 4
     if inputs["horizon"]:
         base += rows(inputs["cell_pred"]) * T * 4
-    level = torch.clamp(a[cells.long()], max=N)
-    crossings = int(torch.clamp(level[:, :-1] - level[:, 1:], min=0).sum())
+    busy = a[cells.long()][:, :, None] > inputs["routes"]        # (G, T, N)
+    newly = busy[:, :-1] & ~busy[:, 1:]                          # newly idle at 1 .. T - 1
+
+    def consumed(row_of_cell):
+        """Entries of the wait rows the cells read, each counted once."""
+        row_of_cell = row_of_cell.to(newly.device)
+        return sum(int(newly[row_of_cell == r].any(dim=0).sum())
+                   for r in torch.unique(row_of_cell))
+
     if drawn:           # the uniforms a lane consumes, and the span (and p0) rows
         per = 2 if thr.p0 is not None else 1
-        needed = crossings * 4 * per + rows(inputs["cell_thr"]) * N * 4 * per
+        needed = consumed(thr.cell) * 4 * per + rows(inputs["cell_thr"]) * N * 4 * per
     elif thr.shape[1] == 1:
         needed = rows(inputs["cell_thr"]) * N * 4
     else:
-        needed = crossings * 4
-    busy = a[cells.long()][:, :, None] > inputs["routes"]
+        needed = consumed(inputs["cell_thr"]) * 4
     updates = int((ons[:, :-1] & ~busy[:, 1:]).sum())
+    del busy, newly
     by_bytes = (base + needed) / HBM_BYTES_PER_S * 1e3
     by_ops = updates * OPS_PER_UPDATE / FP32_OPS_PER_S * 1e3
     kind = "bytes" if by_bytes >= by_ops else "operations"
@@ -665,7 +685,7 @@ def main() -> int:
     ab = torch.as_tensor(demand, device=dev).to(torch.int32)
     straddle = torch.as_tensor(straddle_demand(), device=dev)
 
-    def grid_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False):
+    def grid_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
         delta = torch.as_tensor(costs.delta, dtype=torch.float32,
                                 device=dev).broadcast_to((N_LEVELS,))
         uniforms = None
@@ -673,7 +693,7 @@ def main() -> int:
             gen = torch.Generator(device=dev).manual_seed(SEED)
             uniforms = engine._uniforms(gen, a.shape[0], a.shape[1], N_LEVELS, dev)
         inputs, _ = engine._grid_inputs(
-            a, a[None], WINDOWS, delta, uniforms, n_levels=N_LEVELS,
+            a, a[None], windows, delta, uniforms, n_levels=N_LEVELS,
             max_h=costs.delta_slots(), policy=policy, uniform_waits=uniform_waits,
         )
         return inputs
@@ -722,25 +742,61 @@ def main() -> int:
                   flush=True)
             continue
 
-        def k1(prefetch=None, inputs=inputs, record=record):
-            return kernels.provision_scan_grid(**inputs, record=record, codes=record,
-                                               prefetch=prefetch)
+        def k1(inputs=inputs, record=record):
+            return kernels.provision_scan_grid(**inputs, record=record, codes=record)
 
         ms = kernel_ms(k1, KERNEL_REPS)
-        other = ""              # the wait table read ahead by registers, not the ring
-        if inputs["thresholds"].shape[1] != 1:
-            other = f" register_prefetch_ms={kernel_ms(lambda: k1('register'), KERNEL_REPS):.4f}"
         call = cuda_ms(k1, KERNEL_REPS)
         plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(
             **inputs, record=record, codes=record), PLAIN_REPS)
         bound, bound_by, bound_old = bound_ms(inputs, record, want[0])
         measured[name] = (ms, plain, bound, bound_by)
         print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
-              f"codes={record} equal=True kernel_ms={ms:.4f}{other} call_ms={call:.4f} "
+              f"codes={record} equal=True kernel_ms={ms:.4f} call_ms={call:.4f} "
               f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
               f"counting every update) launches={kernels.launches - launched_before} "
               f"(check and timing); {path_shares(paths)} [{smi}]", flush=True)
         del got, want
+
+    # peeks the loop does not tabulate (the window walked, waits loaded on
+    # the chain): a horizon past its 64-slot table, and the longest horizon
+    # the card takes, held to the plain version peeking the rest of the
+    # trace (past T the peek reads 0, so the two agree)
+    long_costs = CostModel(P=1.0, beta_on=50.0, beta_off=50.0)         # Δ = 100 slots
+    scan_lib = load_provision_scan()
+
+    def whole_trace(inputs, horizon):
+        """``inputs`` with every level peeking ``horizon`` slots, and the same
+        inputs peeking exactly the rest of the trace."""
+        far, whole = dict(inputs), dict(inputs)
+        for d, h in ((far, horizon), (whole, inputs["traces"].shape[1])):
+            d["horizon"] = h
+            d["level_horizon"] = torch.full_like(inputs["level_horizon"], float(h))
+            if "delta" in inputs:
+                d["delta"] = h
+        return far, whole
+
+    k1_limit = scan_lib.repro_provision_scan_max_horizon()
+    long_inputs = grid_inputs("A2", long_costs, ab[:, :LONG_SLOTS], windows=LONG_WINDOWS)
+    far, whole = whole_trace(grid_inputs("A2", a=ab[:2, :LIMIT_SLOTS]), k1_limit)
+    for name, got_in, want_in in (("peek 100 A2+record", long_inputs, long_inputs),
+                                  ("peek at the limit A2+record", far, whole)):
+        got = kernels.provision_scan_grid(**got_in, record=True, codes=True)
+        want = kernels.provision_scan_grid_ref(**want_in, record=True, codes=True)
+        for g, w in zip(got, want):
+            max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
+            check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
+        check(bool((got[2] & 4).any()), f"K1 {name}: no peek fired")
+        print(f"kernel: K1 {name}: G={got[0].shape[0]} T={got[0].shape[1]} "
+              f"horizon={got_in['horizon']} equal=True", flush=True)
+    try:
+        kernels.provision_scan_grid(**whole_trace(far, k1_limit + 1)[0])
+    except ValueError:
+        print(f"kernel: K1 takes peeks of up to {k1_limit} slots and refuses "
+              f"{k1_limit + 1}", flush=True)
+    else:
+        raise SmokeFailure(f"K1 took a horizon of {k1_limit + 1}, past its limit")
+    del long_inputs, far, whole, got, want
 
     # 4. provision() end to end: the main path, counted call by call
     def spec(policy):
@@ -884,7 +940,8 @@ def main() -> int:
         for k in range(span.shape[0]):
             row0 = None if p0 is None else p0[k]
             want = engine._waits(u0 if p0 is not None else None, u, span[k], row0)
-            got = kernels.uniform_waits(u0 if p0 is not None else None, u, span[k], row0)
+            got = kernels._uniform_waits_probe(u0 if p0 is not None else None, u, span[k],
+                                               row0)
             torch.cuda.synchronize()
             entries += want.numel()
             differ += int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -893,8 +950,8 @@ def main() -> int:
           f"tables, {differ} differ in any bit from PyTorch's log1p route", flush=True)
     check(differ == 0, "the uniforms route's waits differ from the table route's")
 
-    def stream_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False):
-        inputs = grid_inputs(policy, costs, a, uniform_waits)
+    def stream_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
+        inputs = grid_inputs(policy, costs, a, uniform_waits, windows)
         del inputs["delta"]                 # K2 examines `horizon` slots, no more
         return inputs
 
@@ -934,9 +991,9 @@ def main() -> int:
         if ons is None:
             ons = kernels.provision_scan_grid_ref(**grid_inputs(policy, costs, a))
         for t_chunk in (STREAM_T_CHUNK, N_SLOTS):
-            def k2(route=drawn, t_chunk=t_chunk, prefetch=None, paths=None):
+            def k2(route=drawn, t_chunk=t_chunk, paths=None):
                 return kernels.provision_scan_stream(**route, t_chunk=t_chunk, record=record,
-                                                     prefetch=prefetch, paths=paths)
+                                                     paths=paths)
             want, plain = timed(lambda: kernels.provision_scan_stream_ref(
                 **table, t_chunk=t_chunk, record=record))
             paths = new_paths()
@@ -954,15 +1011,10 @@ def main() -> int:
                       f"{path_shares(paths)}", flush=True)
                 continue
             ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
-            extra = ""          # the other ways to the same waits, timed beside it
+            extra = ""          # the table route to the same waits, timed beside it
             if drawn is not table:
-                extra = " " + " ".join(
-                    f"{label}_ms={kernel_ms(fn, KERNEL_REPS, name='stream_scan_kernel'):.4f}"
-                    for label, fn in (
-                        ("uniforms_register" if policy != "A3" else "uniforms_ring",
-                         lambda: k2(prefetch="register" if policy != "A3" else "ring")),
-                        ("table_ring", lambda: k2(table, prefetch="ring")),
-                        ("table_register", lambda: k2(table, prefetch="register"))))
+                table_ms = kernel_ms(lambda: k2(table), KERNEL_REPS, name="stream_scan_kernel")
+                extra = f" table_route_ms={table_ms:.4f}"
             call = cuda_ms(k2, KERNEL_REPS)
             bound, bound_by, bound_old = bound_ms(drawn, record, ons, stream=True)
             if t_chunk == STREAM_T_CHUNK:
@@ -1004,6 +1056,37 @@ def main() -> int:
     check(mid_wait > 0, "K2 chained: no lane is mid-wait at the cut")
     print(f"stream kernel: K2 A2+record cut at slot {CUT} (t_chunk={STREAM_T_CHUNK}), "
           f"carry threaded: equal=True, {mid_wait} lanes mid-wait at the cut", flush=True)
+
+    # phase 3's untabulated peeks, on A3's uniforms route (two rings when
+    # tabulated); the longest horizon is the largest with a tile of 1 slot
+    lo, hi = 0, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        fits = scan_lib.repro_provision_scan_stream_max_tile(mid, 3) >= 1
+        lo, hi = (mid, hi) if fits else (lo, mid)
+    k2_limit = lo
+    long_drawn = stream_inputs("A3", long_costs, ab[:, :LONG_SLOTS], uniform_waits=True,
+                               windows=LONG_WINDOWS)
+    far, whole = whole_trace(stream_inputs("A3", a=ab[:2, :LIMIT_SLOTS], uniform_waits=True),
+                             k2_limit)
+    for name, got_in, want_in, t_chunk in (
+            ("peek 100 A3+record", long_drawn, long_drawn, 128),
+            ("peek at the limit A3+record", far, whole, LIMIT_SLOTS)):
+        want = kernels.provision_scan_stream_ref(**want_in, t_chunk=t_chunk, record=True)
+        k2_err = max(k2_err, stream_diff(
+            kernels.provision_scan_stream(**got_in, t_chunk=t_chunk, record=True), want,
+            f"{name} t_chunk={t_chunk}"))
+        check(int(want[1]["peek_fired"].sum()) > 0, f"K2 {name}: no peek fired")
+        print(f"stream kernel: K2 {name} t_chunk={t_chunk}: G={want[0].shape[0]} "
+              f"T={want[0].shape[1]} horizon={got_in['horizon']} equal=True", flush=True)
+    try:
+        kernels.provision_scan_stream(**whole_trace(far, k2_limit + 1)[0])
+    except ValueError:
+        print(f"stream kernel: K2 takes peeks of up to {k2_limit} slots on A3's uniforms "
+              f"route and refuses {k2_limit + 1}", flush=True)
+    else:
+        raise SmokeFailure(f"K2 took a horizon of {k2_limit + 1}, past its limit")
+    del long_drawn, far, whole, want
 
     # 7. provision_stream() end to end: the main path, counted
     stream_runs = (("A1", False), ("A2", False), ("A2", True))

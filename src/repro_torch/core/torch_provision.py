@@ -518,10 +518,11 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     :func:`_run`, as one call of :func:`repro_torch.kernels.provision_scan.
     provision_scan_stream` — K2 on CUDA tensors, its plain version on the
     CPU — which returns x(t) and per-level totals instead of the (T, N)
-    on-matrix.  On CUDA the keyed policies take K2's uniforms route: the
+    on-matrix.  The keyed policies take K2's uniforms route: on CUDA the
     kernel draws each wait from the (B, T, N) uniforms where it is consumed,
-    and no (W·B, T, N) wait table is built.  The forced x(T) = a(T) final off is added here from the
-    end carry.  Returns what :func:`_run` returns, bit for bit, with
+    and no (W·B, T, N) wait table is built; on the CPU the plain version
+    builds that table first.  The forced x(T) = a(T) final off is added
+    here from the end carry.  Returns what :func:`_run` returns, bit for bit, with
     ``decision_counts`` (S, W, B, 4, N) under ``record`` on both devices.
     ``offline`` is rejected: it is a closed form over the whole trace.
     """
@@ -536,8 +537,7 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     W = len(windows)
     inputs, (S, Wc, B) = _grid_inputs(
         ab, predb, windows, delta, uniforms,
-        n_levels=n_levels, max_h=max_h, policy=policy,
-        uniform_waits=ab.device.type == "cuda",
+        n_levels=n_levels, max_h=max_h, policy=policy, uniform_waits=True,
     )
     del inputs["delta"]
     x, accs, carry = provision_scan_stream(

@@ -56,15 +56,15 @@ def load_provision_scan() -> ctypes.CDLL:
         lib = _compile("repro_torch_provision_scan",
                        ("provision_scan.cu", "provision_scan_stream.cu"), BUILD_DIR)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.repro_provision_scan_grid.argtypes = [ptr] * 13 + [i32] * 7 + [ptr]
+        lib.repro_provision_scan_grid.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
         lib.repro_provision_scan_grid.restype = i32
         lib.repro_provision_scan_max_horizon.argtypes = []
         lib.repro_provision_scan_max_horizon.restype = i32
-        lib.repro_provision_scan_stream.argtypes = [ptr] * 22 + [i32] * 9 + [ptr]
+        lib.repro_provision_scan_stream.argtypes = [ptr] * 22 + [i32] * 8 + [ptr]
         lib.repro_provision_scan_stream.restype = i32
         lib.repro_uniform_waits.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i32] * 2 + [ptr]
         lib.repro_uniform_waits.restype = i32
-        lib.repro_provision_scan_stream_max_tile.argtypes = [i32]
+        lib.repro_provision_scan_stream_max_tile.argtypes = [i32, i32]
         lib.repro_provision_scan_stream_max_tile.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -78,7 +78,7 @@ struct StoreOn {
   __device__ void tile_end(int, int) {}
 };
 
-template <int kSource, int kPrefetch, bool kRecord, bool kCodes>
+template <int kSource, bool kTabulated, bool kRecord, bool kCodes>
 __global__ void __launch_bounds__(kLanes)
 grid_scan_kernel(ScanIn p,
                  uint8_t* __restrict__ out,       // (G, T, N)
@@ -97,7 +97,7 @@ grid_scan_kernel(ScanIn p,
     if (kSource == kConstantRow && L.lane) {
       s.wait = p.thresholds[static_cast<size_t>(p.cell_thr[g]) * N + L.j];
     }
-    scan_cell<kSource, kPrefetch>(p, L, g, /*fresh=*/true, s, sink, smem, tally);
+    scan_cell<kSource, kTabulated>(p, L, g, /*fresh=*/true, s, sink, smem, tally);
     if (kRecord && L.lane) {
       int32_t* c = counts + static_cast<size_t>(g) * 4 * N + L.j;
       c[0] = sink.cnt[0];
@@ -109,12 +109,11 @@ grid_scan_kernel(ScanIn p,
   flush_tally(p.paths, tally);
 }
 
-template <int kSource, int kPrefetch, bool kRecord, bool kCodes>
+template <int kSource, bool kTabulated, bool kRecord, bool kCodes>
 cudaError_t launch(const ScanIn& p, uint8_t* out, int32_t* counts, uint8_t* codes,
                    cudaStream_t stream) {
-  auto kernel = grid_scan_kernel<kSource, kPrefetch, kRecord, kCodes>;
-  const size_t smem =
-      loop_words(kTile, p.horizon, rings_of(kSource, kPrefetch)) * sizeof(int32_t);
+  auto kernel = grid_scan_kernel<kSource, kTabulated, kRecord, kCodes>;
+  const size_t smem = loop_words(kTile, p.horizon, drawn_waits(kSource)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -125,12 +124,20 @@ cudaError_t launch(const ScanIn& p, uint8_t* out, int32_t* counts, uint8_t* code
   return cudaGetLastError();
 }
 
-template <int kSource, int kPrefetch>
+template <int kSource, bool kTabulated>
 cudaError_t launch_recorded(const ScanIn& p, uint8_t* out, int32_t* counts, uint8_t* codes,
                             int record, cudaStream_t stream) {
-  if (!record) return launch<kSource, kPrefetch, false, false>(p, out, counts, codes, stream);
-  return codes ? launch<kSource, kPrefetch, true, true>(p, out, counts, codes, stream)
-               : launch<kSource, kPrefetch, true, false>(p, out, counts, codes, stream);
+  if (!record) return launch<kSource, kTabulated, false, false>(p, out, counts, codes, stream);
+  return codes ? launch<kSource, kTabulated, true, true>(p, out, counts, codes, stream)
+               : launch<kSource, kTabulated, true, false>(p, out, counts, codes, stream);
+}
+
+template <int kSource>
+cudaError_t launch_source(const ScanIn& p, uint8_t* out, int32_t* counts, uint8_t* codes,
+                          int record, cudaStream_t stream) {
+  return tabulated(p.horizon)
+      ? launch_recorded<kSource, true>(p, out, counts, codes, record, stream)
+      : launch_recorded<kSource, false>(p, out, counts, codes, record, stream);
 }
 
 }  // namespace
@@ -140,26 +147,23 @@ cudaError_t launch_recorded(const ScanIn& p, uint8_t* out, int32_t* counts, uint
 // `codes` (null unless `record`) receives the per-slot reason bits; `paths`
 // (null, or 3 int32 zeroed by the caller) receives the number of
 // (block, cell, sub-tile) triples that ran the step, were all busy, or idle.
-// `prefetch` is kRegister (0) or kRing (1).
 extern "C" int repro_provision_scan_grid(
     const int32_t* traces, const int32_t* predicted, const float* thresholds,
     const int32_t* cell_trace, const int32_t* cell_pred, const int32_t* cell_thr,
     const int32_t* cell_hor, const float* level_horizon, const int32_t* routes,
     uint8_t* out, int32_t* counts, uint8_t* codes, int32_t* paths, int G, int T, int N,
-    int horizon, int time_varying, int record, int prefetch, void* stream) {
+    int horizon, int time_varying, int record, void* stream) {
   const ScanIn p{traces, predicted, thresholds, cell_trace, cell_pred, cell_thr, cell_hor,
                  level_horizon, routes, nullptr, nullptr, nullptr, nullptr, paths,
                  G, T, N, horizon, kTile};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!time_varying) {
-    return launch_recorded<kConstantRow, kRegister>(p, out, counts, codes, record, s);
-  }
-  return prefetch == kRing
-      ? launch_recorded<kTable, kRing>(p, out, counts, codes, record, s)
-      : launch_recorded<kTable, kRegister>(p, out, counts, codes, record, s);
+  return time_varying ? launch_source<kTable>(p, out, counts, codes, record, s)
+                      : launch_source<kConstantRow>(p, out, counts, codes, record, s);
 }
 
-// Largest peek horizon the shared-memory tiles can hold on this card.
+// Largest peek horizon the shared-memory tiles can hold on this card: one
+// predicted word per slot above kPeekTable (the tabulated horizons below it
+// need far less than the card has), beside the static shared memory.
 extern "C" int repro_provision_scan_max_horizon() {
   int device = 0, bytes = 0;
   if (cudaGetDevice(&device) != cudaSuccess) return -1;
@@ -167,9 +171,8 @@ extern "C" int repro_provision_scan_max_horizon() {
       != cudaSuccess) {
     return -1;
   }
-  // each slot of horizon costs a predicted word and a column of the peek table
-  return (bytes / static_cast<int>(sizeof(int32_t))
-          - static_cast<int>(loop_words(kTile, 0, /*rings=*/1))) / (1 + kSub);
+  return bytes / static_cast<int>(sizeof(int32_t)) - static_cast<int>(loop_words(kTile, 0, false))
+      - kStaticWords;
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -104,7 +104,7 @@ struct Totals {
   }
 };
 
-template <int kSource, int kPrefetch, bool kRecord>
+template <int kSource, bool kTabulated, bool kRecord>
 __global__ void __launch_bounds__(kLanes)
 stream_scan_kernel(ScanIn p,
                    const float* __restrict__ r_in,          // (G, N) or null: fresh
@@ -119,7 +119,7 @@ stream_scan_kernel(ScanIn p,
   constexpr int kAccs = kRecord ? 7 : 3;
   extern __shared__ int32_t smem[];
   const int tile = p.tile, N = p.N;
-  int32_t* w_s = smem + loop_words(tile, p.horizon, rings_of(kSource, kPrefetch));
+  int32_t* w_s = smem + loop_words(tile, p.horizon, drawn_waits(kSource));
   const Lanes L = block_lanes(p.routes, N);
   const bool lane_ok = L.lane && L.route < n_levels;
   const bool fresh = r_in == nullptr;
@@ -140,7 +140,7 @@ stream_scan_kernel(ScanIn p,
     }
     Totals<kRecord> sink{w_s, x + static_cast<size_t>(g) * p.T, tile, lane_ok, 0, 0, 0,
                          {0, 0, 0, 0}};
-    scan_cell<kSource, kPrefetch>(p, L, g, fresh, s, sink, smem, tally);
+    scan_cell<kSource, kTabulated>(p, L, g, fresh, s, sink, smem, tally);
 
     if (L.lane) {
       int32_t* acc = accs + static_cast<size_t>(g) * kAccs * N + L.j;
@@ -160,17 +160,16 @@ stream_scan_kernel(ScanIn p,
 
 // int32 words of shared memory for a tile: the loop's, plus one on-lane
 // count per warp and slot
-size_t smem_words(int tile, int horizon, int rings) {
-  return loop_words(tile, horizon, rings) + static_cast<size_t>(tile) * kWarps;
+size_t smem_words(int tile, int horizon, bool drawn) {
+  return loop_words(tile, horizon, drawn) + static_cast<size_t>(tile) * kWarps;
 }
 
-template <int kSource, int kPrefetch, bool kRecord>
+template <int kSource, bool kTabulated, bool kRecord>
 cudaError_t launch(const ScanIn& p, const float* r_in, const uint8_t* on_in,
                    const float* wait_in, int32_t* x, int32_t* accs, float* r_out,
                    uint8_t* on_out, float* wait_out, int n_levels, cudaStream_t stream) {
-  auto kernel = stream_scan_kernel<kSource, kPrefetch, kRecord>;
-  const size_t smem =
-      smem_words(p.tile, p.horizon, rings_of(kSource, kPrefetch)) * sizeof(int32_t);
+  auto kernel = stream_scan_kernel<kSource, kTabulated, kRecord>;
+  const size_t smem = smem_words(p.tile, p.horizon, drawn_waits(kSource)) * sizeof(int32_t);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -182,20 +181,22 @@ cudaError_t launch(const ScanIn& p, const float* r_in, const uint8_t* on_in,
   return cudaGetLastError();
 }
 
-template <int kSource, int kPrefetch>
+template <int kSource, bool kTabulated>
 cudaError_t launch_recorded(const ScanIn& p, const float* r_in, const uint8_t* on_in,
                             const float* wait_in, int32_t* x, int32_t* accs, float* r_out,
                             uint8_t* on_out, float* wait_out, int n_levels, int record,
                             cudaStream_t stream) {
   return record
-      ? launch<kSource, kPrefetch, true>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,
-                                         wait_out, n_levels, stream)
-      : launch<kSource, kPrefetch, false>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,
-                                          wait_out, n_levels, stream);
+      ? launch<kSource, kTabulated, true>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,
+                                          wait_out, n_levels, stream)
+      : launch<kSource, kTabulated, false>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,
+                                           wait_out, n_levels, stream);
 }
 
-// The uniforms route's waits on their own, one thread per entry: what the
-// kernel's `wait_from_uniforms` gives for (rows, N) uniforms with one span row.
+// A test-only probe, on no path of the engine: the uniforms route's waits on
+// their own, one thread per entry, as `wait_from_uniforms` gives them for
+// (rows, N) uniforms with one span row.  chip_smoke.py holds every entry of
+// its tables to PyTorch's log1p route with it.
 template <bool kAtom>
 __global__ void uniform_waits_kernel(const float* __restrict__ u,
                                      const float* __restrict__ u0,
@@ -214,10 +215,10 @@ __global__ void uniform_waits_kernel(const float* __restrict__ u,
 // Plain C interface, bound with ctypes.  Launches on `stream`, does not
 // synchronise, allocates nothing; returns the cudaError_t of the launch.
 // `tile` must be at least 1 and at most
-// repro_provision_scan_stream_max_tile(horizon).  `source` is a
+// repro_provision_scan_stream_max_tile(horizon, source).  `source` is a
 // repro_scan::WaitSource: 0 a constant row, 1 a (K, T, N) table, 2 and 3 the
 // uniforms route (`thresholds` the (K, N) spans, `u` and, for 3, `u0` and
-// `p0` given).  `paths` and `prefetch` are as for repro_provision_scan_grid.
+// `p0` given).  `paths` is as for repro_provision_scan_grid.
 extern "C" int repro_provision_scan_stream(
     const int32_t* traces, const int32_t* predicted, const float* thresholds,
     const int32_t* cell_trace, const int32_t* cell_pred, const int32_t* cell_thr,
@@ -225,24 +226,26 @@ extern "C" int repro_provision_scan_stream(
     const float* u, const float* u0, const float* p0, const int32_t* cell_uni,
     const float* r_in, const uint8_t* on_in, const float* wait_in, int32_t* x,
     int32_t* accs, float* r_out, uint8_t* on_out, float* wait_out, int32_t* paths, int G,
-    int T, int N, int horizon, int tile, int n_levels, int source, int record, int prefetch,
+    int T, int N, int horizon, int tile, int n_levels, int source, int record,
     void* stream) {
   const ScanIn p{traces, predicted, thresholds, cell_trace, cell_pred, cell_thr, cell_hor,
                  level_horizon, routes, u, u0, p0, cell_uni, paths, G, T, N, horizon, tile};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_K2(SOURCE, PREFETCH)                                                          \
-  launch_recorded<SOURCE, PREFETCH>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,       \
-                                    wait_out, n_levels, record, s)
+#define REPRO_K2(SOURCE)                                                                    \
+  (tabulated(horizon)                                                                       \
+       ? launch_recorded<SOURCE, true>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,     \
+                                       wait_out, n_levels, record, s)                       \
+       : launch_recorded<SOURCE, false>(p, r_in, on_in, wait_in, x, accs, r_out, on_out,    \
+                                        wait_out, n_levels, record, s))
   switch (source) {
     case kConstantRow:
-      return REPRO_K2(kConstantRow, kRegister);
+      return REPRO_K2(kConstantRow);
     case kTable:
-      return prefetch == kRing ? REPRO_K2(kTable, kRing) : REPRO_K2(kTable, kRegister);
+      return REPRO_K2(kTable);
     case kUniforms:
-      return prefetch == kRing ? REPRO_K2(kUniforms, kRing) : REPRO_K2(kUniforms, kRegister);
+      return REPRO_K2(kUniforms);
     case kUniformsAtom:
-      return prefetch == kRing ? REPRO_K2(kUniformsAtom, kRing)
-                               : REPRO_K2(kUniformsAtom, kRegister);
+      return REPRO_K2(kUniformsAtom);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -250,22 +253,26 @@ extern "C" int repro_provision_scan_stream(
 }
 
 // Largest tile, in slots, that the shared memory of one block holds on this
-// card for the given peek horizon (< 1: none), with room for two rings.
-extern "C" int repro_provision_scan_stream_max_tile(int horizon) {
+// card for the given peek horizon and wait source (< 1: none), beside the
+// static shared memory.
+extern "C" int repro_provision_scan_stream_max_tile(int horizon, int source) {
   int device = 0, bytes = 0;
   if (cudaGetDevice(&device) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)
       != cudaSuccess) {
     return -1;
   }
-  const size_t words = static_cast<size_t>(bytes) / sizeof(int32_t);
+  const long long words = bytes / static_cast<long long>(sizeof(int32_t)) - kStaticWords;
   int tile = static_cast<int>((words - horizon) / (2 + kWarps));
-  while (tile > 0 && smem_words(tile, horizon, /*rings=*/2) > words) --tile;
+  while (tile > 0 && static_cast<long long>(smem_words(tile, horizon, drawn_waits(source))) > words) {
+    --tile;
+  }
   return tile;
 }
 
-// The waits of the uniforms route for `total` = rows * N entries of `u`
-// (and `u0`), against one (N,) span row (and p0 row when `atom`).
+// The test-only probe's entry: the waits of the uniforms route for `total` =
+// rows * N entries of `u` (and `u0`), against one (N,) span row (and p0 row
+// when `atom`).
 extern "C" int repro_uniform_waits(const float* u, const float* u0, const float* span,
                                    const float* p0, float* out, long long total, int N,
                                    int atom, void* stream) {

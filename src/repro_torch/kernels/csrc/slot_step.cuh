@@ -33,16 +33,24 @@
 // The wait entry off the chain.  For t >= 1 within a tile, a lane is newly
 // idle at t exactly when it is busy at t - 1 and not at t (busy sets r = 0;
 // an idle slot leaves r >= 1 or the lane off).  The demand of the tile is in
-// shared memory, so those slots are known before the step reaches them and
-// the entry is loaded ahead: by a register load issued one step before its
-// slot (kRegister), or by cp.async of the sub-tile's entries into a
-// per-thread shared-memory ring at the sub-tile's start (kRing).  Only the
-// first slot of a tile loads on the chain.
+// shared memory, so those slots are known before the step reaches them: at
+// the start of a sub-tile that steps, each lane issues cp.async of all the
+// entries it will consume there into its column of a shared-memory ring,
+// in the order it consumes them.  Two consecutive slots cannot both be
+// newly idle, so kSub / 2 rows hold a sub-tile's entries: A3, which reads u
+// and u0 ahead, splits the ring's kSub rows between them.  Only the first
+// slot of a tile loads on the chain.
 //
 // The peek in one read.  At the start of a sub-tile that steps, the block
 // tabulates the largest predicted demand in each window of 1 .. horizon
 // slots after each of its slots; a lane's peek is then one shared-memory
 // read, issued off the chain, where the reference loops over the window.
+//
+// Both cost shared memory per slot of horizon, so they are kept for
+// horizons up to kPeekTable slots.  Above it the loop peeks by walking the
+// window, as the reference does, and loads each fresh wait on the chain, so
+// that the longest horizon the card takes is what the predicted window
+// alone leaves room for.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,6 +66,8 @@ constexpr int kWarps = kLanes / 32;
 constexpr int kSub = 32;           // slots per sub-tile of the steady-state skip
 constexpr int kPadRoute = 1 << 30; // routing id of masked lanes: never busy
 constexpr int kMaxGridY = 65535;
+constexpr int kPeekTable = 64;     // longest horizon with the peek table and the ring
+constexpr int kStaticWords = 2 * kWarps;   // block_lanes's static shared memory
 
 // decision bits, as repro_torch.obs.provenance
 constexpr uint32_t kDemandRise = 1, kWaitExpired = 2, kPeekFired = 4, kToggleOff = 8;
@@ -68,9 +78,6 @@ enum Path : int { kStep = 0, kAllBusy = 1, kAllIdle = 2 };
 // where a fresh wait comes from: one constant row, a (T, N) table per cell,
 // or the (T, N) uniforms of the cell's trace with the A2/A3 inverse CDF
 enum WaitSource : int { kConstantRow = 0, kTable = 1, kUniforms = 2, kUniformsAtom = 3 };
-
-// how a wait entry is brought ahead of its slot
-enum Prefetch : int { kRegister = 0, kRing = 1 };
 
 // e - 1 rounded to float32, as PyTorch rounds the Python scalar of
 // `u * (math.e - 1.0)` for a float32 tensor
@@ -139,18 +146,22 @@ struct ScanIn {
 
 inline __host__ __device__ int subtiles(int tile) { return (tile + kSub - 1) / kSub; }
 
+// whether the loop keeps the peek table and the ring for this horizon
+inline __host__ __device__ bool tabulated(int horizon) { return horizon <= kPeekTable; }
+
 // int32 words of shared memory the loop uses for a tile: demand, predicted
-// (+ horizon), the sub-tiles' demand minima and maxima, the peek table of a
-// sub-tile, and `rings` rings of wait entries
-inline __host__ __device__ size_t loop_words(int tile, int horizon, int rings) {
-  return static_cast<size_t>(2 * tile + horizon + 2 * subtiles(tile))
-      + static_cast<size_t>(kSub) * (horizon + kLanes * rings);
+// (+ horizon), the sub-tiles' demand minima and maxima, and for a tabulated
+// horizon the peek table of a sub-tile and, where waits are drawn (not a
+// constant row), the (kSub, kLanes) ring of wait entries
+inline __host__ __device__ size_t loop_words(int tile, int horizon, bool drawn) {
+  const size_t base = static_cast<size_t>(2 * tile + horizon + 2 * subtiles(tile));
+  return tabulated(horizon)
+      ? base + static_cast<size_t>(kSub) * (horizon + (drawn ? kLanes : 0))
+      : base;
 }
 
-// the rings a loop instance keeps: one per table it reads ahead by cp.async
-inline __host__ __device__ int rings_of(int source, int prefetch) {
-  return prefetch != kRing || source == kConstantRow ? 0 : source == kUniformsAtom ? 2 : 1;
-}
+// whether a wait source is read ahead through the ring
+inline __host__ __device__ bool drawn_waits(int source) { return source != kConstantRow; }
 
 // This thread's lane and the block's route range: the smallest route of all
 // lanes, and the largest of the real ones (j < N).
@@ -163,7 +174,7 @@ struct Lanes {
 };
 
 __device__ __forceinline__ Lanes block_lanes(const int32_t* routes, int N) {
-  __shared__ int red[2][kWarps];
+  __shared__ int red[2][kStaticWords / 2];
   Lanes l;
   l.j = blockIdx.x * kLanes + threadIdx.x;
   l.lane = l.j < N;
@@ -209,21 +220,24 @@ struct Entry {
 //   sink.all_idle(t0, k0, n)           n slots from k0, nothing changes;
 //   sink.tile_end(t0, len)             after each tile.
 // `fresh`: the trace starts here (x(0) = a(0)); else `s` is a carried state.
-// `tally` (thread 0's) counts the sub-tiles of each path.
-template <int kSource, int kPrefetch, class Sink>
+// `tally` (thread 0's) counts the sub-tiles of each path.  `kTabulated`
+// must be tabulated(p.horizon), as the shared memory was sized by it.
+template <int kSource, bool kTabulated, class Sink>
 __device__ __forceinline__ void scan_cell(const ScanIn& p, const Lanes& L, int g, bool fresh,
                                           SlotState& s, Sink& sink, int32_t* smem,
                                           int (&tally)[3]) {
   constexpr bool kDrawn = kSource != kConstantRow;
   constexpr bool kAtom = kSource == kUniformsAtom;
   const int T = p.T, N = p.N, tile = p.tile, horizon = p.horizon;
+  constexpr bool fast = kTabulated;              // the peek table and the ring
   int32_t* a_s = smem;                           // demand slots [t0, t0 + tile)
   int32_t* p_s = a_s + tile;                     // predicted [t0 + 1, t0 + 1 + tile + horizon)
   int32_t* lo_s = p_s + tile + horizon;          // per sub-tile demand minimum
   int32_t* hi_s = lo_s + subtiles(tile);         // and maximum
-  int32_t* peek_s = hi_s + subtiles(tile);       // (horizon, kSub) windowed predicted maxima
-  float* ring = reinterpret_cast<float*>(peek_s + kSub * horizon);   // (kSub, kLanes)
-  float* ring0 = ring + kSub * kLanes;          // A3's atom uniforms, likewise
+  int32_t* peek_s = hi_s + subtiles(tile);       // fast: (horizon, kSub) windowed maxima
+  constexpr int kRows = kAtom ? kSub / 2 : kSub;  // ring rows per table read ahead
+  float* ring = reinterpret_cast<float*>(peek_s + kSub * horizon);   // fast: (kRows, kLanes)
+  float* ring0 = ring + kRows * kLanes;         // A3's atom uniforms, likewise
 
   const int32_t* a_row = p.traces + static_cast<size_t>(p.cell_trace[g]) * T;
   const int32_t* p_row = p.predicted + static_cast<size_t>(p.cell_pred[g]) * T;
@@ -259,7 +273,15 @@ __device__ __forceinline__ void scan_cell(const ScanIn& p, const Lanes& L, int g
   auto to_wait = [&](Entry e) {
     return kSource == kTable ? e.v : wait_from_uniforms<kAtom>(e.v, e.v0, span, p0);
   };
-  Entry pre{0.f, 0.f};
+  // the reference's peek, for an untabulated horizon: the first `looks` slots
+  // after slot t = t0 + k that lie before T (past T it reads 0)
+  auto walk = [&](int k, int t) {
+    const int reach_in = min(looks, T - 1 - t);
+    for (int h = 0; h < reach_in; ++h) {
+      if (p_s[k + h] > L.route) return true;
+    }
+    return false;
+  };
   const int lane_id = threadIdx.x & 31;
   const int warp = threadIdx.x / 32;
 
@@ -304,7 +326,7 @@ __device__ __forceinline__ void scan_cell(const ScanIn& p, const Lanes& L, int g
         continue;
       }
       ++tally[kStep];
-      if (horizon > 0) {
+      if (fast && horizon > 0) {
         // the largest predicted demand in each window of 1 .. horizon slots
         // after each slot of the sub-tile: a lane's peek is one compare
         __syncthreads();  // every thread is done with the previous sub-tile's table
@@ -317,12 +339,14 @@ __device__ __forceinline__ void scan_cell(const ScanIn& p, const Lanes& L, int g
         }
         __syncthreads();
       }
-      if (kDrawn && kPrefetch == kRing) {
+      int used = 0;     // ring rows this lane has consumed in the sub-tile
+      if (kDrawn && fast) {
         // every entry this lane consumes in the sub-tile (slots from 1), in flight at once
         if (L.lane) {
+          int row = 0;
           for (int k = max(k0, 1); k < k0 + n; ++k) {
             if (a_s[k - 1] > L.route && a_s[k] <= L.route) {
-              const int at = (k - k0) * kLanes + threadIdx.x;
+              const int at = row++ * kLanes + threadIdx.x;
               cp_async4(ring + at, src + static_cast<size_t>(t0 + k) * N);
               if (kAtom) cp_async4(ring0 + at, src0 + static_cast<size_t>(t0 + k) * N);
             }
@@ -330,32 +354,19 @@ __device__ __forceinline__ void scan_cell(const ScanIn& p, const Lanes& L, int g
         }
         cp_async_commit();
       }
-      if (kDrawn && kPrefetch == kRegister) {
-        // after a skipped sub-tile the step before k0 issued nothing
-        if (L.lane && k0 > 0 && a_s[k0 - 1] > L.route && a_s[k0] <= L.route) pre = load(t0 + k0);
-      }
       for (int k = k0; k < k0 + n; ++k) {
         const int t = t0 + k;
         const bool busy = a_s[k] > L.route;
-        const bool seen = looks > 0 && my_peek[k - k0] > L.route;   // off the chain
-        if (kDrawn && kPrefetch == kRegister) {
-          // newly idle at k + 1: load its entry now.  Never overwrites an
-          // entry still to be used, since k and k + 1 cannot both be
-          // newly-idle slots.
-          if (L.lane && busy && k + 1 < len && a_s[k + 1] <= L.route) pre = load(t + 1);
-        }
+        const bool seen = fast && looks > 0 && my_peek[k - k0] > L.route;   // off the chain
         const bool prev = (fresh && t == 0) ? busy : s.on;
         const uint32_t bits = slot_step(
-            s, busy, prev, [&] { return seen; },
+            s, busy, prev, [&] { return fast ? seen : walk(k, t); },
             [&](float w) {
               if (!kDrawn) return w;
-              if (k == 0) return to_wait(load(t));   // a tile's first slot: on the chain
-              if (kPrefetch == kRing) {
-                cp_async_wait_all();
-                const int at = (k - k0) * kLanes + threadIdx.x;
-                return to_wait(Entry{ring[at], kAtom ? ring0[at] : 0.f});
-              }
-              return to_wait(pre);
+              if (k == 0 || !fast) return to_wait(load(t));   // on the chain
+              cp_async_wait_all();
+              const int at = used++ * kLanes + threadIdx.x;
+              return to_wait(Entry{ring[at], kAtom ? ring0[at] : 0.f});
             });
         sink.slot(t0, k, s.on, prev, bits);
       }

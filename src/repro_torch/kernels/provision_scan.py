@@ -18,9 +18,7 @@ row, wait-threshold table and per-level peek reach.
 
 Both kernels run one slot loop (``csrc/slot_step.cuh``), which skips the
 sub-tiles of slots in a steady state and loads wait entries ahead of their
-slot, by cp.async of a sub-tile's entries into a shared-memory ring
-(``prefetch="ring"``) or by a register load one step ahead
-(``"register"``); neither changes a result.
+slot, by cp.async of a sub-tile's entries into a shared-memory ring.
 
 Routes split by device, never by failure: on CUDA tensors a wrapper
 launches its kernel (built at first use, see
@@ -49,12 +47,6 @@ PAD_ROUTE = 2**30
 
 #: slots per tile of the streaming scan, as in the reference
 DEFAULT_T_CHUNK = 512
-
-#: how the kernels bring a wait entry ahead of its slot: the C interface's
-#: codes.  ``prefetch=None`` takes the faster on the H100 (PERF.md § 6): the
-#: ring, except on A3's uniforms route, whose two rings cost more in
-#: occupancy than they save
-PREFETCH = {"register": 0, "ring": 1}
 
 #: K1 and K2 launches since import (or since a caller reset them); the plain
 #: versions on CPU tensors never count
@@ -185,15 +177,6 @@ def _plain(traces, predicted, thresholds, cells, routes, level_horizon, *, horiz
     return (ons, counts, bits) if codes else (ons, counts)
 
 
-def _prefetch_code(prefetch, two_rings=False):
-    if prefetch is None:
-        prefetch = "register" if two_rings else "ring"
-    if prefetch not in PREFETCH:
-        raise ValueError(f"prefetch must be one of {sorted(PREFETCH)} or None, "
-                         f"got {prefetch!r}")
-    return PREFETCH[prefetch]
-
-
 def _paths_ptr(paths, dev):
     """The pointer of a (3,) int32 path-counter tensor on ``dev``, or None."""
     if paths is None:
@@ -207,7 +190,7 @@ def _paths_ptr(paths, dev):
 def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
                         cell_thr, cell_hor, *, delta, horizon, base_level=0,
                         routes=None, level_horizon=None, record=False, codes=False,
-                        paths=None, prefetch=None):
+                        paths=None):
     """(G, T, N) bool on-matrix: one (noise, window, trace) cell per row.
 
     ``traces`` (B, T) int32 demand rows; ``predicted`` (R, T) int32 rows the
@@ -229,9 +212,7 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
     :func:`provision_scan_grid_ref`.  On CUDA, ``paths`` (a zeroed (3,)
     int32 tensor) receives the number of (level block, cell, sub-tile)
     triples that ran the slot step, were all busy, or had nothing on and
-    nothing to turn on; ``prefetch`` picks how wait entries are loaded
-    ahead (:data:`PREFETCH`; None for the default).  Neither changes a
-    result.
+    nothing to turn on; it never changes a result.
     """
     global launches
     args = _grid_args(traces, predicted, thresholds,
@@ -239,7 +220,6 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
                       horizon=horizon, base_level=base_level, routes=routes,
                       level_horizon=level_horizon, record=record, codes=codes)
     traces, predicted, thresholds, cells, routes, level_horizon = args
-    prefetch_code = _prefetch_code(prefetch)
     dev = traces.device
     if dev.type == "cpu":
         return _plain(*args, horizon=horizon, record=record, codes=codes)
@@ -265,7 +245,7 @@ def provision_scan_grid(traces, predicted, thresholds, cell_trace, cell_pred,
             *[x.data_ptr() for x in ins], out.data_ptr(),
             *[None if v is None else v.data_ptr() for v in (counts, bits)],
             _paths_ptr(paths, dev), G, T, n, horizon, int(thresholds.shape[1] != 1),
-            int(record), prefetch_code, torch.cuda.current_stream(dev).cuda_stream,
+            int(record), torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:
             raise RuntimeError(
@@ -354,7 +334,7 @@ def provision_scan_stream_ref(traces, predicted, thresholds, cell_trace, cell_pr
 def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
                           cell_thr, cell_hor, *, horizon, t_chunk=DEFAULT_T_CHUNK,
                           n_levels=None, base_level=0, routes=None, level_horizon=None,
-                          record=False, carry=None, paths=None, prefetch=None):
+                          record=False, carry=None, paths=None):
     """The streaming scan: x(t), per-lane totals and the end carry, any T.
 
     The arguments are :func:`provision_scan_grid`'s, less ``delta``
@@ -379,8 +359,8 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
     caller's to add; ``carry`` the state after the last slot.
 
     CUDA tensors launch K2 (and count in :data:`stream_launches`); CPU
-    tensors run :func:`provision_scan_stream_ref`.  ``paths`` and
-    ``prefetch`` are as for :func:`provision_scan_grid`.
+    tensors run :func:`provision_scan_stream_ref`.  ``paths`` is as for
+    :func:`provision_scan_grid`.
     """
     global stream_launches
     args = _stream_args(
@@ -388,22 +368,12 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
         horizon=horizon, t_chunk=t_chunk, n_levels=n_levels, base_level=base_level,
         routes=routes, level_horizon=level_horizon, carry=carry,
     )
-    thr = args["thresholds"]
-    prefetch_code = _prefetch_code(
-        prefetch, two_rings=isinstance(thr, UniformWaits) and thr.p0 is not None)
     dev = args["traces"].device
     if dev.type == "cpu":
         return _stream_scan(**args, record=record)
     from ._build import load_provision_scan
 
-    lib = load_provision_scan()
-    max_tile = lib.repro_provision_scan_stream_max_tile(horizon)
-    if max_tile < 1:
-        raise ValueError(
-            f"horizon {horizon} leaves no room for a tile in K2's shared memory "
-            "on this card"
-        )
-    G, T = args["cell_trace"].shape[0], args["traces"].shape[1]
+    thr = args["thresholds"]
     if isinstance(thr, UniformWaits):       # spans in place of the table, then the draws
         source = 2 if thr.p0 is None else 3
         draws = [thr.u, thr.u0, thr.p0, thr.cell]
@@ -411,6 +381,14 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
     else:
         source = int(thr.shape[1] != 1)
         draws = [None] * 4
+    lib = load_provision_scan()
+    max_tile = lib.repro_provision_scan_stream_max_tile(horizon, source)
+    if max_tile < 1:
+        raise ValueError(
+            f"horizon {horizon} leaves no room for a tile in K2's shared memory "
+            "on this card"
+        )
+    G, T = args["cell_trace"].shape[0], args["traces"].shape[1]
     n = thr.shape[-1]
     names = STREAM_ACCS + (_prov.COUNT_ORDER if record else ())
     ins = [args[k] for k in ("traces", "predicted")] + [thr] + [
@@ -430,8 +408,7 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
             *[None if v is None else v.data_ptr() for v in ins],
             x.data_ptr(), accs.data_ptr(), *[v.data_ptr() for v in out.values()],
             _paths_ptr(paths, dev), G, T, n, horizon, min(args["t_chunk"], max_tile),
-            args["n_levels"], source, int(record), prefetch_code,
-            torch.cuda.current_stream(dev).cuda_stream,
+            args["n_levels"], source, int(record), torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:
             raise RuntimeError(
@@ -443,10 +420,12 @@ def provision_scan_stream(traces, predicted, thresholds, cell_trace, cell_pred,
     return x, {name: accs[:, i] for i, name in enumerate(names)}, out
 
 
-def uniform_waits(u0, u, span, p0=None):
-    """The waits K2's uniforms route draws, for every entry of ``u`` (..., N)
-    against one (N,) ``span`` row (and A3's ``p0`` row with ``u0``): on CUDA
-    tensors by the kernel's own arithmetic, on CPU tensors by
+def _uniform_waits_probe(u0, u, span, p0=None):
+    """A test-only entry point, on no path of the engine: the waits K2's
+    uniforms route draws, for every entry of ``u`` (..., N) against one (N,)
+    ``span`` row (and A3's ``p0`` row with ``u0``).  On CUDA tensors a
+    probe kernel applies K2's own arithmetic (``wait_from_uniforms`` of
+    ``csrc/slot_step.cuh``) to every entry; on CPU tensors this is
     :func:`repro_torch.core.torch_provision._waits`, the table route's.
     ``chip_smoke.py`` holds the two equal on every entry of its tables, which
     is what makes the uniforms route exact."""
@@ -474,6 +453,6 @@ def uniform_waits(u0, u, span, p0=None):
             u.numel(), span.shape[0], int(p0 is not None),
             torch.cuda.current_stream(dev).cuda_stream)
         if err:
-            raise RuntimeError("uniform_waits: launch failed: "
+            raise RuntimeError("_uniform_waits_probe: launch failed: "
                                + lib.repro_cuda_error_string(err).decode())
     return out

@@ -5,11 +5,14 @@
   version must give the reference's ``decisions`` bit for bit, on the
   reference's own wait draws.
 * K2's uniforms route draws each wait from the (B, T, N) uniforms where it is
-  consumed; its plain version must equal the table route bit for bit.
-* The engine's kernel routes (K2 without record, K1 with it) run here on
-  CPU tensors, through the kernels' plain versions, and must equal the
-  plain route; on the card ``chip_smoke.py`` checks that they launch K2 and
-  K1 and agree with the plain route there.
+  consumed; its plain version must equal the table route bit for bit, and
+  its waits the reference's.
+* The engine's kernel routes (K2 on the uniforms route without record, K1
+  with it) run here on CPU tensors, through the kernels' plain versions:
+  ``provision()``'s and ``provision_stream()``'s results on these routes
+  must equal the reference's on the reference's own uniforms, and the plain
+  route's; on the card ``chip_smoke.py`` checks that they launch K2 and K1
+  and agree with the plain route there.
 * K1 and K2 share one slot step: both CUDA sources include
   ``slot_step.cuh`` and neither writes its own update.
 
@@ -31,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.core as ref  # noqa: E402
 import repro_torch as port  # noqa: E402
+from repro.core import jax_provision as ref_engine  # noqa: E402
 from repro.core.jax_provision import _uniforms as ref_uniforms  # noqa: E402
 from repro_torch.convert import cost_model_from_numpy, uniforms_from_numpy  # noqa: E402
 from repro_torch.core import torch_provision as engine  # noqa: E402
@@ -160,18 +164,27 @@ def test_uniforms_route_equals_table_route(policy, record):
 
 @pytest.mark.parametrize("policy", ["A2", "A3", "AQ-rand"])
 def test_uniform_waits_equal_the_table_route_waits(policy):
+    """The uniforms route's waits (the probe's plain version) against the
+    reference's ``_waits_from_uniforms`` on the same uniforms: the atom
+    exactly, the rest within the few ulp of the two ``log1p``s (rtol 1e-6,
+    as tests/test_torch_engine.py holds the table route); and equal to the
+    port's table route in every bit."""
     a = _demand(4)
     n = int(a.max()) + 1
-    u0, u = (torch.as_tensor(np.random.default_rng(5 + i).uniform(size=(B, T, n))
-                             .astype(np.float32)) for i in range(2))
-    delta = torch.full((n,), 3.0)
+    u0, u = (np.random.default_rng(5 + i).uniform(size=(B, T, n)).astype(np.float32)
+             for i in range(2))
+    delta = np.full((n,), 3.0, np.float32)
     windows = [0] if policy == "AQ-rand" else WINDOWS
-    span, p0 = engine._wait_rows(policy, windows, delta)
+    span, p0 = engine._wait_rows(policy, windows, torch.as_tensor(delta))
     for k, w in enumerate(windows):
-        want = engine._waits_from_uniforms(policy, u0, u, w, delta)
-        got = kernels.uniform_waits(None if p0 is None else u0, u, span[k],
-                                    None if p0 is None else p0[k])
-        assert torch.equal(got, want)
+        got = kernels._uniform_waits_probe(
+            None if p0 is None else torch.as_tensor(u0), torch.as_tensor(u), span[k],
+            None if p0 is None else p0[k])
+        want = np.asarray(ref_engine._waits_from_uniforms(policy, u0, u, w, jnp.asarray(delta)))
+        np.testing.assert_array_equal(got.numpy() == 0.0, want == 0.0)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        assert torch.equal(got, engine._waits_from_uniforms(
+            policy, torch.as_tensor(u0), torch.as_tensor(u), w, torch.as_tensor(delta)))
     if policy == "A3":
         assert bool((want == 0).any())                      # the atom
 
@@ -207,6 +220,78 @@ def test_kernel_routes_of_run_equal_the_plain_route(policy, record):
                                ((want["decisions"] & bit) != 0).sum(-2, dtype=torch.int32))
 
 
+def _ref_spec(a, policy):
+    return ref.ProvisionSpec(
+        costs=ref.CostModel(*COSTS), workload=ref.Workload(demand=jnp.asarray(a)),
+        policy=ref.PolicySpec(policy, windows=jnp.asarray(WINDOWS),
+                              key=jax.random.key(KEY_SEED)))
+
+
+def _spy_stream(monkeypatch):
+    """Record, for every call of K2's wrapper, whether it took the uniforms
+    route."""
+    routes = []
+    real = kernels.provision_scan_stream
+
+    def spy(*args, **kw):
+        routes.append(isinstance(kw["thresholds"], engine.UniformWaits))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(kernels, "provision_scan_stream", spy)
+    return routes
+
+
+def _assert_result_equal(got, want, *, decisions):
+    np.testing.assert_array_equal(got.x.numpy(), np.asarray(want.x))
+    np.testing.assert_array_equal(got.level_cost.numpy(), np.asarray(want.level_cost))
+    for name in ("cost", "energy", "toggle_cost"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    if decisions:
+        np.testing.assert_array_equal(got.decisions.numpy(), np.asarray(want.decisions))
+    if want.decision_counts is not None:
+        assert sorted(got.decision_counts) == sorted(want.decision_counts)
+        for k, v in want.decision_counts.items():
+            np.testing.assert_array_equal(got.decision_counts[k].numpy(), np.asarray(v),
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["plain", "record"])
+@pytest.mark.parametrize("policy", RUN_POLICIES)
+def test_kernel_routes_of_provision_equal_the_reference(policy, record, monkeypatch):
+    """``provision()``'s kernel routes on CPU tensors — K2 (the uniforms
+    route for the keyed policies) without record, K1 with it — against the
+    reference's ``provision()`` on its own uniforms: x, every cost, and
+    under record the decisions and their counts, bit for bit."""
+    a = _demand(6)
+    n = int(a.max()) + 1
+    u = _ref_uniforms(a, n) if policy in engine.KEYED else None
+    routes = _spy_stream(monkeypatch)
+    got = port_provision._provision(_port_spec(a, policy, u), record_decisions=record,
+                                    kernel=True)
+    assert routes == ([] if record else [policy in engine.KEYED])
+    want = ref.provision(_ref_spec(a, policy), record_decisions=record)
+    _assert_result_equal(got, want, decisions=record)
+    assert (got.decisions is None) == (not record)
+
+
+@pytest.mark.parametrize("policy", ["A2", "A3", "AQ-rand"])
+def test_uniforms_route_of_provision_stream_equals_the_reference(policy, monkeypatch):
+    """``provision_stream()`` takes K2's uniforms route for the keyed
+    policies; at a tile of 20 slots (a part tile at the end) its result
+    equals the reference's ``provision_stream()`` on the reference's own
+    uniforms, decision counts included, bit for bit."""
+    a = _demand(9)
+    n = int(a.max()) + 1
+    routes = _spy_stream(monkeypatch)
+    got = port.provision_stream(_port_spec(a, policy, _ref_uniforms(a, n)), t_chunk=20,
+                                record_decisions=True)
+    assert routes == [True]
+    want = ref.provision_stream(_ref_spec(a, policy), t_chunk=20, record_decisions=True)
+    _assert_result_equal(got, want, decisions=False)
+    assert int(got.decision_counts["toggle_off"].sum()) > 0
+
+
 def test_k1_codes_need_record_and_tables():
     a = _demand(7)
     spec = _port_spec(a, "A2", _ref_uniforms(a, int(a.max()) + 1))
@@ -216,8 +301,6 @@ def test_k1_codes_need_record_and_tables():
     drawn, _ = _grid(spec, uniform_waits=True)
     with pytest.raises(ValueError, match="uniforms route is K2's"):
         kernels.provision_scan_grid(**drawn)
-    with pytest.raises(ValueError, match="prefetch must be one of"):
-        kernels.provision_scan_grid(**inputs, prefetch="vector")
 
 
 @pytest.mark.parametrize("bad, match", [
