@@ -4,10 +4,11 @@ kernels to their plain versions.
 
     python3 chip_smoke.py          # from the root of a checkout, one CUDA card
 
-The main paths are ``provision(ProvisionSpec(...))`` and
-``provision_stream(ProvisionSpec(...))`` of ``repro_torch`` at the size of
-the largest fleet of ``benchmarks/provision_bench.py``: N = 4096
-levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
+The main paths are ``provision(ProvisionSpec(...))``,
+``provision_stream(ProvisionSpec(...))`` and the eval
+``repro_torch.eval.evaluate(EvalGrid(...))`` of ``repro_torch``; the first
+two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
+N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
 paper's costs (Δ = 6): G = 48 (window, trace) cells per online policy.
 Demand and random draws are made from ``SEED``.
@@ -73,7 +74,33 @@ Phases, one line or more each:
    wall time, K2 launches and peak device memory of each; the uniforms
    route against the table route over the year on two traces; three cells
    held to ``provision()`` run on that cell alone, every A1 cell's cost
-   against offline's within 2 - α, and A2's mean ratio within its bound.
+   against offline's within 2 - α, and A2's mean ratio within its bound;
+11. eval (run after phase 8, before 9 and 10) — the competitive-ratio eval
+   ``repro_torch.eval.evaluate`` on the card: (a) the reference CLI's
+   smoke grid (144 cells: 6 scenarios, A1/A2/A3 at noise 0 and 0.2 and
+   windows 0, 2, 4, AQ-det/AQ-rand on a two-type fleet, A1 deferred at
+   slacks 0, 2, 6, 12), whose 48 cells that draw nothing (A1 at noise 0,
+   AQ-det, the deferral cells) must equal ``BENCH_provision.json`` (read
+   as JSON) on every field but ``wall_ms`` and ``compiles``; (b) its full
+   grid (a week of 10-minute slots, 16 traces, noise 0 to 0.5, windows
+   0..5: G = 384 cells per online block, 468 cells); both must pass the
+   CLI's gates (every cell ``bound_ok``, every deferral cell ``slo_ok``,
+   the AQ-det 2d bound, the deferral cell count, the widest slack no
+   dearer than rigid); in each grid, one online block per policy (A1,
+   A2, A3; N = 149, G = 24 and 384), one typed AQ-rand cell (N = 192) and
+   the slack-12 deferral cell, rebuilt by the eval's spec builders from
+   the grid's seed, must give the same leaves (x, costs, ``group_cost``,
+   the queue fields) through K2 as through the plain route, and K2's mean
+   costs must equal the report's; (c) 54 K2 launches and no K1 launch per
+   ``evaluate`` (the module counters and the telemetry counter), the wall
+   ms of each block kind (policy, typed, deferral, offline baselines) and
+   of what lies in no block, and the deferral layer's share of the
+   deferral cells' time, all from the spans of that one ``evaluate``
+   (the layer's spans, ``provision/deferral_apply`` and ``_metrics``, nest
+   in the deferral cells' spans and wait for the card); (d) ``provision()``
+   with ``DeferralSpec(slack=6)`` at the smoke fleet of phase 4, A1 and
+   A2, equal to its plain route on every leaf, the five queue fields
+   included.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -630,6 +657,195 @@ def attention_phases(smi):
             entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
                   "src/repro/kernels/decode_attention.py:78", k4_launches, k4,
                   DECODE_CASES[0][0])]
+
+
+EVAL_SLACK = 6                   # phase 11 (d): the deferral check's slack
+EVAL_KINDS = (("policy", "eval/policy_block"), ("typed", "eval/typed_cell"),
+              ("deferral", "eval/deferral_cell"), ("offline", "eval/offline_baseline"))
+
+
+def eval_phase(smi, counted, ab, dev):
+    """Phase 11: the competitive-ratio eval on the card — the smoke grid
+    held to ``BENCH_provision.json`` where it draws nothing, the full grid
+    through the CLI's gates, K2's launches per ``evaluate``, the wall time
+    of each block kind and the deferral layer's share, then deferred
+    ``provision()`` against its plain route.  Returns K2's launches on the
+    eval's main path (both grids)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import PAPER_COSTS, DeferralSpec, PolicySpec, ProvisionSpec, Workload
+    from repro_torch.eval import evaluate, harness
+    from repro_torch.eval.__main__ import FULL_GRID, SMOKE_GRID, check_gates
+    from repro_torch.kernels import provision_scan as kernels
+    from repro_torch.obs import telemetry_session
+    from repro_torch.scenarios import generate
+
+    provision_module = importlib.import_module("repro_torch.core.provision")
+    t_phase = time.perf_counter()
+
+    def key(c):
+        return (c["policy"], c["scenario"], c["noise_std"], c["window"], c["slack"], c["rule"])
+
+    def run(name, grid):
+        """``evaluate(grid)`` on the card, counted and traced: the report, the
+        K2 launches, and the summed wall ms of each block kind's spans."""
+        with telemetry_session() as tel:
+            report, n1, n2 = counted(lambda: evaluate(grid))
+        k2_counter = tel.counter_value("kernels/provision_scan_stream_launches")
+        spans = {r["name"]: r["sum"] for r in tel.metrics_records() if r["type"] == "histogram"}
+        n_blocks = len(grid.policies) * len(grid.scenarios)
+        n_typed = len(grid.typed_policies) * len(grid.scenarios)
+        n_deferral = len(grid.deferral_policies) * len(grid.scenarios) * len(grid.deferral_slacks)
+        want = n_blocks + n_typed + n_deferral
+        check(n1 == 0 and n2 == want and int(k2_counter) == want,
+              f"eval {name}: K2 launched {n2} times (counter {k2_counter}) and K1 {n1}, "
+              f"expected {want} and 0: one per online block, typed cell and deferral cell")
+        check(report.backend == "cuda", f"eval {name}: backend {report.backend}")
+        check_gates(report)
+        kinds = {kind: spans.get(f"span/{label}", 0.0) for kind, label in EVAL_KINDS}
+        # the deferral layer's spans nest inside the deferral cells' spans of
+        # this same run (the offline baselines call DeferralSpec.apply outside
+        # provision(), so outside these spans)
+        layer = sum(spans.get(f"span/provision/deferral_{part}", 0.0)
+                    for part in ("apply", "metrics"))
+        check(0.0 < layer <= kinds["deferral"],
+              f"eval {name}: deferral layer {layer} ms against the cells' {kinds['deferral']}")
+        rest = report.elapsed_s * 1e3 - sum(kinds.values())
+        print(f"eval: {name} grid, {len(report.cells)} cells in {report.elapsed_s:.2f} s: K2 "
+              f"launches={n2} ({n_blocks} policy blocks, {n_typed} typed, {n_deferral} deferral "
+              f"cells) and K1 0; every cell bound_ok, every deferral cell slo_ok, the CLI's "
+              f"gates pass; wall ms by block kind: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+              + f", in no block {rest:.1f}; the deferral layer (DeferralSpec.apply and "
+              f".metrics in provision()) {layer:.1f} of the deferral cells' "
+              f"{kinds['deferral']:.1f} ({100 * layer / kinds['deferral']:.1f}%) [{smi}]",
+              flush=True)
+        return report, n2
+
+    fields = ("x", "cost", "energy", "toggle_cost", "level_cost", "group_cost", "backlog",
+              "max_delay", "p99_delay", "deadline_misses", "unserved")
+
+    def same(what, make):
+        """``make()``'s spec through K2 and through the plain route: every leaf
+        equal; returns K2's result."""
+        got = provision_module._provision(make(), record_decisions=False, kernel=True)
+        want = provision_module._provision(make(), record_decisions=False, kernel=False)
+        for f in fields:
+            a, b = getattr(got, f), getattr(want, f)
+            check((a is None and b is None)
+                  or (a is not None and b is not None and torch.equal(a, b)),
+                  f"{what}: {f} differs between K2 and the plain route")
+        return got
+
+    def hold(name, grid, report):
+        """One online block per policy, one typed AQ-rand cell and the widest
+        slack's deferral cell of ``grid``, rebuilt by the eval's own spec
+        builders from the grid's seed (so with the same draws): K2 must equal
+        the plain route on every leaf, and K2's mean costs the report's, which
+        makes them the cells the eval ran."""
+        device = torch.device(grid.device)
+        labels = harness._scenario_labels(grid.scenarios)
+        demands = [generate(sc, grid.n_traces, grid.n_slots) for sc in grid.scenarios]
+        n_levels = report.grid["n_levels"]
+        shape = (grid.n_traces, grid.n_slots)
+        means = {key(dataclasses.asdict(c)): c.mean_cost for c in report.cells}
+
+        def on_card(si):
+            return torch.as_tensor(demands[si], device=device).to(torch.int32)
+
+        def mean_is(k, cost):
+            check(means[k] == float(cost.mean()),
+                  f"eval {name}: cell {k} rebuilt costs {float(cost.mean())}, the report "
+                  f"{means[k]}")
+
+        held = []
+        for pi, policy in enumerate(grid.policies):
+            si = pi % len(grid.scenarios)
+            got = same(f"eval {name} {policy} block on {labels[si]}",
+                       lambda pi=pi, si=si: harness._block_spec(
+                           grid, None, device, pi, on_card(si),
+                           harness._noise(grid, None, device, si, shape), n_levels))
+            for s, std in enumerate(grid.noise_stds):
+                for w, window in enumerate(grid.windows):
+                    mean_is((policy, labels[si], std, window, None, None),
+                            harness._numpy(got.cost)[s, w])
+            held.append(f"{policy} on {labels[si]} (G={got.cost.numel()}, N={n_levels})")
+        pi, si = grid.typed_policies.index("AQ-rand"), 3 % len(grid.scenarios)
+        got = same(f"eval {name} typed AQ-rand on {labels[si]}",
+                   lambda: harness._typed_spec(grid, None, device, pi, demands[si]))
+        mean_is(("AQ-rand", labels[si], 0.0, 0, None, None),
+                harness._numpy(got.group_cost).sum(axis=-1))
+        held.append(f"AQ-rand on {labels[si]} (N={got.level_cost.shape[-1]})")
+        slack, si = max(grid.deferral_slacks), 4 % len(grid.scenarios)
+        policy = grid.deferral_policies[0]
+        got = same(f"eval {name} deferral {policy} on {labels[si]} at slack {slack}",
+                   lambda: harness._deferral_spec(grid, None, device, 0, on_card(si), slack,
+                                                  n_levels))
+        mean_is((policy, labels[si], 0.0, 0, slack, grid.deferral_rule), harness._numpy(got.cost))
+        held.append(f"deferral {policy} on {labels[si]} at slack {slack}")
+        print(f"eval: {name} grid: K2 equals the plain route on every leaf, and the report's "
+              f"mean costs, for " + "; ".join(held), flush=True)
+
+    # (a) the smoke grid, held to the checked-in report where nothing is drawn
+    smoke_grid = dataclasses.replace(SMOKE_GRID, device="cuda")
+    smoke, n_smoke = run("smoke", smoke_grid)
+    hold("smoke", smoke_grid, smoke)
+    with open(os.path.join(ROOT, "BENCH_provision.json")) as f:
+        stored = {key(c): c for c in json.load(f)["cells"]}
+    ours = {key(c): c for c in (dataclasses.asdict(c) for c in smoke.cells)}
+    check(len(ours) == len(smoke.cells) == len(stored) == 144 and ours.keys() == stored.keys(),
+          f"eval smoke: {len(ours)} cells against the stored {len(stored)}")
+    drawfree = [k for k, c in stored.items()
+                if (c["policy"] == "A1" and c["noise_std"] == 0.0) or c["policy"] == "AQ-det"]
+    check(len(drawfree) == 48, f"eval smoke: {len(drawfree)} draw-free cells, expected 48")
+    for k in drawfree:
+        got, want = dict(ours[k]), dict(stored[k])
+        for d in (got, want):
+            d.pop("wall_ms")
+            d.pop("compiles")
+        diff = {f: (got[f], want[f]) for f in want if got[f] != want[f]}
+        check(not diff, f"eval smoke: cell {k} differs from BENCH_provision.json: {diff}")
+    also = sum(1 for k in stored if k not in drawfree
+               and {f: v for f, v in ours[k].items() if f not in ("wall_ms", "compiles")}
+               == {f: v for f, v in stored[k].items() if f not in ("wall_ms", "compiles")})
+    print(f"eval: smoke grid: the 48 cells that draw nothing (A1 at noise 0, AQ-det, deferral "
+          f"A1) equal BENCH_provision.json on every field but wall_ms and compiles; "
+          f"{also} of the other 96 equal it too (not required: their draws are the card's)",
+          flush=True)
+
+    # (b) and (c) the full grid
+    full_grid = dataclasses.replace(FULL_GRID, device="cuda")
+    full, n_full = run("full", full_grid)
+    hold("full", full_grid, full)
+
+    # (d) deferred provision() on the card against its plain route, every leaf
+    for p in ("A1", "A2"):
+        def spec(p=p):
+            return ProvisionSpec(
+                costs=PAPER_COSTS,
+                workload=Workload(demand=ab, deferral=DeferralSpec(slack=EVAL_SLACK)),
+                policy=PolicySpec(p, windows=WINDOWS,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED)),
+                n_levels=N_LEVELS, device=dev,
+            )
+        got, n1, n2 = counted(lambda: provision_module.provision(spec()))
+        check((n1, n2) == (0, 1), f"deferred provision {p}: K1 {n1} and K2 {n2} launches")
+        want = provision_module._provision(spec(), record_decisions=False, kernel=False)
+        for f in fields:
+            a, b = getattr(got, f), getattr(want, f)
+            check((a is None and b is None and f == "group_cost")
+                  or (a is not None and b is not None and torch.equal(a, b)),
+                  f"deferred provision {p}: {f} differs from the plain route's")
+        check(int(got.unserved.sum()) == 0 and int(got.deadline_misses.sum()) == 0,
+              f"deferred provision {p}: work unserved or deadlines missed")
+        print(f"eval: provision({p}) with DeferralSpec(slack={EVAL_SLACK}) at N={N_LEVELS}, "
+              f"T={N_SLOTS}, B={N_TRACES}, windows 0..5: one K2 launch, and every leaf (x, "
+              f"costs, backlog, max_delay, p99_delay, deadline_misses, unserved) equals the "
+              f"plain route's; p99 delay {int(got.p99_delay.max())} slots", flush=True)
+    print(f"eval: phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n_smoke + n_full
 
 
 def main() -> int:
@@ -1207,6 +1423,9 @@ def main() -> int:
     del year_res, u_year, year
     torch.cuda.empty_cache()
 
+    # 11. the competitive-ratio eval (after phase 8, before the attention phases)
+    eval_launches = eval_phase(smi, counted, ab, dev)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
 
@@ -1230,7 +1449,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
-        "launches": main_k2 + stream_main_launches,
+        "launches": main_k2 + stream_main_launches + eval_launches,
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
         "plain_ms": k2_plain,

@@ -6,13 +6,18 @@ points ``provision(ProvisionSpec(...))`` and, for production-length traces,
 ``provision_stream(ProvisionSpec(...))`` run on the card by default, with
 the provisioning scans as the hand-written CUDA kernels K1 and K2
 (:mod:`repro_torch.kernels.provision_scan`); ``ProvisionSpec(device="cpu")``
-runs the plain PyTorch versions instead.
+runs the plain PyTorch versions instead.  ``Workload(deferral=...)``
+defers slack-tolerant work before provisioning it
+(:mod:`repro_torch.deferral`), :mod:`repro_torch.scenarios` generates the
+workload families, and ``repro_torch.eval.evaluate`` (``python -m
+repro_torch.eval``) holds every policy to the paper's bounds over them.
 """
 from .core import (
     PAPER_COSTS,
     POLICIES,
     RANDOMIZED_POLICIES,
     CostModel,
+    DeferralSpec,
     PolicySpec,
     PredictionNoise,
     ProvisionResult,
@@ -35,6 +40,7 @@ __all__ = [
     "POLICIES",
     "RANDOMIZED_POLICIES",
     "CostModel",
+    "DeferralSpec",
     "PolicySpec",
     "PredictionNoise",
     "ProvisionResult",

@@ -3,10 +3,12 @@ provisioning through ``provision(ProvisionSpec(...))``.
 
 Ported so far: the cost model (scalar, per-level and typed fleets), the
 engine behind ``provision()`` for all seven policies, its streaming twin
-``provision_stream()`` for the online ones, and the synthetic traces.  The
-brick/fluid numpy oracles, deferral and the multi-device route are still to
-come (ROADMAP.md).
+``provision_stream()`` for the online ones, deferral
+(``Workload(deferral=...)``), the ski-rental bounds and the synthetic
+traces.  The brick/fluid numpy oracles and the multi-device route are still
+to come (ROADMAP.md).
 """
+from ..deferral import DeferralSpec
 from .costs import PAPER_COSTS, CostModel, ServerGroup, schedule_cost
 from .provision import (
     PolicySpec,
@@ -17,6 +19,7 @@ from .provision import (
     provision,
     provision_stream,
 )
+from .ski_rental import theoretical_ratio
 from .stepfn import StepFn
 from .torch_provision import (
     POLICIES,
@@ -28,6 +31,7 @@ from .traces import msr_like_trace, pmr, scale_to_pmr, with_prediction_error
 __all__ = [
     "PAPER_COSTS",
     "CostModel",
+    "DeferralSpec",
     "ServerGroup",
     "schedule_cost",
     "POLICIES",
@@ -41,6 +45,7 @@ __all__ = [
     "provision",
     "provision_stream",
     "on_matrix_cost",
+    "theoretical_ratio",
     "msr_like_trace",
     "pmr",
     "scale_to_pmr",

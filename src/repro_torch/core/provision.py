@@ -1,16 +1,17 @@
 """One declarative provisioning API: ``provision(ProvisionSpec(...))``.
 
 The PyTorch port of ``repro.core.provision``: ``provision()``,
-``provision_stream()`` and their spec (deferral and the multi-device
-``mesh=`` route come in later slices).  The spec is three frozen
-dataclasses plus options:
+``provision_stream()`` and their spec (the multi-device ``mesh=`` route
+comes in a later slice).  The spec is three frozen dataclasses plus
+options:
 
   * :class:`~repro_torch.core.costs.CostModel` — ``P``/``beta_on``/
     ``beta_off`` as scalars or ``(n_levels,)`` arrays; Δ is derived per
     level (paper eq. 12); typed fleets come from ``CostModel.from_groups``;
   * :class:`Workload` — demand ``(T,)`` or ``(B, T)``, an optional
     ``predicted`` trace, or a :class:`PredictionNoise` model that
-    synthesizes one (paper Sec. V-C);
+    synthesizes one (paper Sec. V-C), and an optional
+    :class:`~repro_torch.deferral.DeferralSpec` (defer-then-provision);
   * :class:`PolicySpec` — policy name, a single ``window`` or a ``windows``
     sweep axis (α = (w+1)/Δ), and the ``torch.Generator`` (or injected
     uniform tables) for A2/A3/AQ-rand.
@@ -32,11 +33,13 @@ noise axis iff ``PredictionNoise.std_frac`` was a ``(S,)`` sweep — so
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 
+from ..deferral import DeferralSpec
 from ..obs import provenance as _prov
 from ..obs.telemetry import get_telemetry
 from . import torch_provision as _engine
@@ -99,15 +102,17 @@ class Workload:
     optional trace(s) of the same shape the prediction window reads (the
     dispatcher always sees the true current slot).  ``noise``: optional
     :class:`PredictionNoise` that synthesizes ``predicted`` from ``demand``;
-    mutually exclusive with an explicit ``predicted``.  ``deferral``: slack-
-    aware deferral is not ported yet — passing one raises
-    ``NotImplementedError`` rather than being ignored.
+    mutually exclusive with an explicit ``predicted``.  ``deferral``:
+    optional :class:`~repro_torch.deferral.DeferralSpec` marking the demand
+    as *arrivals with slack*: ``provision()`` water-fills the arrivals into
+    the deferred service profile before the engine sees them
+    (defer-then-provision) and reports queue metrics on the result.
     """
 
     demand: TensorLike
     predicted: TensorLike | None = None
     noise: PredictionNoise | None = None
-    deferral: Any = None
+    deferral: DeferralSpec | None = None
 
     def resolve_predicted(self, demand_i32: torch.Tensor) -> torch.Tensor | None:
         if self.predicted is not None and self.noise is not None:
@@ -183,6 +188,14 @@ class ProvisionResult:
     ``repro_torch.obs.provenance.COUNT_ORDER`` names (K1's counters on
     CUDA, the codes' sums on the CPU).
     :func:`provision_stream` fills ``decision_counts`` only.
+
+    Deferral-enabled workloads (``Workload(deferral=...)``) additionally
+    fill the queue metrics, measured on the true arrivals (int32):
+    ``backlog`` (..., T) work still queued after each slot; ``max_delay`` /
+    ``p99_delay`` (...) worst and 99th-percentile queueing delay in slots
+    over served units; ``deadline_misses`` (...) units that expired while
+    queued; ``unserved`` (...) units left at the horizon (0 whenever the
+    schedule covers the deferred profile).  All None without deferral.
     """
 
     x: torch.Tensor
@@ -193,6 +206,11 @@ class ProvisionResult:
     group_cost: torch.Tensor | None = None
     decisions: torch.Tensor | None = None
     decision_counts: dict | None = None
+    backlog: torch.Tensor | None = None
+    max_delay: torch.Tensor | None = None
+    p99_delay: torch.Tensor | None = None
+    deadline_misses: torch.Tensor | None = None
+    unserved: torch.Tensor | None = None
 
 
 def _resolve_device(device) -> torch.device:
@@ -207,19 +225,40 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def _device_span(name: str, device: torch.device):
+    """A telemetry span over work launched on ``device``.  With telemetry
+    on and a CUDA device it waits for the card on entry and on exit, so that
+    it times that work alone (two synchronizations per span); with
+    telemetry off it does nothing."""
+    tel = get_telemetry()
+    sync = tel.enabled and device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize(device)
+    with tel.span(name):
+        yield
+        if sync:
+            torch.cuda.synchronize(device)
+
+
 def _prepare(spec: ProvisionSpec, pol: PolicySpec, device: torch.device) -> dict:
     """Normalize a validated spec into engine-shaped inputs on ``device``:
-    resolves the predicted trace / noise sweep, infers ``n_levels``,
-    broadcasts the cost fields per level, takes or draws the wait uniforms,
-    and derives the squeeze conventions."""
-    if spec.workload.deferral is not None:
-        raise NotImplementedError(
-            "Workload(deferral=...) is not ported to repro_torch yet; run "
-            "deferred workloads through the reference package"
-        )
+    applies deferral water-filling, resolves the predicted trace / noise
+    sweep, infers ``n_levels``, broadcasts the cost fields per level, takes
+    or draws the wait uniforms, and derives the squeeze conventions.  Also
+    returns the true ``arrivals`` (queue metrics are measured on those, not
+    on the deferred profile)."""
     a = torch.as_tensor(spec.workload.demand, device=device).to(torch.int32)
     if a.ndim not in (1, 2):
         raise ValueError(f"demand must be (T,) or (B, T), got shape {tuple(a.shape)}")
+    defer = spec.workload.deferral
+    arrivals = a
+    if defer is not None:
+        # defer-then-provision: the engine (predictions, noise, n_levels
+        # inference, the offline baseline) runs on the water-filled service
+        # profile; queue metrics are measured on the true arrivals
+        with _device_span("provision/deferral_apply", device):
+            a = defer.validate().apply(a)
     squeeze_b = a.ndim == 1
     ab = a[None] if squeeze_b else a
     noise = spec.workload.noise
@@ -283,8 +322,8 @@ def _prepare(spec: ProvisionSpec, pol: PolicySpec, device: torch.device) -> dict
         else:
             uniforms = _engine._uniforms(pol.generator, B, T, n_levels, device)
     return dict(
-        ab=ab, predb=predb, squeeze_b=squeeze_b, squeeze_w=squeeze_w,
-        squeeze_s=squeeze_s, windows=windows, uniforms=uniforms,
+        arrivals=arrivals, defer=defer, ab=ab, predb=predb, squeeze_b=squeeze_b,
+        squeeze_w=squeeze_w, squeeze_s=squeeze_s, windows=windows, uniforms=uniforms,
         n_levels=n_levels, P_lv=P_lv, bon_lv=bon_lv, boff_lv=boff_lv,
         delta_lv=delta_lv, max_h=spec.costs.delta_slots(),
     )
@@ -335,7 +374,7 @@ def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> 
             record=record_decisions, kernel=kernel,
         )
         out = _squeeze(out, pr)
-    return _result(spec, out, record_decisions, tel)
+    return _result(spec, out, record_decisions, tel, pr)
 
 
 def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
@@ -356,8 +395,8 @@ def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
     As in the reference: ``offline`` is rejected (a closed form over the
     whole trace, nothing to stream), and ``record_decisions=True`` fills
     ``decision_counts`` only — per-slot ``decisions`` are the O(T · N)
-    buffer streaming exists to avoid.  ``Workload(deferral=...)`` raises
-    ``NotImplementedError`` until deferral is ported.
+    buffer streaming exists to avoid.  ``Workload(deferral=...)`` fills the
+    same queue metrics as :func:`provision` does.
     """
     from ..kernels.provision_scan import DEFAULT_T_CHUNK
 
@@ -382,7 +421,7 @@ def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
             t_chunk=t_chunk, record=record_decisions,
         )
         out = _squeeze(out, pr)
-    return _result(spec, out, record_decisions, tel)
+    return _result(spec, out, record_decisions, tel, pr)
 
 
 def _squeeze(out: dict, pr: dict) -> dict:
@@ -400,11 +439,13 @@ def _squeeze(out: dict, pr: dict) -> dict:
     return {k: one(v) for k, v in out.items()}
 
 
-def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel) -> ProvisionResult:
+def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel,
+            pr: dict) -> ProvisionResult:
     """A :class:`ProvisionResult` from the engine's squeezed per-level terms:
-    the totals, the per-type reduction and, under ``record_decisions``, the
+    the totals, the per-type reduction, under ``record_decisions`` the
     decision counters (the kernel's where a kernel counted them, else
-    summed from the per-slot codes)."""
+    summed from the per-slot codes), and under deferral the queue metrics
+    of the true arrivals against the schedule."""
     decisions = out.pop("decisions", None)
     rows = out.pop("decision_counts", None)             # (..., 4, N) int32
     counts = None
@@ -420,6 +461,11 @@ def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel) -> Prov
             tel.count("provision/decision_toggle_offs", float(counts["toggle_off"].sum()))
 
     level_cost = out["energy"] + out["on_cost"] + out["off_cost"]
+    defer = pr["defer"]
+    queue = {}
+    if defer is not None:
+        with _device_span("provision/deferral_metrics", out["x"].device):
+            queue = defer.metrics(pr["arrivals"], out["x"])
     return ProvisionResult(
         x=out["x"],
         cost=level_cost.sum(dim=-1),
@@ -432,4 +478,9 @@ def _result(spec: ProvisionSpec, out: dict, record_decisions: bool, tel) -> Prov
         ),
         decisions=decisions,
         decision_counts=counts,
+        backlog=queue.get("backlog"),
+        max_delay=queue.get("max_delay"),
+        p99_delay=queue.get("p99_delay"),
+        deadline_misses=queue.get("deadline_misses"),
+        unserved=queue.get("unserved"),
     )

@@ -1,0 +1,179 @@
+"""Competitive-ratio evaluation CLI: the paper's claims as a JSON artifact.
+
+Runs :func:`repro_torch.eval.evaluate` over the scenario library on the
+card and writes the :class:`~repro_torch.eval.report.EvalReport` (the
+reference's ``repro.eval/v5`` schema, so ``benchmarks/bench_diff.py`` diffs
+it against ``BENCH_provision.json``)::
+
+    PYTHONPATH=src python -m repro_torch.eval --smoke              # the card
+    PYTHONPATH=src python -m repro_torch.eval --smoke --device cpu  # the CPU
+    PYTHONPATH=src python -m repro_torch.eval --out build/full.json  # full grid
+
+Without CUDA it exits non-zero unless given ``--device cpu``; it never
+falls back to the CPU.  The grids are the reference's (``benchmarks/
+cr_eval.py``): both carry ``TYPED_GROUPS`` (AQ-det/AQ-rand on a
+two-generation fleet) and sweep ``DEFERRAL_SLACKS``.  The run fails if a
+cell violates its paper bound beyond the grid tolerance, if an AQ-det
+typed cell lacks the 2d bound, if the deferral block has the wrong cell
+count or a latency-SLO violation, or if the widest slack costs more than
+rigid.  The reference's recompile gates and its ``streaming`` section wait
+for the port's compile watcher and serving stepper; the report's
+``streaming`` is None and the summary line says so.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import pathlib
+import sys
+
+import torch
+
+from ..core import ServerGroup
+from .harness import EvalGrid, evaluate
+from .report import EvalReport
+
+#: the repository root (``src/repro_torch/eval/__main__.py`` is 3 levels in)
+ROOT = pathlib.Path(__file__).resolve().parents[3]
+
+#: the benchmark's heterogeneous fleet: two server generations (Albers–
+#: Quedenfeld d=2).  "efficient" is the paper's normalized server; "legacy"
+#: burns 1.5× the power with proportionally pricier toggles (same Δ).
+TYPED_GROUPS = (
+    ServerGroup("efficient", 96, P=1.0, beta_on=3.0, beta_off=3.0),
+    ServerGroup("legacy", 96, P=1.5, beta_on=4.5, beta_off=4.5),
+)
+
+#: the deferral-slack sweep (slots): 0 is the rigid fixed point, the rest
+#: trace the cost-vs-slack curve
+DEFERRAL_SLACKS = (0, 2, 6, 12)
+
+SMOKE_GRID = EvalGrid(
+    noise_stds=(0.0, 0.2),
+    windows=(0, 2, 4),
+    n_traces=4,
+    n_slots=288,
+    typed_groups=TYPED_GROUPS,
+    deferral_slacks=DEFERRAL_SLACKS,
+)
+
+FULL_GRID = EvalGrid(
+    noise_stds=(0.0, 0.1, 0.25, 0.5),
+    windows=(0, 1, 2, 3, 4, 5),
+    n_traces=16,
+    typed_groups=TYPED_GROUPS,
+    deferral_slacks=DEFERRAL_SLACKS,
+)
+
+
+def check_gates(report: EvalReport) -> None:
+    """The reference CLI's result gates (``benchmarks/cr_eval.py``'s
+    ``run``), without its recompile gates: raise AssertionError naming the
+    cells at fault."""
+    if not report.bounds_ok:
+        lines = "\n".join(
+            f"  {c.policy} on {c.scenario} (std={c.noise_std:g}, w={c.window}"
+            f"{'' if c.slack is None else f', slack={c.slack}'}): "
+            f"mean CR {c.mean_cr:.4f} vs bound {c.bound}, slo_ok={c.slo_ok}, "
+            f"group_bound_ok={c.group_bound_ok}"
+            for c in report.violations()
+        )
+        raise AssertionError(f"paper-bound violations:\n{lines}")
+    if report.grid.get("typed_groups"):
+        d = len(report.grid["typed_groups"])
+        det = [c for c in report.cells
+               if c.group_mean_cr is not None and c.policy == "AQ-det"]
+        if not det:
+            raise AssertionError(
+                "grid declares typed_groups but produced no AQ-det multi-type cell"
+            )
+        off = [c for c in det if c.bound != 2.0 * d]
+        if off:
+            raise AssertionError(
+                f"AQ-det typed cells must carry the 2d = {2.0 * d:g} "
+                f"aggregate bound, got {sorted({c.bound for c in off})}"
+            )
+    if report.grid.get("deferral_slacks"):
+        dcells = [c for c in report.cells if c.slack is not None]
+        want = (
+            len(report.grid["deferral_slacks"])
+            * len(report.grid["deferral_policies"])
+            * len(report.grid["scenario_labels"])
+        )
+        if len(dcells) != want:
+            raise AssertionError(
+                f"grid declares deferral_slacks but produced "
+                f"{len(dcells)} deferral cells, expected {want}"
+            )
+        bad_slo = [c for c in dcells if not c.slo_ok]
+        if bad_slo:
+            lines = "\n".join(
+                f"  {c.policy} on {c.scenario} slack={c.slack}: "
+                f"p99={c.p99_delay} misses={c.deadline_misses}"
+                for c in bad_slo
+            )
+            raise AssertionError(f"latency-SLO violations:\n{lines}")
+        # the slack axis must actually buy something: per (policy,
+        # scenario), the widest-slack cell may not cost more than rigid
+        by_ps: dict[tuple, list] = {}
+        for c in dcells:
+            by_ps.setdefault((c.policy, c.scenario), []).append(c)
+        for (policy, scenario), cs in by_ps.items():
+            cs = sorted(cs, key=lambda c: c.slack)
+            if cs[-1].mean_cost > cs[0].mean_cost:
+                raise AssertionError(
+                    f"deferral bought nothing: {policy} on {scenario} "
+                    f"costs {cs[0].mean_cost:.1f} rigid but "
+                    f"{cs[-1].mean_cost:.1f} at slack={cs[-1].slack}"
+                )
+
+
+def run(grid: EvalGrid, out: pathlib.Path) -> EvalReport:
+    """Evaluate ``grid``, write the report to ``out`` (also when a gate
+    fails: that is when the per-cell diagnostics are needed), then gate it."""
+    report = evaluate(grid)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    report.save(out)
+    check_gates(report)
+    return report
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the small grid (4 traces of 288 slots, 144 cells)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the grid runs (default: the card)")
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=ROOT / "build" / "BENCH_torch_provision.json",
+                    help="report path (default: build/BENCH_torch_provision.json)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = parser().parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("repro_torch.eval: CUDA is not available; pass --device cpu to "
+              "evaluate on the CPU", file=sys.stderr)
+        return 2
+    grid = dataclasses.replace(SMOKE_GRID if args.smoke else FULL_GRID, device=args.device)
+    report = run(grid, args.out)
+    for line in report.summary_lines():
+        print(line)
+    worst = report.worst(1)[0]
+    kind = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    print(
+        f"# {len(report.cells)} cells ({'smoke' if args.smoke else 'full'}), "
+        f"device={kind}, {report.elapsed_s:.1f}s, compiles not observed (-1), "
+        f"streaming section: none (the serving stepper is not ported yet), "
+        f"tightest cell: {worst.policy} on {worst.scenario} "
+        f"(mean CR {worst.mean_cr:.4f} vs bound {worst.bound:.4f})",
+        file=sys.stderr,
+    )
+    print(f"# wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -341,10 +341,55 @@ def test_malformed_workloads_raise(bad):
                 lambda: port.provision(_port_spec(d_port, workload=port_kw)))
 
 
+def _deferral_pair(policy, batched, slack=2):
+    """The reference's and the port's ``provision()`` of one deferred
+    workload, on the reference's draws."""
+    from repro_torch.deferral import DeferralSpec as PortDeferralSpec
+
+    a = _demand(16, batched)
+    n = int(a.max()) + 1
+    u, _ = _ref_draws(a, policy, n)
+    want = ref.provision(ref.ProvisionSpec(
+        costs=ref.CostModel(*COSTS["delta_3.0"]),
+        workload=ref.Workload(demand=jnp.asarray(a), deferral=DeferralSpec(slack=slack)),
+        policy=ref.PolicySpec(policy, window=1, key=jax.random.key(KEY_SEED)),
+        n_levels=n,
+    ))
+    got = port.provision(port.ProvisionSpec(
+        costs=cost_model_from_numpy(*COSTS["delta_3.0"]),
+        workload=port.Workload(demand=a, deferral=PortDeferralSpec(slack=slack)),
+        policy=port.PolicySpec(policy, window=1,
+                               uniforms=None if u is None else uniforms_from_numpy(*u)),
+        n_levels=n, device="cpu",
+    ))
+    return want, got
+
+
 def test_deferral_is_not_silently_ignored():
+    """``Workload(deferral=...)`` is honoured: the engine runs on the deferred
+    profile (a schedule unlike the rigid one) and the result carries the
+    queue metrics, as the reference's does."""
+    want, got = _deferral_pair("A1", True)
     a = _demand(16)
-    with pytest.raises(NotImplementedError, match="deferral"):
-        port.provision(_port_spec(a, workload=dict(deferral=DeferralSpec(slack=2))))
+    rigid = port.provision(_port_spec(a, costs=cost_model_from_numpy(*COSTS["delta_3.0"]),
+                                      window=1, n_levels=int(a.max()) + 1))
+    assert rigid.backlog is None
+    assert not torch.equal(got.x, rigid.x)
+    np.testing.assert_array_equal(got.x.numpy(), np.asarray(want.x))
+    assert int(got.max_delay.max()) > 0 and int(got.deadline_misses.sum()) == 0
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["BT", "T"])
+@pytest.mark.parametrize("policy", ref.POLICIES)
+def test_deferral_matches_reference(policy, batched):
+    """Every leaf of a deferred ``provision()``, the five queue fields
+    included, equals the reference's."""
+    want, got = _deferral_pair(policy, batched)
+    _assert_same(want, got, ref.CostModel(*COSTS["delta_3.0"]), False)
+    for name in ("backlog", "max_delay", "p99_delay", "deadline_misses", "unserved"):
+        g = getattr(got, name)
+        assert g is not None and g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want, name)), err_msg=name)
 
 
 def test_no_cuda_and_no_device_raises(monkeypatch):

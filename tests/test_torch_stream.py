@@ -203,9 +203,24 @@ def test_offline_is_rejected():
 
 
 def test_deferral_is_not_silently_ignored():
-    spec = _port_spec(_demand(7), deferral=DeferralSpec(slack=2))
-    with pytest.raises(NotImplementedError, match="deferral"):
-        port.provision_stream(spec)
+    """``Workload(deferral=...)`` is honoured by the streaming entry point:
+    its schedule and queue metrics equal the reference's (the wider matrix
+    is in ``tests/test_torch_deferral.py``)."""
+    from repro_torch.deferral import DeferralSpec as PortDeferralSpec
+
+    a = _demand(7)
+    want = ref.provision_stream(ref.ProvisionSpec(
+        costs=ref.PAPER_COSTS,
+        workload=ref.Workload(demand=jnp.asarray(a), deferral=DeferralSpec(slack=2)),
+        policy=ref.PolicySpec("A1", windows=jnp.asarray([0, 2, 5])),
+    ), t_chunk=REF_T_CHUNK)
+    got = port.provision_stream(_port_spec(a, deferral=PortDeferralSpec(slack=2)), t_chunk=5)
+    rigid = port.provision_stream(_port_spec(a), t_chunk=5)
+    assert not torch.equal(got.x, rigid.x) and rigid.backlog is None
+    for name in ("x", "level_cost", "cost", "backlog", "max_delay", "p99_delay",
+                 "deadline_misses", "unserved"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
 
 
 def test_no_cuda_and_no_device_raises(monkeypatch):
