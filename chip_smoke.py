@@ -5,8 +5,9 @@ kernels to their plain versions.
     python3 chip_smoke.py          # from the root of a checkout, one CUDA card
 
 The main paths are ``provision(ProvisionSpec(...))``,
-``provision_stream(ProvisionSpec(...))`` and the eval
-``repro_torch.eval.evaluate(EvalGrid(...))`` of ``repro_torch``; the first
+``provision_stream(ProvisionSpec(...))``, the eval
+``repro_torch.eval.evaluate(EvalGrid(...))`` and the serving stepper
+``FleetProvisioner(...).advance(chunk)`` of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -100,7 +101,26 @@ Phases, one line or more each:
    in the deferral cells' spans and wait for the card); (d) ``provision()``
    with ``DeferralSpec(slack=6)`` at the smoke fleet of phase 4, A1 and
    A2, equal to its plain route on every leaf, the five queue fields
-   included.
+   included;
+12. stepper (run after phase 11, before 9 and 10) — the serving stepper
+   ``repro_torch.serving.FleetProvisioner.advance()`` on one fleet of N =
+   4096 replicas over the week of phase 4's first trace (capped at N),
+   under the paper's costs: A1 and A2 at window 2, delayedoff, AQ-rand
+   (its draws slot-indexed, from ``SEED``) and A1 deferred at slack 6,
+   each at ``t_chunk`` 1, 64 and 1024 (the last holds the whole week).
+   After every call, ``x``, every leaf of ``last_plan`` and the carry
+   (``r``, ``on``, ``wait``, the deferral and queue carries) must equal
+   those of a second planner on the plain route (``_advance(chunk,
+   kernel=False)``); every call must launch K2 once and K1 never, and
+   each loop build no kernel library (``tracer_sanitizer``).
+   delayedoff and AQ-rand must give one schedule at the three chunk sizes;
+   one-shot A1 and delayedoff must equal ``plan()`` (``provision()``
+   through K2), and their chunk cost plus the forced final offs
+   ``plan().cost``.  Printed: the plan latency p50/p99 of each policy and
+   chunk size, and K2's device time for the first chunk's step (the
+   profiler) beside it.  Then the eval CLI's ``streaming_latency`` on the
+   card: its rows must have ``compiles`` 0 and the policy, ``t_chunk``,
+   ``chunks`` and ``slots`` of ``BENCH_provision.json`` (read as JSON).
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -136,7 +156,8 @@ Phases, one line or more each:
    query-head group of 12, head dim 256, hymba's long decode in float32, a
    group of 32 in bf16), each held to the plain version.
 
-The line before the last is a JSON object with K1's to K4's numbers; the
+The line before the last is a JSON object with K1's to K4's numbers (K2's
+launches include the eval's and the stepper's); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -848,6 +869,161 @@ def eval_phase(smi, counted, ab, dev):
     return n_smoke + n_full
 
 
+STEP_CHUNKS = (1, 64, 1024)      # phase 12: the serving loop's chunk sizes
+# phase 12: (policy, window, deferral slack or None); the stepper steps one
+# fleet of N replicas, the first trace of phase 4's demand capped at N (its
+# peak is 4742, and a planner rejects demand above its fleet)
+STEP_CASES = (("A1", 2, None), ("A2", 2, None), ("delayedoff", 0, None),
+              ("AQ-rand", 0, None), ("A1", 0, EVAL_SLACK))
+STEP_PROFILE_REPS = 10
+
+
+def stepper_phase(smi, counted, row, dev):
+    """Phase 12: the serving stepper ``FleetProvisioner.advance()`` on the
+    card over one week of the smoke fleet's first trace at each chunk size:
+    K2 against the plain route on every leaf and on the carry, one K2
+    launch per call and no build in any loop, chunk invariance of the
+    no-peek policies, one-shot ``advance`` against ``plan()``, the plan
+    latency and K2's share of it, then the eval's ``streaming`` section.
+    Returns K2's launches on the stepper's main path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import PAPER_COSTS, DeferralSpec
+    from repro_torch.core.torch_provision import KEYED
+    from repro_torch.deferral import defer_stream, defer_stream_init
+    from repro_torch.eval.__main__ import streaming_latency
+    from repro_torch.kernels._build import load_provision_scan
+    from repro_torch.lint import tracer_sanitizer
+    from repro_torch.serving import FleetProvisioner, stepper_chunk
+    from repro_torch.serving.stepper import slot_uniforms
+
+    t_phase = time.perf_counter()
+    row = np.minimum(row, N_LEVELS)
+    fields = ("x", "cost", "energy", "toggle_cost", "level_cost", "group_cost", "backlog",
+              "max_delay", "p99_delay", "deadline_misses", "unserved")
+
+    def planner(policy, window, slack):
+        keyed = policy in KEYED
+        return FleetProvisioner(
+            PAPER_COSTS, policy=policy, window=window, max_replicas=N_LEVELS,
+            generator=torch.Generator(device=dev).manual_seed(SEED) if keyed else None,
+            deferral=None if slack is None else DeferralSpec(slack=slack), device=dev)
+
+    def same_state(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    launches = 0
+    xs, rows = {}, []
+    for policy, window, slack in STEP_CASES:
+        name = f"{policy} w={window}" + ("" if slack is None else f" slack={slack}")
+        for t_chunk in STEP_CHUNKS:
+            t_loop = time.perf_counter()
+            prov, oracle = planner(policy, window, slack), planner(policy, window, slack)
+            outs = []
+            with tracer_sanitizer(fns=(load_provision_scan,)) as watch:
+                for t0 in range(0, N_SLOTS, t_chunk):
+                    chunk = row[t0:t0 + t_chunk]
+                    x, n1, n2 = counted(lambda: prov.advance(chunk))
+                    check((n1, n2) == (0, 1), f"stepper {name} t_chunk={t_chunk} slot {t0}: "
+                          f"K1 launched {n1} times and K2 {n2}, expected 0 and 1")
+                    launches += n2
+                    want = oracle._advance(chunk, kernel=False)
+                    check(np.array_equal(x, want),
+                          f"stepper {name} t_chunk={t_chunk} slot {t0}: x differs from the "
+                          "plain route's")
+                    for f in fields:
+                        a, b = getattr(prov.last_plan, f), getattr(oracle.last_plan, f)
+                        check((a is None and b is None)
+                              or (a is not None and b is not None and torch.equal(a, b)),
+                              f"stepper {name} t_chunk={t_chunk} slot {t0}: last_plan.{f} "
+                              "differs from the plain route's")
+                    st, so = prov.state, oracle.state
+                    check(st.t == so.t and all(torch.equal(getattr(st, k), getattr(so, k))
+                                               for k in ("r", "on", "wait"))
+                          and same_state(st.defer, so.defer) and same_state(st.queue, so.queue),
+                          f"stepper {name} t_chunk={t_chunk} slot {t0}: the carry differs "
+                          "from the plain route's")
+                    outs.append(x)
+            check(watch.added == 0, f"stepper {name} t_chunk={t_chunk}: {watch.added} builds")
+            xs[name, t_chunk] = np.concatenate(outs)
+            check(xs[name, t_chunk].shape == (N_SLOTS,)
+                  and (slack is not None or bool((xs[name, t_chunk] >= row).all())),
+                  f"stepper {name} t_chunk={t_chunk}: x does not cover the demand")
+            p50, p99 = prov.metrics.latency_quantile(0.5), prov.metrics.latency_quantile(0.99)
+            t_loop = time.perf_counter() - t_loop
+            # K2's device time for the first chunk's step, as the advance()
+            # that served it launched it (its served demand, its draws), from
+            # the profiler's records of the step alone: an advance() holds
+            # hundreds of host operations per slot under deferral or draws
+            first = torch.as_tensor(row[:t_chunk], device=dev).to(torch.int32)
+            if slack is not None:
+                first, _ = defer_stream(first, defer_stream_init(slack, device=dev),
+                                        slack=slack, cap=N_LEVELS)
+            draws = (slot_uniforms(prov.policy.generator, N_LEVELS, dev)(0, first.shape[0])
+                     if policy in KEYED else None)
+            st = prov.state
+            k2 = kernel_ms(lambda: stepper_chunk(
+                first, 0, st.r, st.on, st.wait, PAPER_COSTS.delta, policy=policy,
+                n_levels=N_LEVELS, max_h=PAPER_COSTS.delta_slots(), window=window,
+                uniforms=draws), STEP_PROFILE_REPS, name="stream_scan_kernel")
+            rows.append((name, t_chunk, len(outs), p50, p99, k2))
+            print(f"stepper: {name} t_chunk={t_chunk}: {len(outs)} advance() calls, one K2 "
+                  f"launch each, 0 builds; x, every last_plan leaf and the carry equal the "
+                  f"plain route's after every call ({t_loop:.1f} s with the plain route and "
+                  f"the checks); plan latency p50={p50:.4f} ms p99={p99:.4f} ms, K2 device "
+                  f"{k2:.4f} ms for the first chunk ({100 * k2 / p50:.1f}% of p50) [{smi}]",
+                  flush=True)
+
+    # the no-peek policies draw nothing past the chunk: any cut, one schedule
+    for name in ("delayedoff w=0", "AQ-rand w=0"):
+        check(all(np.array_equal(xs[name, t], xs[name, STEP_CHUNKS[0]]) for t in STEP_CHUNKS),
+              f"stepper {name}: x differs between the chunk sizes {STEP_CHUNKS}")
+    # one chunk of 1024 slots holds the whole week: advance() is plan()
+    one_shot = STEP_CHUNKS[-1]
+    for policy, window in (("A1", 2), ("delayedoff", 0)):
+        name = f"{policy} w={window}"
+        prov = planner(policy, window, None)
+        prov.advance(row)
+        res, n1, n2 = counted(lambda: planner(policy, window, None).plan(row))
+        check((n1, n2) == (0, 1), f"plan({name}): K1 {n1} and K2 {n2} launches")
+        launches += n2
+        check(np.array_equal(xs[name, one_shot], res.x.cpu().numpy()),
+              f"stepper {name}: one-shot advance() differs from plan()")
+        final_off = int((prov.state.on.cpu().numpy() & ~(row[-1] > np.arange(N_LEVELS))).sum())
+        total = float(prov.last_plan.cost) + PAPER_COSTS.beta_off * final_off
+        check(abs(total - float(res.cost)) <= 1e-6 * abs(float(res.cost)),
+              f"stepper {name}: chunk cost {float(prov.last_plan.cost)} + final off "
+              f"{final_off} x {PAPER_COSTS.beta_off} against plan() {float(res.cost)}")
+        print(f"stepper: {name}: one-shot advance() equals plan() (provision() through K2), "
+              f"and its cost plus the {final_off} final offs equals plan().cost = "
+              f"{float(res.cost)}", flush=True)
+    print("stepper: delayedoff and AQ-rand give one schedule at t_chunk "
+          + ", ".join(map(str, STEP_CHUNKS)), flush=True)
+
+    # the eval's streaming section, held to the checked-in report's shape
+    stream, n1, n2 = counted(lambda: streaming_latency(True, "cuda"))
+    with open(os.path.join(ROOT, "BENCH_provision.json")) as f:
+        stored = json.load(f)["streaming"]
+    keys = ("policy", "t_chunk", "chunks", "slots")
+    check([[getattr(r, k) for k in keys] for r in stream] == [[r[k] for k in keys]
+                                                             for r in stored],
+          f"streaming rows {stream} against BENCH_provision.json's {stored}")
+    check(all(r.compiles == 0 for r in stream), f"streaming rows built kernels: {stream}")
+    want = sum(r.chunks + 1 for r in stream)                     # + one warmup each
+    check((n1, n2) == (0, want), f"streaming: K1 {n1} and K2 {n2} launches, expected 0 and "
+          f"{want}")
+    launches += n2
+    print("stepper: streaming section " + "; ".join(
+        f"t_chunk={r.t_chunk} chunks={r.chunks} slots={r.slots} p50={r.p50_ms:.4f} ms "
+        f"p99={r.p99_ms:.4f} ms compiles={r.compiles}" for r in stream)
+        + f"; chunks and slots equal BENCH_provision.json's [{smi}]", flush=True)
+    print(f"stepper: phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1426,6 +1602,9 @@ def main() -> int:
     # 11. the competitive-ratio eval (after phase 8, before the attention phases)
     eval_launches = eval_phase(smi, counted, ab, dev)
 
+    # 12. the serving stepper (after phase 11, before the attention phases)
+    stepper_launches = stepper_phase(smi, counted, demand[0], dev)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
 
@@ -1449,7 +1628,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
-        "launches": main_k2 + stream_main_launches + eval_launches,
+        "launches": main_k2 + stream_main_launches + eval_launches + stepper_launches,
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
         "plain_ms": k2_plain,

@@ -272,13 +272,15 @@ def _stream_scan(traces, predicted, thresholds, cell_trace, cell_pred, cell_thr,
     with a time-varying table it starts from the carry.
     """
     dev = traces.device
+    # a table of one slot is time-varying too: the uniforms route's waits are
+    # drawn per slot, also when a chunk of one slot continues a carry
+    time_varying = isinstance(thresholds, UniformWaits) or thresholds.shape[1] != 1
     if isinstance(thresholds, UniformWaits):     # the uniforms route: its waits as a table
         thresholds, cell_thr = thresholds.table(cell_thr)
     cell_trace, cell_pred, cell_thr, cell_hor = (
         c.to(dev, torch.long) for c in (cell_trace, cell_pred, cell_thr, cell_hor))
     G, T, n = cell_trace.shape[0], traces.shape[1], routes.shape[0]
     hor = level_horizon[cell_hor]                            # (G, N)
-    time_varying = thresholds.shape[1] != 1
     lane_ok = routes < n_levels
     fresh = carry is None
     if fresh:

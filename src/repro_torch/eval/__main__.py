@@ -8,6 +8,7 @@ it against ``BENCH_provision.json``)::
     PYTHONPATH=src python -m repro_torch.eval --smoke              # the card
     PYTHONPATH=src python -m repro_torch.eval --smoke --device cpu  # the CPU
     PYTHONPATH=src python -m repro_torch.eval --out build/full.json  # full grid
+    PYTHONPATH=src python -m repro_torch.eval --smoke --profile build/prof
 
 Without CUDA it exits non-zero unless given ``--device cpu``; it never
 falls back to the CPU.  The grids are the reference's (``benchmarks/
@@ -16,9 +17,16 @@ two-generation fleet) and sweep ``DEFERRAL_SLACKS``.  The run fails if a
 cell violates its paper bound beyond the grid tolerance, if an AQ-det
 typed cell lacks the 2d bound, if the deferral block has the wrong cell
 count or a latency-SLO violation, or if the widest slack costs more than
-rigid.  The reference's recompile gates and its ``streaming`` section wait
-for the port's compile watcher and serving stepper; the report's
-``streaming`` is None and the summary line says so.
+rigid; and, as the reference's recompile gates, if the grid builds more
+kernel libraries than it needs (one: K1 and K2's) or a warmed re-run of it
+builds any.
+
+Both legs also record the v5 ``streaming`` section
+(:func:`streaming_latency`): ``FleetProvisioner.advance()`` driven at
+T_chunk ∈ {1, 64, 1024} on the CLI's device, its plan-latency p50/p99 from
+``PlanMetrics``, and a hard gate that the warmed loop builds nothing (the
+stepper's steady-state claim).  ``--profile DIR`` wraps the run in
+``torch.profiler`` and writes ``DIR/trace.json``.
 """
 from __future__ import annotations
 
@@ -27,11 +35,16 @@ import dataclasses
 import pathlib
 import sys
 
+import numpy as np
 import torch
 
-from ..core import ServerGroup
+from ..core import PAPER_COSTS, ServerGroup
+from ..kernels._build import load_provision_scan
+from ..lint import tracer_sanitizer
+from ..obs import profile_to
+from ..serving import FleetProvisioner, PlanMetrics
 from .harness import EvalGrid, evaluate
-from .report import EvalReport
+from .report import EvalReport, StreamingRow
 
 #: the repository root (``src/repro_torch/eval/__main__.py`` is 3 levels in)
 ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -47,6 +60,11 @@ TYPED_GROUPS = (
 #: the deferral-slack sweep (slots): 0 is the rigid fixed point, the rest
 #: trace the cost-vs-slack curve
 DEFERRAL_SLACKS = (0, 2, 6, 12)
+
+#: the serving-loop chunk sizes the streaming section measures — one slot
+#: at a time (the latency floor), a typical scrape interval, and a bulk
+#: backfill chunk
+STREAM_CHUNKS = (1, 64, 1024)
 
 SMOKE_GRID = EvalGrid(
     noise_stds=(0.0, 0.2),
@@ -128,13 +146,65 @@ def check_gates(report: EvalReport) -> None:
                 )
 
 
-def run(grid: EvalGrid, out: pathlib.Path) -> EvalReport:
-    """Evaluate ``grid``, write the report to ``out`` (also when a gate
-    fails: that is when the per-cell diagnostics are needed), then gate it."""
+def streaming_latency(smoke: bool, device: str) -> list[StreamingRow]:
+    """The v5 ``streaming`` section, as the reference CLI measures it: drive
+    ``FleetProvisioner.advance()`` (A1, 64 replicas, demand in [0, 48) from
+    ``default_rng(0)``) at each ``STREAM_CHUNKS`` size on ``device``, record
+    the plan-latency p50/p99 through ``PlanMetrics``, and gate the
+    zero-steady-state-build claim — after the warmup call has loaded the
+    kernel library, the measured loop must build nothing."""
+    rows = []
+    rng = np.random.default_rng(0)
+    for t_chunk in STREAM_CHUNKS:
+        chunks = min(32, max(4, (256 if smoke else 8192) // t_chunk))
+        demand = rng.integers(0, 48, size=((chunks + 1) * t_chunk,))
+        prov = FleetProvisioner(PAPER_COSTS, policy="A1", max_replicas=64, device=device)
+        prov.advance(demand[:t_chunk])      # warmup: loads the library on the card
+        prov.metrics = PlanMetrics()
+        # hard zero-build gate on the warmed steady state (RecompileError on
+        # violation), while watch.added still feeds the report row
+        with tracer_sanitizer(fns=(load_provision_scan,)) as watch:
+            for i in range(1, chunks + 1):
+                prov.advance(demand[i * t_chunk:(i + 1) * t_chunk])
+        rows.append(StreamingRow(
+            policy="A1", t_chunk=t_chunk, chunks=chunks,
+            slots=chunks * t_chunk, compiles=watch.added,
+            p50_ms=prov.metrics.latency_quantile(0.5),
+            p99_ms=prov.metrics.latency_quantile(0.99),
+        ))
+    print(
+        "# streaming: " + "; ".join(
+            f"t_chunk={r.t_chunk} p50={r.p50_ms:.2f}ms p99={r.p99_ms:.2f}ms "
+            f"compiles={r.compiles}" for r in rows
+        ),
+        file=sys.stderr,
+    )
+    return rows
+
+
+def run(grid: EvalGrid, out: pathlib.Path, streaming: list | None = None) -> EvalReport:
+    """Evaluate ``grid`` with the ``streaming`` rows, evaluate it again warmed,
+    write the report to ``out`` (also when a gate fails: that is when the
+    per-cell diagnostics are needed), then gate it."""
     report = evaluate(grid)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    report.save(out)
-    check_gates(report)
+    report.streaming = streaming
+    try:
+        # the grid again: its kernel library is loaded, so nothing may build
+        second = evaluate(grid)
+        if second.jit_entries_added > 0:
+            raise AssertionError(
+                f"warmed re-run built {second.jit_entries_added} kernel library(ies): "
+                "a loader lost its cache"
+            )
+        if report.jit_entries_added > report.expected_compiles:
+            raise AssertionError(
+                f"the grid built {report.jit_entries_added} kernel libraries, expected "
+                f"at most {report.expected_compiles} (K1 and K2's)"
+            )
+        check_gates(report)
+    finally:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        report.save(out)
     return report
 
 
@@ -148,6 +218,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", type=pathlib.Path,
                     default=ROOT / "build" / "BENCH_torch_provision.json",
                     help="report path (default: build/BENCH_torch_provision.json)")
+    ap.add_argument("--profile", type=pathlib.Path, default=None, metavar="DIR",
+                    help="wrap the run in torch.profiler; write DIR/trace.json")
     return ap
 
 
@@ -158,15 +230,20 @@ def main(argv: list[str] | None = None) -> int:
               "evaluate on the CPU", file=sys.stderr)
         return 2
     grid = dataclasses.replace(SMOKE_GRID if args.smoke else FULL_GRID, device=args.device)
-    report = run(grid, args.out)
+    with profile_to(args.profile):
+        rows = streaming_latency(args.smoke, args.device)
+        report = run(grid, args.out, streaming=rows)
     for line in report.summary_lines():
         print(line)
     worst = report.worst(1)[0]
     kind = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     print(
         f"# {len(report.cells)} cells ({'smoke' if args.smoke else 'full'}), "
-        f"device={kind}, {report.elapsed_s:.1f}s, compiles not observed (-1), "
-        f"streaming section: none (the serving stepper is not ported yet), "
+        f"device={kind}, {report.elapsed_s:.1f}s, "
+        f"compiles={report.jit_entries_added}/{report.expected_compiles}, "
+        f"streaming rows: {len(rows)} (t_chunk "
+        f"{', '.join(str(r.t_chunk) for r in rows)}, compiles "
+        f"{sum(r.compiles for r in rows)}), "
         f"tightest cell: {worst.policy} on {worst.scenario} "
         f"(mean CR {worst.mean_cr:.4f} vs bound {worst.bound:.4f})",
         file=sys.stderr,

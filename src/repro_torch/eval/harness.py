@@ -31,9 +31,12 @@ them instead (:class:`Draws`), which is how the port's cells are held to
 the reference's on the same numbers.
 
 The result serializes through :class:`repro_torch.eval.report.EvalReport`
-(``python -m repro_torch.eval``).  ``compiles`` is -1 (unobservable) on
-every cell, and ``jit_entries_added`` -1, until the port has a compile
-watcher.
+(``python -m repro_torch.eval``).  The port's compile step is building a
+kernel library (:mod:`repro_torch.obs.torchwatch`), so ``compiles`` counts
+the libraries a cell's call built, ``jit_entries_added`` those the whole
+grid built, and ``expected_compiles`` is 1: one library holds K1 and K2, and
+the grid needs no other.  A warmed run builds nothing; on the CPU nothing is
+ever built.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from ..core.torch_provision import KEYED
 from ..core.traces import WEEK_SLOTS
 from ..deferral import RULES, DeferralSpec
 from ..obs.telemetry import get_telemetry
+from ..obs.torchwatch import CompileWatcher, engine_cache_size
 from ..scenarios import DEFAULT_SCENARIOS, Scenario, generate
 from .report import CR_QUANTILES, CellResult, EvalReport
 
@@ -211,17 +215,16 @@ def _timed(label: str, fn, device: torch.device, **span_labels):
     """Run ``fn`` under a telemetry span, waiting for the card on CUDA.
 
     Returns ``(result, wall_ms, compiles)`` — the per-cell runtime-health
-    pair the v4 report schema serializes; ``compiles`` is -1, the
-    reference's value for "unobservable", until the port has a compile
-    watcher.
+    pair the v4 report schema serializes; ``compiles`` is the number of
+    kernel libraries the call built (:class:`CompileWatcher`).
     """
-    with get_telemetry().span(label, **span_labels):
+    with get_telemetry().span(label, **span_labels), CompileWatcher() as watch:
         t0 = time.perf_counter()
         out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return out, wall_ms, -1
+    return out, wall_ms, watch.added
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -337,23 +340,17 @@ def _deferral_spec(grid: EvalGrid, draws, device: torch.device, pi: int,
     )
 
 
-def _evaluate_typed(grid: EvalGrid, labels: list[str], demands: list, base_statics: tuple,
-                    draws, device: torch.device) -> tuple[list[CellResult], int]:
+def _evaluate_typed(grid: EvalGrid, labels: list[str], demands: list, draws,
+                    device: torch.device) -> list[CellResult]:
     """Typed-fleet cells for every (typed policy, scenario) pair.
 
     One ``provision`` per pair plus one typed offline baseline per scenario
-    — no noise/window axes (the AQ policies never peek).  Returns the cells
-    and the reference's count of programs the block adds to its
-    ``expected_compiles`` (one per typed policy, and one for the typed
-    offline unless its (n_levels, max_h) equal ``base_statics``).
+    — no noise/window axes (the AQ policies never peek).
     """
     if grid.typed_groups is None:
-        return [], 0
+        return []
     costs = CostModel.from_groups(*grid.typed_groups)
     d = costs.n_groups
-    expected = len(set(grid.typed_policies))
-    if (costs.n_levels, costs.delta_slots()) != base_statics:
-        expected += 1                                   # the typed offline
     cells: list[CellResult] = []
     for label, demand_np in zip(labels, demands):
         specs = [_typed_spec(grid, draws, device, pi, demand_np)
@@ -404,11 +401,11 @@ def _evaluate_typed(grid: EvalGrid, labels: list[str], demands: list, base_stati
                 compiles=compiles,
                 **stats,
             ))
-    return cells, expected
+    return cells
 
 
 def _evaluate_deferral(grid: EvalGrid, labels: list[str], demands: list, n_levels: int,
-                       draws, device: torch.device) -> tuple[list[CellResult], int]:
+                       draws, device: torch.device) -> list[CellResult]:
     """Deferral cells: (deferral policy × scenario × slack) at window 0.
 
     One ``provision`` per (scenario, slack, policy) through
@@ -420,7 +417,7 @@ def _evaluate_deferral(grid: EvalGrid, labels: list[str], demands: list, n_level
     each (scenario, slack) computes its deferred profile twice).
     """
     if grid.deferral_slacks is None:
-        return [], 0
+        return []
     alpha = min(1.0, 1.0 / float(grid.costs.delta))         # window = 0
     cells: list[CellResult] = []
     for label, demand_np in zip(labels, demands):
@@ -475,7 +472,7 @@ def _evaluate_deferral(grid: EvalGrid, labels: list[str], demands: list, n_level
                     compiles=compiles,
                     **stats,
                 ))
-    return cells, len(set(grid.deferral_policies))
+    return cells
 
 
 def evaluate(grid: EvalGrid, *, draws: Draws | None = None) -> EvalReport:
@@ -496,6 +493,7 @@ def evaluate(grid: EvalGrid, *, draws: Draws | None = None) -> EvalReport:
             "pass device=\"cpu\" to evaluate on the CPU"
         )
     t0 = time.perf_counter()
+    builds0 = engine_cache_size()
     labels = _scenario_labels(grid.scenarios)
     demands = [generate(sc, grid.n_traces, grid.n_slots) for sc in grid.scenarios]
     # one fleet size for every scenario => one shape per policy
@@ -553,14 +551,8 @@ def evaluate(grid: EvalGrid, *, draws: Draws | None = None) -> EvalReport:
                         **stats,
                     ))
 
-    typed_cells, typed_programs = _evaluate_typed(
-        grid, labels, demands, (n_levels, grid.costs.delta_slots()), draws, device
-    )
-    cells.extend(typed_cells)
-    deferral_cells, deferral_programs = _evaluate_deferral(
-        grid, labels, demands, n_levels, draws, device
-    )
-    cells.extend(deferral_cells)
+    cells.extend(_evaluate_typed(grid, labels, demands, draws, device))
+    cells.extend(_evaluate_deferral(grid, labels, demands, n_levels, draws, device))
 
     return EvalReport(
         grid={
@@ -601,9 +593,7 @@ def evaluate(grid: EvalGrid, *, draws: Draws | None = None) -> EvalReport:
         },
         cells=cells,
         backend=device.type,
-        jit_entries_added=-1,
-        expected_compiles=(
-            len(set(grid.policies)) + 1 + typed_programs + deferral_programs
-        ),
+        jit_entries_added=engine_cache_size() - builds0,
+        expected_compiles=1,                # K1 and K2's library
         elapsed_s=time.perf_counter() - t0,
     )

@@ -1,10 +1,13 @@
-"""repro_torch.obs — telemetry and decision provenance.
+"""repro_torch.obs — telemetry, build accounting and decision provenance.
 
 Copies of the reference's stdlib/numpy-only modules, so the port stands
-alone:
+alone, and the port's counterpart of its JAX watcher:
 
 * :mod:`repro_torch.obs.telemetry` — counters/gauges/histograms + ``span()``
   timers with Chrome-trace and JSON-lines exports; no-op by default.
+* :mod:`repro_torch.obs.torchwatch` — :class:`CompileWatcher` over the
+  kernel-library builds (the port's compile step), build-duration
+  forwarding, and the ``--profile`` hook on ``torch.profiler``.
 * :mod:`repro_torch.obs.provenance` — per-slot decision reason-code bitmask
   (demand-rise / wait-expired / peek-fired / toggle-off) and the
   schedule-reconstruction helpers that make the codes checkable.
@@ -22,6 +25,12 @@ from .provenance import (
     reconstruct_schedule,
     toggles_from_decisions,
 )
+from .torchwatch import (
+    CompileWatcher,
+    engine_cache_size,
+    install_monitoring,
+    profile_to,
+)
 from .telemetry import (
     NullTelemetry,
     Telemetry,
@@ -33,6 +42,7 @@ from .telemetry import (
 __all__ = [
     "COUNT_BITS",
     "COUNT_ORDER",
+    "CompileWatcher",
     "DEMAND_RISE",
     "NullTelemetry",
     "PEEK_FIRED",
@@ -41,8 +51,11 @@ __all__ = [
     "Telemetry",
     "WAIT_EXPIRED",
     "decision_counts",
+    "engine_cache_size",
     "explain_slot",
     "get_telemetry",
+    "install_monitoring",
+    "profile_to",
     "reconstruct_schedule",
     "set_telemetry",
     "telemetry_session",

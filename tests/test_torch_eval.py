@@ -80,9 +80,10 @@ def test_smoke_grid_equals_the_reference_cell_for_cell(smoke_pair):
     for w, g in zip(_cells(want), _cells(got)):
         assert g == w
     assert got.bounds_ok and want.bounds_ok
-    assert got.backend == "cpu" and got.jit_entries_added == -1
-    assert all(c.compiles == -1 and c.wall_ms > 0 for c in got.cells)
-    assert got.expected_compiles == want.expected_compiles
+    # the port's compile step is a kernel-library build, and the CPU builds none
+    assert got.backend == "cpu" and got.jit_entries_added == 0
+    assert all(c.compiles == 0 and c.wall_ms > 0 for c in got.cells)
+    assert got.expected_compiles == 1 and want.expected_compiles > 1
     assert got.streaming is None
     same = {k for k in want.grid if k not in ("mesh", "use_pallas")}
     assert {k: got.grid[k] for k in same} == {k: want.grid[k] for k in same}
@@ -258,7 +259,7 @@ def test_cli_refuses_the_cpu_unless_asked(monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cli, "SMOKE_GRID", TINY)
     assert cli.main(["--smoke", "--device", "cpu", "--out", str(out)]) == 0
     err = capsys.readouterr().err
-    assert "device=cpu" in err and "streaming section: none" in err
+    assert "device=cpu" in err and "streaming rows: 3" in err and "compiles=0/1" in err
     assert reval.EvalReport.load(out).backend == "cpu"
 
 
