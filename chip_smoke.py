@@ -6,8 +6,10 @@ kernels to their plain versions.
 
 The main paths are ``provision(ProvisionSpec(...))``,
 ``provision_stream(ProvisionSpec(...))``, the eval
-``repro_torch.eval.evaluate(EvalGrid(...))`` and the serving stepper
-``FleetProvisioner(...).advance(chunk)`` of ``repro_torch``; the first
+``repro_torch.eval.evaluate(EvalGrid(...))``, the serving stepper
+``FleetProvisioner(...).advance(chunk)`` and the serving cluster with real
+tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
+full width) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -122,6 +124,34 @@ Phases, one line or more each:
    card: its rows must have ``compiles`` 0 and the policy, ``t_chunk``,
    ``chunks`` and ``slots`` of ``BENCH_provision.json`` (read as JSON).
 
+13. serve (run after phase 12, before 9 and 10) — the serving path with
+   real tokens at llama3.2-1b's full width (16 layers, d 2048, 32/8 heads
+   of 64, d_ff 8192, vocab 128,256, tied embeddings; 1,235,814,400
+   parameters, random weights from ``SEED`` on the card, bf16 compute):
+   the parameter count and bytes and the peak device memory; K3 (B 4, S
+   192; B 1, S 1, 7, 17, 32) and K4 (B 4 over 256 slots at lengths 193 and
+   256; B 1 over 96 slots at lengths 1, 33, 47) on layer 0's own
+   projections, each held to its plain version as in phases 9 and 10, K3
+   and K4 timed at the bench's shapes beside their bounds, plain versions
+   and SDPA; the whole model through ``InferenceEngine._generate`` on one
+   token stream (the float32 model's greedy picks): in float32 the kernel
+   route against the plain route (``kernel=False``), every row of the
+   prefill's and 8 decode steps' logits within 1e-4 of its largest value
+   and the greedy tokens equal; in bf16, the served config, the kernel
+   route no farther from the float32 model than 1.25 times the plain
+   route, and its greedy tokens equal to the plain route's wherever the
+   plain top-2 margin exceeds 2e-2 of the row's largest logit; then the
+   main path, counted: ``generate`` (B 4, prompt 192, 64 new tokens, 256
+   slots) must launch K3 exactly 16 times (one per layer) and K4 exactly 32
+   times per decode step; the bench's prefill ms, decode-step p50/p99 ms
+   and tokens/s, and under the profiler the device busy share, launches
+   and K3's and K4's shares; last ``run_cluster`` with the launcher's
+   defaults (A1, alpha 0.5, 60 slots, concurrency 4) and full-width engines
+   (max_batch 1, max_seq 96) must serve every session, generate tokens,
+   launch K3 16 times per session and K4 32 times per decode step, and
+   report the cost, static cost, reduction and ``ScalerReport`` of the
+   same run without engines.
+
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
    the full attention widths of three models the repo supports: yi-9b
@@ -157,7 +187,8 @@ Phases, one line or more each:
    group of 32 in bf16), each held to the plain version.
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
-launches include the eval's and the stepper's); the
+launches include the eval's and the stepper's, K3's and K4's the serving
+path's); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -456,6 +487,32 @@ def sass_check(library):
     return len(flash), len(split)
 
 
+def row_err(got, want):
+    """Largest |got - want| of each output row (one query head) over that
+    row's largest |want|."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    return err / want.float().abs().amax(dim=-1).clamp_min(1e-30)
+
+
+def compare(got, want, dtype, what):
+    """Largest absolute and row-relative differences of ``got`` from
+    ``want``.  Every element must be within the reference's tolerance
+    (atol = rtol = tol), and every row within tol of its largest |want|,
+    so that the check scales with what it compares: a row of zeros
+    passes only where the kernel's is zero."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    err = (got.float() - want.float()).abs()
+    tol = ATTENTION_TOL[dtype]
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"{what}: kernel and plain version differ by {float(err.max())}")
+    rel = float(row_err(got, want).max())
+    check(rel <= tol, f"{what}: a row differs by {rel:.3e} of its largest value, above {tol}")
+    return float(err.max()), rel
+
+
 def attention_phases(smi):
     """Phases 9 and 10: K3 and K4 driven through ``repro_torch.kernels.ops``
     with their launch counts, then held to their plain versions and timed;
@@ -479,28 +536,6 @@ def attention_phases(smi):
         return tuple((torch.randn(*shape, generator=g, device=dev) * std)
                      .to(getattr(torch, dtype))
                      for shape, std in ((q_shape, QK_STD), (kv_shape, QK_STD), (kv_shape, 1.0)))
-
-    def row_err(got, want):
-        """Largest |got - want| of each output row (one query head) over that
-        row's largest |want|."""
-        err = (got.float() - want.float()).abs().amax(dim=-1)
-        return err / want.float().abs().amax(dim=-1).clamp_min(1e-30)
-
-    def compare(got, want, dtype, what):
-        """Largest absolute and row-relative differences of ``got`` from
-        ``want``.  Every element must be within the reference's tolerance
-        (atol = rtol = tol), and every row within tol of its largest |want|,
-        so that the check scales with what it compares: a row of zeros
-        passes only where the kernel's is zero."""
-        check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape/dtype")
-        check(bool(torch.isfinite(got).all()), f"{what}: not finite")
-        err = (got.float() - want.float()).abs()
-        tol = ATTENTION_TOL[dtype]
-        check(bool((err <= tol + tol * want.float().abs()).all()),
-              f"{what}: kernel and plain version differ by {float(err.max())}")
-        rel = float(row_err(got, want).max())
-        check(rel <= tol, f"{what}: a row differs by {rel:.3e} of its largest value, above {tol}")
-        return float(err.max()), rel
 
     def rejects(faults, want, dtype, what):
         """The check must fail on each planted fault: names of the faults and
@@ -1022,6 +1057,383 @@ def stepper_phase(smi, counted, row, dev):
         + f"; chunks and slots equal BENCH_provision.json's [{smi}]", flush=True)
     print(f"stepper: phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+SERVE_ARCH = "llama3.2-1b"       # phase 13: the serving path at this model's full width
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEQ = 4, 192, 64, 256   # the engine bench
+COMPARE_STEPS = 8                # decode steps whose logits are held to the plain route
+# whole-model logits, per row, of the row's largest |logit|: float32 compute
+# as the CPU parity tests hold the port to the reference; in bf16 two routes
+# that round at other places part by as much as each is from the float32
+# model (2.1e-2 and 2.3 to 2.5e-2 over 16 layers, on the card), so there the
+# kernel route must be no farther from the float32 model than the plain
+# route, within BF16_SLACK, and the tolerance sets the greedy-token margin
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BF16_SLACK = 1.25
+CLUSTER_SEQ = 96                 # the launcher's engines: max_batch 1, max_seq 96
+# K3 and K4 at the path's shapes: (B, S) of a prefill; (B, cache slots, lengths) of a decode
+SERVE_FLASH = ((SERVE_BATCH, SERVE_PROMPT), (1, 1), (1, 7), (1, 17), (1, 32))
+SERVE_DECODE = ((SERVE_BATCH, SERVE_SEQ, (SERVE_PROMPT + 1,) * SERVE_BATCH),
+                (SERVE_BATCH, SERVE_SEQ, (SERVE_SEQ,) * SERVE_BATCH),
+                (1, CLUSTER_SEQ, (1,)), (1, CLUSTER_SEQ, (33,)), (1, CLUSTER_SEQ, (47,)))
+SERVE_PROFILE_STEPS = 8
+
+
+def device_window(fn, reps):
+    """``fn()`` run ``reps`` times under ``torch.profiler``, after a warm-up
+    run: per run, the wall ms (host clock, ending in a device sync), the
+    device busy ms (every kernel, copy and fill the profiler saw on the
+    card), the device launches, and the device ms by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
+    launches = sum(e.count for e in events) / reps - 1.0 / reps   # less the one fill
+    return wall, sum(by_name.values()), launches, by_name
+
+
+def serving_phase(smi):
+    """Phase 13: the serving path with real tokens at llama3.2-1b's full
+    width on the card — K3 and K4 at the path's shapes against their plain
+    versions, the engine's kernel route against its plain route, the launch
+    counts of the main path, the engine bench and ``run_cluster`` with
+    engines.  Returns K3's and K4's launches on the main path."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CostModel
+    from repro_torch.data import generate_sessions
+    from repro_torch.models import attention, init_params, param_count
+    from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
+    from repro_torch.serving import InferenceEngine, make_window_max_predictor, run_cluster
+    from repro_torch.serving.engine import serving_params
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    # the model's float32 products (the unembedding) and the plain versions
+    # stay out of TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()          # what earlier phases still hold
+
+    # 1. sizes: the full-width model from the port's own init
+    cfg = get_config(SERVE_ARCH)
+    cd = cfg.compute_dtype
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    shared = serving_params(params, cfg, dev)
+    torch.cuda.synchronize()
+    n_params = param_count(cfg)
+    leaves = [params["embed"], params["final_ln"]]
+    for layer in params["blocks"]:
+        for v in layer.values():
+            leaves += list(v.values()) if isinstance(v, dict) else [v]
+    check(sum(t.numel() for t in leaves) == n_params, "serve: parameter count")
+    f32_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"serve: {SERVE_ARCH} full width (layers={cfg.n_layers} d={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size}): {n_params:,} parameters, {f32_bytes / 1e9:.3f} GB in "
+          f"float32, drawn and cast to {str(cd).split('.')[1]} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 2. K3 and K4 at the path's shapes, on layer 0's own projections
+    rng = np.random.default_rng(SEED)
+    p0 = shared["blocks"][0]["attn"]
+
+    def projections(b, s):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), device=dev)
+        h = rms_norm(embed_tokens(tokens, shared["embed"], cd), shared["blocks"][0]["ln1"],
+                     cfg.norm_eps)
+        q, k, v = attention._qkv(h, p0, cd)
+        pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+    measured, errs = {}, {"K3": 0.0, "K4": 0.0}
+    for b, s in SERVE_FLASH:
+        q, k, v = projections(b, s)
+        got = flash.flash_attention(q, k, v, causal=True, block_q=s, block_k=s)
+        want = flash.flash_attention_plain(q, k, v, causal=True)
+        err, rel = compare(got, want, "bfloat16", f"serve K3 B={b} S={s}")
+        errs["K3"] = max(errs["K3"], err)
+        line = (f"serve: K3 prefill B={b} S={s} H={cfg.n_heads} KVH={cfg.n_kv_heads} "
+                f"hd={cfg.head_dim}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e}")
+        if (b, s) == SERVE_FLASH[0]:
+            def run(q=q, k=k, v=v, s=s):
+                return flash.flash_attention(q, k, v, causal=True, block_q=s, block_k=s)
+
+            def library(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                    enable_gqa=True)
+
+            flops = 4 * b * cfg.n_heads * cfg.head_dim * admitted_pairs(s, True, 0)
+            nbytes = q.element_size() * 2 * b * s * (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim
+            bound, bound_by = attention_bound_ms(flops, nbytes, "bfloat16")
+            ms = kernel_ms(run, KERNEL_REPS, name=flash.k3_instance(q.dtype, cfg.head_dim)[0])
+            measured["K3"] = dict(err=err, ms=ms, call=cuda_ms(run, KERNEL_REPS),
+                                  plain=cuda_ms(lambda q=q, k=k, v=v: flash.flash_attention_plain(
+                                      q, k, v, causal=True), PLAIN_REPS),
+                                  library=cuda_ms(library, KERNEL_REPS), bound=bound,
+                                  bound_by=bound_by)
+            line += (" kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
+                     "library_ms={library:.4f} bound_ms={bound:.4f} ({bound_by})"
+                     .format(**measured["K3"]))
+        print(line + f" [{smi}]", flush=True)
+    for b, slots, lens in SERVE_DECODE:
+        q, k, v = projections(b, slots)
+        q = q[:, -1].contiguous()                     # the last position's query
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = decode.decode_attention(q, k, v, lengths, block_k=slots)
+        want = decode.decode_attention_plain(q, k, v, lengths)
+        err, rel = compare(got, want, "bfloat16", f"serve K4 B={b} slots={slots} {lens}")
+        errs["K4"] = max(errs["K4"], err)
+        n_split, chunk = decode.splits(b, cfg.n_kv_heads, slots, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        line = (f"serve: K4 decode B={b} slots={slots} lengths={sorted(set(lens))} "
+                f"group={cfg.n_heads // cfg.n_kv_heads} splits={n_split}x{chunk}: close=True "
+                f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e}")
+        if lens == SERVE_DECODE[0][2]:
+            mask = (torch.arange(slots, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+
+            def run(q=q, k=k, v=v, lengths=lengths, slots=slots):
+                return decode.decode_attention(q, k, v, lengths, block_k=slots)
+
+            def library(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True)
+
+            valid = int(lengths.sum())
+            nbytes = q.element_size() * (2 * valid * cfg.n_kv_heads * cfg.head_dim
+                                         + 2 * b * cfg.n_heads * cfg.head_dim) + 4 * b
+            bound, bound_by = attention_bound_ms(4 * cfg.n_heads * cfg.head_dim * valid, nbytes,
+                                                 "bfloat16")
+            ms = kernel_ms(run, KERNEL_REPS, name=("decode_split", "decode_combine_kernel"))
+            measured["K4"] = dict(err=err, ms=ms, call=cuda_ms(run, KERNEL_REPS),
+                                  plain=cuda_ms(lambda q=q, k=k, v=v, lengths=lengths:
+                                                decode.decode_attention_plain(q, k, v, lengths),
+                                                PLAIN_REPS),
+                                  library=cuda_ms(library, KERNEL_REPS), bound=bound,
+                                  bound_by=bound_by)
+            line += (" kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
+                     "library_ms={library:.4f} bound_ms={bound:.4f} ({bound_by})"
+                     .format(**measured["K4"]))
+        print(line + f" [{smi}]", flush=True)
+
+    # 3. the whole model, every route fed the same tokens (the float32
+    # model's greedy picks): in float32, the kernel route (K3's and K4's
+    # float32 instances) against the plain route; in bf16, the served
+    # config, both routes against each other and against the float32 model
+    engine = InferenceEngine(cfg, shared, max_batch=SERVE_BATCH, max_seq=SERVE_SEQ, device=dev)
+    check(engine.params["embed"].data_ptr() == params["embed"].data_ptr(),
+          "serve: the engines copied the weights")
+    prompt = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    f32_cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+
+    def route(route_cfg, weights, kernel, forced=None):
+        return InferenceEngine(route_cfg, weights, max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
+                               device=dev, kernel=kernel)._generate(
+            prompt, COMPARE_STEPS + 1, forced=forced, keep_logits=True)
+
+    def held(got, got_picks, want, want_picks, tol, margin, what):
+        """Every row of ``got`` within ``tol`` of its largest |want|, and the
+        greedy picks equal wherever ``want``'s top-2 margin exceeds
+        ``margin`` of it; returns the largest row error and the picks that
+        agree and that the margin decides."""
+        worst, decided, agreed = 0.0, 0, 0
+        for step, (g, w) in enumerate(zip(got, want)):
+            check(g.shape == w.shape == (SERVE_BATCH, cfg.vocab_size)
+                  and bool(torch.isfinite(g).all()), f"serve: {what} step {step} logits")
+            rel = float(row_err(g, w).max())
+            check(rel <= tol, f"serve: {what} step {step}: a row of logits differs by "
+                  f"{rel:.3e} of its largest value, above {tol}")
+            worst = max(worst, rel)
+            top2 = w.topk(2, dim=-1).values
+            sure = ((top2[:, 0] - top2[:, 1]) > margin * w.abs().amax(dim=-1)).cpu().numpy()
+            same = got_picks[:, step] == want_picks[:, step]
+            check(same[sure].all(), f"serve: {what} step {step}: a greedy token differs where "
+                  "the top-2 margin exceeds the tolerance")
+            decided += int(sure.sum())
+            agreed += int(same.sum())
+        return worst, agreed, decided
+
+    picks, exact = route(f32_cfg, params, False)
+    k32_picks, k32 = route(f32_cfg, params, True, picks)
+    tol = LOGIT_TOL["float32"]
+    f32_err, agreed, decided = held(k32, k32_picks, exact, picks, tol, tol, "float32")
+    print(f"serve: float32 model, kernel route == plain route: prefill + {COMPARE_STEPS} decode "
+          f"steps x {SERVE_BATCH} rows, max_row_rel_err={f32_err:.3e} (tol {tol}); greedy "
+          f"tokens agree in {agreed} of {SERVE_BATCH * (COMPARE_STEPS + 1)} picks, all "
+          f"{decided} whose top-2 margin exceeds the tolerance [{smi}]", flush=True)
+    plain_picks, plain = route(cfg, shared, False, picks)
+    kernel_picks, kernel = route(cfg, shared, True, picks)
+    tol = LOGIT_TOL["bfloat16"]
+    to_f32 = [max(float(row_err(x, ref).max()) for x, ref in zip(logits, exact))
+              for logits in (kernel, plain)]
+    check(to_f32[0] <= BF16_SLACK * to_f32[1],
+          f"serve: bf16 kernel route {to_f32[0]:.3e} from the float32 model, the plain route "
+          f"{to_f32[1]:.3e}: more than {BF16_SLACK} times as far")
+    bf16_err, agreed, decided = held(kernel, kernel_picks, plain, plain_picks, math.inf, tol,
+                                     "bf16")
+    print(f"serve: bf16 model (served): kernel route vs plain route max_row_rel_err="
+          f"{bf16_err:.3e}; from the float32 model: kernel route {to_f32[0]:.3e}, plain route "
+          f"{to_f32[1]:.3e} (held: kernel <= {BF16_SLACK} x plain); greedy tokens agree in "
+          f"{agreed} of {SERVE_BATCH * (COMPARE_STEPS + 1)} picks, all {decided} whose plain "
+          f"top-2 margin exceeds {tol} of the row's largest logit [{smi}]", flush=True)
+    del exact, k32, plain, kernel
+
+    # 4 and 5. the main path, counted: generate() through the kernels
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, SERVE_NEW)
+    wall = time.perf_counter() - t0
+    k3_bench, k4_bench = flash.flash_launches, decode.decode_launches
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_NEW), "serve: generate's tokens")
+    check(k3_bench == cfg.n_layers, f"serve: K3 launched {k3_bench} times in one prefill "
+          f"of {cfg.n_layers} layers")
+    check(k4_bench == 2 * cfg.n_layers * (SERVE_NEW - 1),
+          f"serve: K4 launched {k4_bench} times in {SERVE_NEW - 1} decode steps of "
+          f"{cfg.n_layers} layers")
+    print(f"serve: main path generate(B={SERVE_BATCH}, prompt={SERVE_PROMPT}, "
+          f"new={SERVE_NEW}): K3 launches={k3_bench} ({k3_bench} per prefill), K4 "
+          f"launches={k4_bench} ({k4_bench // (SERVE_NEW - 1)} per decode step); "
+          f"{SERVE_BATCH * SERVE_NEW / wall:.1f} tokens/s, wall {wall * 1e3:.1f} ms [{smi}]",
+          flush=True)
+
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    tok = torch.as_tensor(res.tokens[:, 0], device=dev)
+
+    def prefill(cache=None):
+        return engine._prefill(engine.params, batch,
+                               engine_cache(engine, SERVE_BATCH) if cache is None else cache)
+
+    with torch.inference_mode():
+        prefill_ms = []
+        for cache in [engine_cache(engine, SERVE_BATCH) for _ in range(5)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(cache)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = []
+        for i in range(SERVE_NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine._decode(engine.params, tok, SERVE_PROMPT + i, cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms.sort()
+    p50, p99 = statistics.median(step_ms), step_ms[min(len(step_ms) - 1,
+                                                       int(0.99 * len(step_ms)))]
+    tok = torch.as_tensor(res.tokens[:, 0], device=dev)
+
+    pre_wall, pre_busy, pre_launches, pre_names = device_window(
+        torch.inference_mode()(prefill), 3)
+    with torch.inference_mode():
+        _, cache = prefill()
+
+    def decode_steps():
+        with torch.inference_mode():
+            t = tok
+            for i in range(SERVE_PROFILE_STEPS):
+                logits, _ = engine._decode(engine.params, t, SERVE_PROMPT + i, cache)
+                t = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    dec_wall, dec_busy, dec_launches, dec_names = device_window(decode_steps, 1)
+    n = SERVE_PROFILE_STEPS
+    k3_pre = sum(ms for name, ms in pre_names.items() if "flash" in name)
+    k4_dec = sum(ms for name, ms in dec_names.items() if "decode_split" in name
+                 or "decode_combine" in name) / n
+    top = sorted(dec_names.items(), key=lambda kv: -kv[1])[:4]
+    print(f"serve: bench B={SERVE_BATCH} prompt={SERVE_PROMPT} new={SERVE_NEW} "
+          f"max_seq={SERVE_SEQ}: prefill_ms={statistics.median(prefill_ms):.3f} decode step "
+          f"p50_ms={p50:.3f} p99_ms={p99:.3f} ({SERVE_BATCH / p50 * 1e3:.1f} tokens/s at p50) "
+          f"[{smi}]", flush=True)
+    print(f"serve: profiler: prefill wall {pre_wall:.3f} ms, device busy {pre_busy:.3f} ms "
+          f"({pre_busy / pre_wall:.1%}), {pre_launches:.0f} device launches, K3 {k3_pre:.4f} ms "
+          f"({k3_pre / pre_busy:.1%} of busy); decode step wall {dec_wall / n:.3f} ms, device "
+          f"busy {dec_busy / n:.3f} ms ({dec_busy / dec_wall:.1%}), "
+          f"{dec_launches / n:.0f} device launches, K4 {k4_dec:.4f} ms "
+          f"({k4_dec * n / dec_busy:.1%} of busy, {k4_dec * n / dec_wall:.1%} of wall); "
+          "most device time per step: "
+          + ", ".join(f"{name[:48]} {ms / n:.4f} ms" for name, ms in top) + f" [{smi}]",
+          flush=True)
+    del cache
+
+    # 6. the cluster, with the launcher's defaults and full-width engines
+    costs = CostModel(P=1.0, beta_on=3.0, beta_off=3.0)
+    trace = generate_sessions(np.random.default_rng(0), n_slots=60, mean_concurrency=4.0)
+
+    def cluster(factory):
+        return run_cluster(trace, costs, policy="A1", alpha=0.5,
+                           predictor=make_window_max_predictor(trace), engine_factory=factory,
+                           rng=np.random.default_rng(1))
+
+    want = cluster(None)
+    engines = []
+
+    def factory():
+        engines.append(InferenceEngine(cfg, shared, max_batch=1, max_seq=CLUSTER_SEQ,
+                                       device=dev))
+        return engines[-1]
+
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    t0 = time.perf_counter()
+    got = cluster(factory)
+    cluster_s = time.perf_counter() - t0
+    k3_cluster, k4_cluster = flash.flash_launches, decode.decode_launches
+    sessions = len(trace.sessions)
+    check(got.sessions_served == sessions, "serve: a session was not served")
+    check(got.tokens_generated > 0, "serve: the cluster generated no token")
+    check((got.total_cost, got.static_cost, got.reduction, got.peak_concurrency, got.scaler)
+          == (want.total_cost, want.static_cost, want.reduction, want.peak_concurrency,
+              want.scaler), "serve: the engines changed the cluster's schedule")
+    check(k3_cluster == cfg.n_layers * sessions, f"serve: cluster K3 launches {k3_cluster}")
+    check(k4_cluster == 2 * cfg.n_layers * (got.tokens_generated - sessions),
+          f"serve: cluster K4 launches {k4_cluster}")
+    print(f"serve: run_cluster A1 alpha=0.5 (launcher defaults, {sessions} sessions, "
+          f"{len(engines)} engines of max_seq {CLUSTER_SEQ}): report == run without engines "
+          f"(cost={got.total_cost:.1f} static={got.static_cost:.0f} "
+          f"reduction={got.reduction:.1%}); tokens_generated={got.tokens_generated} in "
+          f"{cluster_s:.2f} s ({got.tokens_generated / cluster_s:.1f} tokens/s); K3 "
+          f"launches={k3_cluster} K4 launches={k4_cluster} [{smi}]", flush=True)
+    print(f"serve: peak device memory of phase 13 "
+          f"{(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f} GB (above the "
+          f"{resident / 1e9:.2f} GB earlier phases hold); phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params, shared, engine, engines
+    torch.cuda.empty_cache()
+    return {"k3_launches": k3_bench + k3_cluster, "k4_launches": k4_bench + k4_cluster,
+            "errs": errs, "measured": measured}
+
+
+def engine_cache(engine, batch):
+    """A fresh cache for ``engine``, as its ``generate`` makes one."""
+    from repro_torch.models import init_cache
+
+    return init_cache(engine.cfg, batch, engine.max_seq, device=engine.device)
 
 
 def main() -> int:
@@ -1605,8 +2017,14 @@ def main() -> int:
     # 12. the serving stepper (after phase 11, before the attention phases)
     stepper_launches = stepper_phase(smi, counted, demand[0], dev)
 
+    # 13. the serving path with real tokens (after phase 12, before the attention phases)
+    serving = serving_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
+    for entry, kernel in zip(attention_entries, ("K3", "K4")):
+        entry["launches"] += serving[f"{kernel.lower()}_launches"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel])
 
     ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]

@@ -1,10 +1,11 @@
 """Carry the reference's state across to the port.
 
-The system has no model weights: its parameters are the cost model and the
-random tables its randomized policies and prediction noise consume.  These
-helpers take them as numpy arrays — extracted from the JAX objects by the
-caller, since this package never imports ``repro`` or ``jax`` — and build
-the port's objects, so the same inputs drive both packages bit for bit.
+The provisioning system's parameters are the cost model and the random
+tables its randomized policies and prediction noise consume; the serving
+engines' are the LM weights.  These helpers take them as numpy arrays —
+extracted from the JAX objects by the caller, since this package never
+imports ``repro`` or ``jax`` — and build the port's objects, so the same
+inputs drive both packages.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from .core.costs import CostModel
+from .core.provision import _resolve_device
+from .models.blocks import require_dense
 
 
 def cost_model_from_numpy(P, beta_on, beta_off, group_sizes=None,
@@ -53,3 +56,24 @@ def carry_from_numpy(r, on, wait, device="cpu") -> dict[str, torch.Tensor]:
         "on": torch.as_tensor(np.array(on, bool), device=device),
         "wait": torch.as_tensor(np.array(wait, np.float32), device=device),
     }
+
+
+def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
+    """The port's LM parameter dict from the reference's tree as numpy
+    (``jax.tree.map(np.asarray, params)``): nested dicts whose ``blocks``
+    hold every layer stacked on axis 0 (the reference's ``jax.vmap``'d
+    init).  The port keeps a list of per-layer dicts; each tensor keeps its
+    array's dtype and goes to ``device`` (``"cuda"`` unless given
+    ``"cpu"``)."""
+    require_dense(cfg)
+    dev = _resolve_device(device, "lm_params_from_numpy")
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a), device=dev)
+
+    def layer(tree, i):
+        return {k: layer(v, i) if isinstance(v, dict) else tensor(v[i]) for k, v in tree.items()}
+
+    out = {k: tensor(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    return out

@@ -213,11 +213,14 @@ class ProvisionResult:
     unserved: torch.Tensor | None = None
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, owner: str = "ProvisionSpec") -> torch.device:
+    """``device`` as a ``torch.device``: cuda or cpu, and cuda only where
+    CUDA is available (``RuntimeError`` naming ``owner``, the entry point
+    that was given it)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"ProvisionSpec(device={str(device)!r}) but CUDA is not available: "
+            f"{owner}(device={str(device)!r}) but CUDA is not available: "
             "pass device=\"cpu\" to run the plain PyTorch route on the CPU"
         )
     if dev.type not in ("cuda", "cpu"):

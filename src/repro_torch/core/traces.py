@@ -7,8 +7,7 @@ paper's peak-to-mean ratio (PMR = 4.63).  The PMR sweep transform
 ``a' = K * a^gamma`` (keeping the mean constant) is the one the paper uses in
 Section V-D.
 
-A copy of ``repro.core.traces`` (numpy only).  ``brick_trace_from_fluid``
-stays behind until the brick event model (``core/events.py``) is ported.
+A copy of ``repro.core.traces`` (numpy only).
 """
 from __future__ import annotations
 
@@ -82,3 +81,43 @@ def with_prediction_error(
     """Zero-mean Gaussian error, std = std_frac * actual workload (Sec. V-C)."""
     err = rng.standard_normal(a.shape) * std_frac * np.asarray(a, np.float64)
     return np.maximum(np.rint(a + err).astype(np.int64), 0)
+
+
+def brick_trace_from_fluid(
+    a: np.ndarray,
+    rng: np.random.Generator | None = None,
+    slot_len: float = 1.0,
+):
+    """Convert a fluid trace (jobs per slot) to a brick trace.
+
+    Whenever a(t) increases by k, k jobs arrive; when it decreases, the most
+    recent jobs depart (consistent with LIFO semantics).  Event epochs are
+    spread inside the slot so that no two coincide.
+    """
+    from .events import Job
+
+    rng = rng or np.random.default_rng(0)
+    a = np.asarray(a, dtype=np.int64)
+    horizon = float(len(a) * slot_len)
+    open_jobs: list[float] = []   # arrival times of currently open jobs (stack)
+    jobs: list[Job] = []
+    prev = 0
+    for s, cur in enumerate(a):
+        t0 = s * slot_len
+        diff = int(cur) - prev
+        if diff > 0:
+            offs = np.sort(rng.uniform(0.005, 0.49, diff)) * slot_len
+            for o in offs:
+                open_jobs.append(t0 + float(o))
+        elif diff < 0:
+            offs = np.sort(rng.uniform(0.51, 0.995, -diff)) * slot_len
+            for o in offs:
+                arr = open_jobs.pop()
+                jobs.append(Job(arr, t0 + float(o)))
+        prev = int(cur)
+    for arr in open_jobs:
+        jobs.append(Job(arr, horizon))
+    # ensure distinct epochs
+    from .events import _deduplicate
+
+    return _deduplicate(jobs, horizon, rng)

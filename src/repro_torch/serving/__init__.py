@@ -1,16 +1,13 @@
-"""Serving: the paper's autoscaler, the fleet planner and its stepper.
+"""Serving: per-replica engines + the paper's autoscaler + cluster simulation.
 
 The PyTorch port of ``repro.serving``.  ``FleetProvisioner.advance()``
 streams: the O(1)-state incremental stepper behind it (engine carry through
 kernel K2, slot-indexed draws) lives in :mod:`repro_torch.serving.stepper`
 and is exported here for direct use; :class:`PlanMetrics` exports its
-health as Prometheus text.
-
-Not ported yet: the cluster simulation (``run_cluster``,
-``make_window_max_predictor``, ``ClusterReport``) needs the session traces
-of ``data/requests.py`` and the event oracle ``core/events.py`` (ROADMAP.md,
-Queue 1 item 10), and the per-replica engines (``InferenceEngine``,
-``GenerationResult``) need the LM models (item 11).
+health as Prometheus text.  ``run_cluster`` replays a session trace against
+the :class:`ReplicaAutoscaler`; with an ``engine_factory`` each arriving
+session runs real prefill and decode on its replica's
+:class:`InferenceEngine`, through kernels K3 and K4 on the card.
 """
 from .autoscaler import (
     FleetProvisioner,
@@ -18,6 +15,8 @@ from .autoscaler import (
     ScalerReport,
     replica_cost_model,
 )
+from .cluster import ClusterReport, make_window_max_predictor, run_cluster
+from .engine import GenerationResult, InferenceEngine
 from .metrics import PlanMetrics
 from .stepper import StepperState, pow2_bucket, stepper_chunk, stepper_init
 
@@ -31,4 +30,9 @@ __all__ = [
     "replica_cost_model",
     "stepper_chunk",
     "stepper_init",
+    "ClusterReport",
+    "make_window_max_predictor",
+    "run_cluster",
+    "GenerationResult",
+    "InferenceEngine",
 ]

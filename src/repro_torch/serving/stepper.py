@@ -45,6 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.provision import _resolve_device
 from ..core.torch_provision import KEYED, NO_PEEK, STREAM_ACCS, _grid_inputs
 from ..deferral import defer_stream_init, queue_stream_init
 from ..kernels.provision_scan import (
@@ -85,12 +86,14 @@ class StepperState:
 
 
 def stepper_init(n_levels: int, delta_lv, *, policy: str, window: int = 0,
-                 deferral=None, device="cpu") -> StepperState:
-    """Fresh carry on ``device``: clocks at zero, everything off,
+                 deferral=None, device="cuda") -> StepperState:
+    """Fresh carry on ``device`` (the card unless given ``"cpu"``; without
+    CUDA the default raises): clocks at zero, everything off,
     deterministic waits pre-loaded with the static threshold — the full
     break-even timer Δ_l for the no-peek policies, ``max(0, Δ_l − w − 1)``
     for the peeking A1; randomized policies start at zero and draw theirs at
     first idle from the slot-indexed stream."""
+    device = _resolve_device(device, "stepper_init")
     b = torch.as_tensor(delta_lv, dtype=torch.float32, device=device).broadcast_to((n_levels,))
     if policy in KEYED:
         wait0 = torch.zeros((n_levels,), dtype=torch.float32, device=device)

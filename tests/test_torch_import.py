@@ -24,7 +24,11 @@ def test_port_modules_found():
               "repro_torch.core.torch_provision", "repro_torch.kernels._build",
               "repro_torch.kernels.provision_scan", "repro_torch.kernels.ops",
               "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
-              "repro_torch.kernels.ref", "repro_torch.obs.telemetry"):
+              "repro_torch.kernels.ref", "repro_torch.obs.telemetry",
+              "repro_torch.core.events", "repro_torch.data.requests",
+              "repro_torch.configs.base", "repro_torch.models.attention",
+              "repro_torch.models.model_zoo", "repro_torch.serving.cluster",
+              "repro_torch.serving.engine", "repro_torch.launch.serve"):
         assert m in MODULES
 
 

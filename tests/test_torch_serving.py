@@ -394,15 +394,23 @@ def test_plan_metrics_of_a_serving_loop(demand):
 def test_stepper_exports_and_pow2_bucket():
     assert [port.pow2_bucket(n) for n in (1, 7, 8, 9, 64, 65, 1000)] == \
         [ref.pow2_bucket(n) for n in (1, 7, 8, 9, 64, 65, 1000)]
-    assert set(port.__all__) == set(ref.__all__) - {
-        "run_cluster", "make_window_max_predictor", "ClusterReport", "InferenceEngine",
-        "GenerationResult"}
-    st = port.stepper_init(N, PAPER_COSTS.delta, policy="A1", window=2)
+    assert set(port.__all__) == set(ref.__all__)
+    st = port.stepper_init(N, PAPER_COSTS.delta, policy="A1", window=2, device="cpu")
     rs = ref.stepper_init(N, REF_COSTS.delta, policy="A1", window=2)
     for f in ("r", "on", "wait"):
         assert (getattr(st, f).numpy() == np.asarray(getattr(rs, f))).all(), f
     with pytest.raises(dataclasses.FrozenInstanceError):
         st.t = 3
+
+
+def test_stepper_init_needs_cuda_unless_given_cpu():
+    """Like every entry point of the port, ``stepper_init`` runs on the card
+    unless asked for the CPU: the bare call raises where CUDA is absent."""
+    if torch.cuda.is_available():
+        pytest.skip("the refusal needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="stepper_init.*CUDA is not available"):
+        port.stepper_init(N, PAPER_COSTS.delta, policy="A1")
+    assert port.stepper_init(N, PAPER_COSTS.delta, policy="A2", device="cpu").r.device.type == "cpu"
 
 
 def test_stepper_chunk_kernel_flag_routes_to_the_plain_version(demand, monkeypatch):
@@ -414,7 +422,7 @@ def test_stepper_chunk_kernel_flag_routes_to_the_plain_version(demand, monkeypat
     real = kernels.provision_scan_stream_ref
     monkeypatch.setattr(port.stepper, "provision_scan_stream_ref",
                         lambda *a, **k: called.append(1) or real(*a, **k))
-    st = port.stepper_init(N, PAPER_COSTS.delta, policy="A1")
+    st = port.stepper_init(N, PAPER_COSTS.delta, policy="A1", device="cpu")
     before = kernels.stream_launches
     outs = [port.stepper_chunk(torch.as_tensor(demand), 0, st.r, st.on, st.wait,
                                PAPER_COSTS.delta, policy="A1", n_levels=N,
