@@ -7,9 +7,10 @@ kernels to their plain versions.
 The main paths are ``provision(ProvisionSpec(...))``,
 ``provision_stream(ProvisionSpec(...))``, the eval
 ``repro_torch.eval.evaluate(EvalGrid(...))``, the serving stepper
-``FleetProvisioner(...).advance(chunk)`` and the serving cluster with real
+``FleetProvisioner(...).advance(chunk)``, the serving cluster with real
 tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
-full width) of ``repro_torch``; the first
+full width) and training (``Trainer``, the same model at full width) of
+``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -151,6 +152,31 @@ Phases, one line or more each:
    launch K3 16 times per session and K4 32 times per decode step, and
    report the cost, static cost, reduction and ``ScalerReport`` of the
    same run without engines.
+14. train (run after phase 13, before 9 and 10) — training at llama3.2-1b's
+   full width (float32 parameters and AdamW moments, bf16 compute,
+   ``remat="full"``, B 4, S 128, the reference launcher's defaults): (a)
+   K3 and K4 through ``kernels.ops`` with an input that requires grad and
+   grad enabled must raise ``RuntimeError`` naming the kernel and launch
+   nothing, and under ``no_grad`` launch and equal the call without grad;
+   (b) ``loss_fn`` through K3 under ``no_grad`` (16 K3 launches, no K4)
+   against the einsum route (``kernel=False``) on one batch, within 1e-4
+   relative in float32 compute and 1e-2 in bf16, both printed with their
+   ms; (c) the ``Trainer``: after its first backward pass every parameter
+   tensor has a finite, nonzero gradient; the device busy share, launches
+   and top kernels of 3 steps under the profiler; then ``Trainer.run`` for
+   20 steps (AdamW warmup 5), which must launch neither kernel, log a
+   finite loss every step and end below its first; step p50/p99 ms,
+   tokens/s and peak device memory; (d) 2 layers of the full width
+   crashed at step 4 after the checkpoint at step 3 (under
+   ``build/chip_smoke_train/``, removed after), resumed to step 5, must
+   equal a clean run bit for bit with deterministic algorithms on; (e)
+   offline ``provision()`` on the card must equal the port's
+   ``dp_optimal_cost`` (rel 1e-6) on 4 seeded traces at 3 cost models, and
+   phase 13's cluster must cost the port's ``simulate`` plus beta_off for
+   each session cut at the horizon, within A1's bound against the port's
+   ``a0_cost``; (f) the card's idle ``power.draw`` (median of 10 samples)
+   and the cold builds' seconds, which ``replica_cost_model``'s defaults
+   take.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -188,7 +214,7 @@ Phases, one line or more each:
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's and the stepper's, K3's and K4's the serving
-path's); the
+path's, K3's the training path's no-grad losses); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -223,6 +249,7 @@ BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 and fp16 tens
 OPS_PER_UPDATE = 8               # compares and selects of one (cell, slot, level) update
 KERNEL_REPS, PLAIN_REPS, PROVISION_REPS = 20, 3, 3
 PROFILE_ATTEMPTS = 3
+HOLD_CYCLES, HOLD_DOUBLINGS = 1 << 21, 6     # a hold of about 1 ms at 1.98 GHz, at most 64 times that
 
 
 class SmokeFailure(RuntimeError):
@@ -252,21 +279,54 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def held_ms(fn, reps):
+    """Median device milliseconds of one ``fn()`` call over ``reps`` calls,
+    each between a pair of CUDA events while a spinning kernel
+    (``torch.cuda._sleep``) holds the stream until the host has queued the
+    whole call: the device span of the call's launches, without the host's
+    launch overhead between them.  A call is kept only if its start event
+    was still pending when the host had queued its end event; else the hold
+    doubles, up to ``HOLD_CYCLES << HOLD_DOUBLINGS``, and a call that still
+    outruns it (one that waits for the card) fails the run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = HOLD_CYCLES, []
+    while len(times) < reps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            times.append(start.elapsed_time(end))
+            continue
+        cycles *= 2
+        check(cycles <= HOLD_CYCLES << HOLD_DOUBLINGS,
+              f"held stream: the host had not queued the call after a hold of "
+              f"{cycles // 2} cycles")
+    return statistics.median(times)
+
+
 def kernel_ms(fn, reps, name="grid_scan_kernel"):
     """Mean device milliseconds per ``fn()`` call of the kernel ``name`` (or
     of the kernels of a tuple of names, each launched once a call) over
     ``reps`` calls, from the profiler's CUPTI records: the kernels' own time
     on the card, without the wrapper's host work around it.
 
-    Without a launch before them, the profiler on the card lost one record
-    in most sessions, always of the kernel a call launches first (K3, K4's
-    split pass, never its merge), so each session opens with one untimed
-    fill before the ``reps`` calls.  It should then hold exactly ``reps``
-    records of each kernel; a session that holds another number is profiled
-    again, at most ``PROFILE_ATTEMPTS`` times.  If every session lost
-    records (one in 20 of K3's, in three sessions of one run), the time is
-    the mean over the records the last session kept, each kernel's own,
-    provided it kept at least half of them; else the run fails."""
+    Each session opens with one untimed fill before the ``reps`` calls
+    (without it the profiler lost the record of the first kernel in most
+    sessions), and should then hold exactly ``reps`` records of each kernel.
+    It often holds fewer of K3's and K4's, which are launched from their
+    own library: from one in 20 lost to 11 in 20, the same count in every
+    session of a call.  A session short of records is profiled again, at
+    most ``PROFILE_ATTEMPTS`` times; if all of them are, the time is
+    :func:`held_ms` of the call, which needs no profiler, printed beside the
+    mean of the records the last session kept.  For K3's and K4's wrappers
+    the call's device span is their launches alone."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -287,12 +347,13 @@ def kernel_ms(fn, reps, name="grid_scan_kernel"):
             return sum(e.self_device_time_total for e in events
                        if any(n in e.key for n in names)) / 1e3 / reps
         print(f"profiler: kept {seen} of {reps} launches each; profiling again", flush=True)
-    if all(2 * seen[n] >= reps for n in names):
-        print(f"profiler: timed from the {seen} records kept", flush=True)
-        return sum(sum(e.self_device_time_total for e in events if n in e.key) / seen[n]
-                   for n in names) / 1e3
-    raise SmokeFailure(f"profiler kept {seen} of {reps} launches each in "
-                       f"{PROFILE_ATTEMPTS} sessions")
+    kept = sum(sum(e.self_device_time_total for e in events if n in e.key) / seen[n]
+               for n in names if seen[n]) / 1e3
+    ms = held_ms(fn, reps)
+    print(f"profiler: kept {seen} of {reps} launches each in {PROFILE_ATTEMPTS} sessions; "
+          f"timed on a held stream: {ms:.4f} ms per call (the kept records' mean "
+          f"{kept:.4f} ms)", flush=True)
+    return ms
 
 
 def bound_ms(inputs, record, ons, stream=False):
@@ -1426,7 +1487,277 @@ def serving_phase(smi):
     del params, shared, engine, engines
     torch.cuda.empty_cache()
     return {"k3_launches": k3_bench + k3_cluster, "k4_launches": k4_bench + k4_cluster,
-            "errs": errs, "measured": measured}
+            "errs": errs, "measured": measured, "cluster": (trace, costs, got)}
+
+
+TRAIN_ARCH = "llama3.2-1b"       # phase 14: training at this model's full width
+TRAIN_BATCH, TRAIN_SEQ = 4, 128  # the reference launcher's defaults
+TRAIN_STEPS, TRAIN_WARMUP = 20, 5
+TRAIN_PROFILE_STEPS = 3
+# the loss through K3 (no grad) against the einsum route, relative: float32
+# compute as the CPU parity tests hold the port; bf16 rounds at other places
+# on each route
+TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# crash and resume: layers of the full width, steps, checkpoint period, crash step
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 2, 5, 3, 4
+# offline provision() against the DP oracle: (P, beta_on, beta_off), traces of 3 x 30 slots
+DP_COSTS = ((1.0, 3.0, 3.0), (2.0, 3.0, 2.0), (1.5, 0.7, 4.1))
+DP_TRACES = 4
+IDLE_SAMPLES = 10
+
+
+def nvidia_smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
+def train_phase(smi, cluster, build_s):
+    """Phase 14: training at llama3.2-1b's full width on the card — K3 and
+    K4 refuse autograd, K3 inside ``lm_loss`` under ``no_grad`` against the
+    einsum route, the ``Trainer`` (the gradients of the first backward
+    pass, the loss over the steps, step times, memory, busy share), crash
+    and resume, the port's oracles (the DP optimum, phase 13's cluster
+    against the brick simulator) and the idle power draw.  Returns K3's
+    launches on the path (the no-grad losses)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        A1Deterministic,
+        CostModel,
+        PolicySpec,
+        ProvisionSpec,
+        Workload,
+        a0_cost,
+        dp_optimal_cost,
+        provision,
+        simulate,
+    )
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, loss_fn, param_count
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serving import replica_cost_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.tree import tree_leaves
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()          # what earlier phases still hold
+    cfg = get_config(TRAIN_ARCH).replace(remat="full")
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (a) K3 and K4 refuse autograd; the same calls run under no_grad
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(1, TRAIN_SEQ, h, cfg.head_dim, generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                                           cfg.n_kv_heads))
+    lengths = torch.tensor([TRAIN_SEQ], dtype=torch.int32, device=dev)
+    calls = (("K3", "flash_attention", lambda q: ops.flash_attention(q, k, v)),
+             ("K4", "decode_attention", lambda q: ops.decode_attention(q[:, -1], k, v, lengths)))
+    for name, fn_name, call in calls:
+        before = flash.flash_launches, decode.decode_launches
+        try:
+            call(q.detach().requires_grad_(True))
+            raised = ""
+        except RuntimeError as err:
+            raised = str(err)
+        check(name in raised and "no backward" in raised,
+              f"train: {name} with an input that requires grad did not refuse autograd")
+        check((flash.flash_launches, decode.decode_launches) == before,
+              f"train: {name} launched though it refused")
+        with torch.no_grad():
+            got = call(q.detach().requires_grad_(True))
+        want = call(q)
+        check((flash.flash_launches, decode.decode_launches) != before,
+              f"train: {name} under no_grad did not launch")
+        check(torch.equal(got, want) and got.grad_fn is None,
+              f"train: {name} under no_grad differs from the call without grad")
+        print(f"train: (a) {fn_name} ({name}) with an input that requires grad raises "
+              f"RuntimeError ({raised[:60]}...); under no_grad it launches and equals the "
+              "call on the same tensors without grad", flush=True)
+    del q, k, v
+
+    # (b) K3 inside lm_loss, under no_grad, against the einsum route
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    batch = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, dev).batch_at(0)
+    k3_path = 0
+    for dtype, tol in TRAIN_LOSS_TOL.items():
+        c = cfg.replace(compute_dtype=getattr(torch, dtype))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            flash.flash_launches = decode.decode_launches = 0
+            got = float(loss_fn(params, c, batch)[0])
+            k3, k4 = flash.flash_launches, decode.decode_launches
+            want = float(loss_fn(params, c, batch, kernel=False)[0])
+            ms = cuda_ms(lambda c=c: loss_fn(params, c, batch), PROVISION_REPS)
+            plain_ms = cuda_ms(lambda c=c: loss_fn(params, c, batch, kernel=False),
+                               PROVISION_REPS)
+        k3_path += k3
+        check(k3 == cfg.n_layers and k4 == 0,
+              f"train: lm_loss launched K3 {k3} and K4 {k4} times, not {cfg.n_layers} and 0")
+        rel = abs(got - want) / abs(want)
+        check(math.isfinite(got) and rel <= tol,
+              f"train: {dtype} loss through K3 {got} vs the einsum route {want}: {rel:.3e}")
+        print(f"train: (b) lm_loss at full width ({param_count(cfg):,} parameters, "
+              f"B={TRAIN_BATCH} S={TRAIN_SEQ}) {dtype} compute under no_grad: K3 launches={k3} "
+              f"(one per layer), K4 launches={k4}; kernel route {got:.6f} vs einsum route "
+              f"{want:.6f}, relative difference {rel:.3e} (tol {tol}); loss ms {ms:.3f} "
+              f"(einsum route {plain_ms:.3f}) [{smi}]", flush=True)
+    del params
+
+    # (c) the Trainer: the first backward pass, then the main path
+    opt = AdamWConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+
+    def train_cfg(name, steps=TRAIN_STEPS, every=10 ** 9):
+        return TrainerConfig(total_steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             ckpt_dir=os.path.join(work, name), ckpt_every=every,
+                             log_every=1, seed=SEED, opt=opt, device="cuda")
+
+    trainer = Trainer(cfg, train_cfg("main"))
+    state = trainer.init_state()
+    leaves = tree_leaves(state[0])
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = trainer.pipeline.batch_at(0)
+    trainer.train_step(*state, batch)
+    norms = torch.stack([t.grad.norm() for t in leaves]).cpu()
+    check(bool(torch.isfinite(norms).all()) and bool((norms > 0).all()),
+          f"train: {int((norms == 0).sum())} of {len(leaves)} parameters got no gradient")
+    print(f"train: (c) first backward pass: all {len(leaves)} parameter tensors have a finite, "
+          f"nonzero gradient (smallest norm {float(norms.min()):.3e})", flush=True)
+    wall, busy, launches, by_name = device_window(lambda: trainer.train_step(*state, batch),
+                                                  TRAIN_PROFILE_STEPS)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    del state, leaves, norms
+    torch.cuda.empty_cache()
+
+    stamps = []
+    trainer.hooks["on_log"] = lambda step, metrics: stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.flash_launches = decode.decode_launches = 0
+    t0 = time.perf_counter()
+    out = trainer.run()
+    run_s = time.perf_counter() - t0
+    check((flash.flash_launches, decode.decode_launches) == (0, 0),
+          "train: a training step launched K3 or K4 (the step takes the einsum route)")
+    losses = [loss for _, loss in out["history"]]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    step_ms = sorted((b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    p50 = statistics.median(step_ms)
+    p99 = step_ms[min(len(step_ms) - 1, int(0.99 * len(step_ms)))]
+    peak = torch.cuda.max_memory_allocated() - resident
+    print(f"train: (c) Trainer.run {TRAIN_STEPS} steps (AdamW warmup {TRAIN_WARMUP}, remat "
+          f"full, bf16 compute, float32 parameters and moments): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (" + ", ".join(f"{x:.3f}" for x in losses) + f"); step p50_ms="
+          f"{p50:.2f} p99_ms={p99:.2f} ({TRAIN_BATCH * TRAIN_SEQ / p50 * 1e3:.0f} tokens/s at "
+          f"p50), run {run_s:.2f} s; peak device memory {peak / 1e9:.2f} GB (above the "
+          f"{resident / 1e9:.2f} GB earlier phases hold) [{smi}]", flush=True)
+    print(f"train: (c) profiler over {TRAIN_PROFILE_STEPS} steps: wall {wall:.2f} ms per step, "
+          f"device busy {busy:.2f} ms ({busy / wall:.1%}), {launches:.0f} device launches per "
+          "step; most device time per step: "
+          + ", ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in top) + f" [{smi}]", flush=True)
+    del out, trainer
+    torch.cuda.empty_cache()
+
+    # (d) crash after a checkpoint, resume, and compare with a clean run
+    small = cfg.replace(n_layers=RESUME_LAYERS)
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        crash = train_cfg("crash", RESUME_STEPS, RESUME_EVERY)
+        crasher = Trainer(small, crash)
+        try:
+            crasher.run(fail_at_step=RESUME_CRASH)
+            crashed = False
+        except RuntimeError as err:
+            crashed = "injected failure" in str(err)
+        crasher.ckpt.wait()         # the crash comes after the checkpoint is on disk
+        check(crashed and latest_step(crash.ckpt_dir) == RESUME_EVERY,
+              "train: the crash run did not stop after its checkpoint")
+        resumed = Trainer(small, crash).run()
+        clean = Trainer(small, train_cfg("clean", RESUME_STEPS)).run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for a, b in zip(tree_leaves(resumed["params"]), tree_leaves(clean["params"])))
+    check(resumed["final_step"] == clean["final_step"] == RESUME_STEPS and diff == 0.0,
+          f"train: the resumed run differs from the clean run by {diff:.3e}")
+    print(f"train: (d) {RESUME_LAYERS} layers of the full width, crashed at step "
+          f"{RESUME_CRASH} after the checkpoint at {RESUME_EVERY}, resumed to "
+          f"{RESUME_STEPS}: final parameters equal the clean run's bit for bit (largest "
+          f"difference {diff:.1e}; deterministic algorithms on) [{smi}]", flush=True)
+    del resumed, clean
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the port's oracles: offline provision() on the card == the DP
+    # optimum; phase 13's cluster against the brick simulator
+    worst = 0.0
+    for seed in range(DP_TRACES):
+        a = np.random.default_rng(seed).integers(0, 6, size=(3, 30))
+        for case in DP_COSTS:
+            costs = CostModel(*case)
+            got = provision(ProvisionSpec(costs=costs, workload=Workload(demand=a),
+                                          policy=PolicySpec(name="offline")))
+            check(got.cost.device.type == "cuda", "train: provision() left the card")
+            want = np.array([dp_optimal_cost(row, costs) for row in a])
+            rel = float(np.max(np.abs(got.cost.cpu().numpy() - want) / want))
+            check(rel <= 1e-6, f"train: offline cost vs DP optimum {rel:.3e} (seed {seed}, "
+                  f"{case})")
+            worst = max(worst, rel)
+    # the cluster releases the sessions cut at the horizon there and turns
+    # their replicas off; the simulator counts them running at T (x(T) =
+    # a(T)), so the cluster pays beta_off once more for each of them
+    trace, costs, report = cluster
+    brick = trace.to_brick()
+    opt_cost = a0_cost(brick, costs)
+    sim = simulate(brick, A1Deterministic(alpha=0.5), costs).cost
+    cut = brick.final_count()
+    want = sim + costs.beta_off * cut
+    check(abs(report.total_cost - want) <= 1e-6 * want,
+          f"train: phase 13's cluster cost {report.total_cost} vs simulate {sim} + "
+          f"{cut} x beta_off")
+    check(report.total_cost <= 1.5 * opt_cost + 3 * costs.delta + costs.beta_off * cut
+          and report.reduction > 0.3,
+          "train: phase 13's cluster outside A1's bound or saving too little")
+    print(f"train: (e) offline provision() on the card == dp_optimal_cost on {DP_TRACES} x 3 "
+          f"traces of 30 slots at {len(DP_COSTS)} cost models (largest relative difference "
+          f"{worst:.1e}); phase 13's run_cluster (A1, alpha 0.5) cost {report.total_cost:.1f} "
+          f"== the port's simulate {sim:.1f} + beta_off x {cut} sessions cut at the horizon, "
+          f"within 1.5 x a0_cost {opt_cost:.1f} + 3 delta (+ the same), reduction "
+          f"{report.reduction:.1%}", flush=True)
+
+    # (f) the idle draw, and what replica_cost_model takes from this card
+    torch.cuda.synchronize()
+    time.sleep(2.0)
+    draws = []
+    for _ in range(IDLE_SAMPLES):
+        draws.append(float(nvidia_smi("power.draw")))
+        time.sleep(0.2)
+    limit = float(nvidia_smi("power.limit"))
+    default = replica_cost_model(weights_bytes_per_device=8e9, n_chips=1)
+    print(f"train: (f) idle power.draw median {statistics.median(draws):.2f} W (min "
+          f"{min(draws):.2f}, max {max(draws):.2f}, {IDLE_SAMPLES} samples), power.limit "
+          f"{limit:.2f} W; cold builds: " + ", ".join(f"{n} {s:.2f} s" for n, s in
+                                                         sorted(build_s.items()))
+          + f"; replica_cost_model defaults: beta_on {default.beta_on:.4f}, beta_off "
+          f"{default.beta_off:.4f} at 8 GB [{smi}]", flush=True)
+    print(f"train: phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k3_path
 
 
 def engine_cache(engine, batch):
@@ -1456,6 +1787,7 @@ def main() -> int:
         provision_stream,
     )
     from repro_torch.core import torch_provision as engine
+    from repro_torch.kernels import _build
     from repro_torch.kernels import provision_scan as kernels
     from repro_torch.kernels._build import load_attention, load_provision_scan
 
@@ -1470,6 +1802,8 @@ def main() -> int:
     print(f"device: {smi} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
 
     # 2. build: both libraries at once, each one nvcc per source
+    build_s = {}
+    _build.build_listeners.append(lambda name, seconds: build_s.setdefault(name, seconds))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for build in [pool.submit(load_provision_scan), pool.submit(load_attention)]:
@@ -2020,10 +2354,14 @@ def main() -> int:
     # 13. the serving path with real tokens (after phase 12, before the attention phases)
     serving = serving_phase(smi)
 
+    # 14. training (after phase 13, before the attention phases)
+    train_k3 = train_phase(smi, serving["cluster"], build_s)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
+        entry["launches"] += train_k3 if kernel == "K3" else 0
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel])
 
     ms, plain, bound, bound_by = measured["A2+record"]

@@ -11,6 +11,9 @@ defers slack-tolerant work before provisioning it
 (:mod:`repro_torch.deferral`), :mod:`repro_torch.scenarios` generates the
 workload families, and ``repro_torch.eval.evaluate`` (``python -m
 repro_torch.eval``) holds every policy to the paper's bounds over them.
+``repro_torch.core`` also holds the paper's numpy oracles (the off-line
+optimum, the brick simulator, the fluid model); ``repro_torch.serving``
+serves and ``repro_torch.train`` trains the dense LMs on the card.
 """
 from .core import (
     PAPER_COSTS,

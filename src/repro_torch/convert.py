@@ -2,7 +2,8 @@
 
 The provisioning system's parameters are the cost model and the random
 tables its randomized policies and prediction noise consume; the serving
-engines' are the LM weights.  These helpers take them as numpy arrays —
+engines' are the LM weights, and the trainer's the weights, the AdamW
+state and the token batches.  These helpers take them as numpy arrays —
 extracted from the JAX objects by the caller, since this package never
 imports ``repro`` or ``jax`` — and build the port's objects, so the same
 inputs drive both packages.
@@ -15,6 +16,7 @@ import torch
 from .core.costs import CostModel
 from .core.provision import _resolve_device
 from .models.blocks import require_dense
+from .optim import AdamWState
 
 
 def cost_model_from_numpy(P, beta_on, beta_off, group_sizes=None,
@@ -33,24 +35,28 @@ def cost_model_from_numpy(P, beta_on, beta_off, group_sizes=None,
     )
 
 
-def uniforms_from_numpy(u0, u, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def uniforms_from_numpy(u0, u, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's two wait-uniform tables, (B, T, N) or (T, N), as the
-    float32 tensors ``PolicySpec(uniforms=...)`` takes."""
+    float32 tensors ``PolicySpec(uniforms=...)`` takes, on ``device``
+    (``"cuda"`` unless given ``"cpu"``, as every helper here)."""
+    device = _resolve_device(device, "uniforms_from_numpy")
     return tuple(
         torch.as_tensor(np.array(x, np.float32), device=device) for x in (u0, u)
     )
 
 
-def normals_from_numpy(z, device="cpu") -> torch.Tensor:
+def normals_from_numpy(z, device="cuda") -> torch.Tensor:
     """The reference's prediction-noise normals, (T,) or (B, T), as the
     float32 tensor ``PredictionNoise(normals=...)`` takes."""
+    device = _resolve_device(device, "normals_from_numpy")
     return torch.as_tensor(np.array(z, np.float32), device=device)
 
 
-def carry_from_numpy(r, on, wait, device="cpu") -> dict[str, torch.Tensor]:
+def carry_from_numpy(r, on, wait, device="cuda") -> dict[str, torch.Tensor]:
     """The reference streaming scan's carry — its ``{"r", "on", "wait"}``
     (G, N) arrays — as the dict the port's ``provision_scan_stream(carry=)``
     takes, so chained calls can be held to the reference."""
+    device = _resolve_device(device, "carry_from_numpy")
     return {
         "r": torch.as_tensor(np.array(r, np.float32), device=device),
         "on": torch.as_tensor(np.array(on, bool), device=device),
@@ -66,7 +72,11 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     array's dtype and goes to ``device`` (``"cuda"`` unless given
     ``"cpu"``)."""
     require_dense(cfg)
-    dev = _resolve_device(device, "lm_params_from_numpy")
+    return _layer_tree(params, cfg, _resolve_device(device, "lm_params_from_numpy"))
+
+
+def _layer_tree(params, cfg, dev) -> dict:
+    """The reference's stacked-layer tree as the port's list of layers."""
 
     def tensor(a):
         return torch.as_tensor(np.array(a), device=dev)
@@ -77,3 +87,30 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     out = {k: tensor(v) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [layer(params["blocks"], i) for i in range(cfg.n_layers)]
     return out
+
+
+def adamw_state_from_numpy(step, m, v, cfg, device="cuda"):
+    """The port's :class:`~repro_torch.optim.AdamWState` from the
+    reference's (``jax.tree.map(np.asarray, state)``): ``step`` as an int32
+    scalar and the moment trees ``m`` and ``v``, laid out as
+    :func:`lm_params_from_numpy` lays out the parameters, so a trainer can
+    go on from the reference's exact state."""
+    require_dense(cfg)
+    dev = _resolve_device(device, "adamw_state_from_numpy")
+    return AdamWState(step=torch.as_tensor(np.array(step, np.int32), device=dev),
+                      m=_layer_tree(m, cfg, dev), v=_layer_tree(v, cfg, dev))
+
+
+def token_batch_from_numpy(batch, device="cuda") -> dict:
+    """A batch of the reference's ``TokenPipeline`` (a dict of arrays:
+    int32 ``tokens``, bf16 ``frontend`` for the modality stubs) as tensors
+    of the same dtypes on ``device``."""
+    dev = _resolve_device(device, "token_batch_from_numpy")
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":      # exact: every bf16 value is a float32
+            return torch.as_tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
+        return torch.as_tensor(np.array(a), device=dev)
+
+    return {k: tensor(v) for k, v in batch.items()}

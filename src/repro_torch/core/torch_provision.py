@@ -36,8 +36,10 @@ reference's draws bit for bit.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..obs import provenance as _prov
@@ -561,3 +563,119 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     if Wc != W:                                              # window-free
         out = {k: v.expand((S, W) + v.shape[2:]) for k, v in out.items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Deprecated loose-kwargs API (forwards to the spec engine)
+# ---------------------------------------------------------------------------
+#
+# The reference's wrappers take a ``key=`` for A2/A3; these take what
+# ``PolicySpec`` takes in its place, a ``generator=`` or injected
+# ``uniforms=(u0, u)``, and the spec's ``device`` ("cuda" unless given
+# "cpu").  ``provision_schedule_sharded`` is the multi-device route, which
+# is not ported (ROADMAP.md, Queue 1 item G).
+
+def _warn_deprecated(old: str, new: str) -> None:
+    warnings.warn(
+        f"deprecated: {old} — build a ProvisionSpec and call "
+        f"repro_torch.core.provision ({new})",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def _dynamics_costs(delta):
+    """A CostModel whose derived Δ equals the wrapper's free-floating delta."""
+    from .costs import CostModel
+
+    d = np.asarray(delta, np.float32)
+    half = d / 2.0 if d.ndim else float(delta) / 2.0
+    return CostModel(P=1.0, beta_on=half, beta_off=half)
+
+
+def provision_schedule(a, *, n_levels: int, delta: int, window: int = 0, policy: str = "A1",
+                       predicted=None, generator=None, uniforms=None, device="cuda"):
+    """Deprecated: use ``provision(ProvisionSpec(...))``.
+
+    Returns x: (T,) or (B, T) int32 — number of powered-on servers per slot.
+    """
+    from .provision import PolicySpec, ProvisionSpec, Workload, provision
+
+    _warn_deprecated("provision_schedule(...)", "result.x")
+    spec = ProvisionSpec(
+        costs=_dynamics_costs(delta),
+        workload=Workload(demand=a, predicted=predicted),
+        policy=PolicySpec(name=policy, window=window, generator=generator, uniforms=uniforms),
+        n_levels=n_levels, device=device,
+    )
+    return provision(spec).x
+
+
+def provision_sweep(a, *, n_levels: int, delta: int, windows, policy: str = "A1",
+                    generator=None, uniforms=None, predicted=None, device="cuda"):
+    """Deprecated: use ``provision(ProvisionSpec(...))`` with ``windows=``.
+
+    x over the whole sweep: (W, T) for a (T,) trace, (W, B, T) batched.
+    """
+    from .provision import PolicySpec, ProvisionSpec, Workload, provision
+
+    _warn_deprecated("provision_sweep(...)", "result.x with a windows axis")
+    spec = ProvisionSpec(
+        costs=_dynamics_costs(delta),
+        workload=Workload(demand=a, predicted=predicted),
+        policy=PolicySpec(name=policy, windows=windows, generator=generator,
+                          uniforms=uniforms),
+        n_levels=n_levels, device=device,
+    )
+    return provision(spec).x
+
+
+def provision_sweep_costs(a, *, n_levels: int, delta: int, windows, policy: str = "A1",
+                          generator=None, uniforms=None, predicted=None, P: float = 1.0,
+                          beta_on: float = 3.0, beta_off: float = 3.0, device="cuda"):
+    """Deprecated: use ``provision(ProvisionSpec(...))`` and ``result.cost``.
+
+    Schedule costs over the sweep: (W,) or (W, B).  The redundant ``delta``
+    kwarg must equal the derived ``(beta_on + beta_off) / P`` (the spec API
+    removes it entirely).
+    """
+    from .costs import CostModel
+    from .provision import PolicySpec, ProvisionSpec, Workload, provision
+
+    _warn_deprecated("provision_sweep_costs(...)", "result.cost with a windows axis")
+    derived = (beta_on + beta_off) / P
+    if abs(derived - float(delta)) > 1e-6:
+        raise ValueError(
+            f"delta={delta} disagrees with (beta_on+beta_off)/P={derived}; "
+            "the spec API derives delta from CostModel — drop the delta kwarg"
+        )
+    spec = ProvisionSpec(
+        costs=CostModel(P=P, beta_on=beta_on, beta_off=beta_off),
+        workload=Workload(demand=a, predicted=predicted),
+        policy=PolicySpec(name=policy, windows=windows, generator=generator,
+                          uniforms=uniforms),
+        n_levels=n_levels, device=device,
+    )
+    return provision(spec).cost
+
+
+def provision_cost(a, on_matrix, P: float, beta_on: float, beta_off: float):
+    """Deprecated: use ``on_matrix_cost(a, on_matrix, CostModel(...))`` or the
+    ``cost``/``level_cost`` fields of a :func:`provision` result.
+
+    Total cost of a per-level schedule (energy + toggles + forced final off),
+    on the device of ``on_matrix``.  Supports leading batch axes: ``a``
+    (..., T), ``on_matrix`` (..., T, N).
+    """
+    from .costs import CostModel
+
+    _warn_deprecated("provision_cost(...)", "result.cost / on_matrix_cost")
+    return on_matrix_cost(a, on_matrix, CostModel(P=P, beta_on=beta_on, beta_off=beta_off))
+
+
+def provision_schedule_sharded(*args, **kwargs):
+    """Not ported: the levels sharded over a device mesh are the multi-device
+    route, which waits for ROADMAP.md Queue 1 item G."""
+    raise NotImplementedError(
+        "provision_schedule_sharded: the multi-device route is not ported yet "
+        "(ROADMAP.md, Queue 1 item G); provision_schedule runs on one device")

@@ -1,9 +1,11 @@
-"""Data pipelines of the port: the session generators that drive the
-serving cluster.  ``repro.data.tokens`` (the training token streams) is
-not ported yet (ROADMAP.md, Queue 1 item 11)."""
+"""Data pipelines of the port: synthetic token streams (training) and
+request/session generators (serving), both deterministic and shardable."""
 from .requests import Session, SessionTrace, generate_sessions
+from .tokens import TokenPipeline, make_token_batch
 
 __all__ = [
+    "TokenPipeline",
+    "make_token_batch",
     "Session",
     "SessionTrace",
     "generate_sessions",

@@ -271,12 +271,22 @@ def _valid_rows(valid, rows, lead) -> torch.Tensor:
     return v.broadcast_to(lead + rows.shape[-1:]).reshape(rows.shape)
 
 
-def defer_stream_init(slack: int, batch: tuple = (), device=None) -> dict:
+def _device(device, owner):
+    """``device`` resolved as the port's entry points resolve theirs: the
+    card unless given ``"cpu"``, and a ``RuntimeError`` without CUDA."""
+    from ..core.provision import _resolve_device
+
+    return _resolve_device(device, owner)
+
+
+def defer_stream_init(slack: int, batch: tuple = (), device="cuda") -> dict:
     """Fresh carry for :func:`defer_stream`: ``awin[..., j]`` = cumulative
     arrivals through ``j + 1`` slots ago (all zero before the trace) and
     ``served`` = total work served so far; ``batch`` is the leading shape
-    of the chunks the carry will see."""
+    of the chunks the carry will see.  On ``device``: ``"cuda"`` unless
+    given ``"cpu"``."""
     K = int(slack)
+    device = _device(device, "defer_stream_init")
     return {
         "awin": torch.zeros(tuple(batch) + (max(K, 1),), dtype=torch.int32, device=device),
         "served": torch.zeros(tuple(batch), dtype=torch.int32, device=device),
@@ -334,11 +344,12 @@ def defer_stream(a, state, *, slack: int, cap: int | None = None, valid=None):
     return out.to(torch.int32).reshape(lead + (Tc,)), new
 
 
-def queue_stream_init(max_slack: int, batch: tuple = (), device=None) -> dict:
+def queue_stream_init(max_slack: int, batch: tuple = (), device="cuda") -> dict:
     """Fresh carry for :func:`queue_stream`: empty age buckets, zero miss
-    counter, zero served-by-age histogram; ``batch`` as in
+    counter, zero served-by-age histogram; ``batch`` and ``device`` as in
     :func:`defer_stream_init`."""
     nb = int(max_slack) + 2
+    device = _device(device, "queue_stream_init")
     batch = tuple(batch)
     return {
         "w": torch.zeros(batch + (nb,), dtype=torch.int32, device=device),

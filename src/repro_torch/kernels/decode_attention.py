@@ -14,7 +14,14 @@ from __future__ import annotations
 import torch
 
 from ..obs.telemetry import get_telemetry
-from .flash_attention import DTYPE_IDS, HEAD_DIMS, NEG_INF, aligned
+from .flash_attention import (
+    DTYPE_IDS,
+    HEAD_DIMS,
+    NEG_INF,
+    aligned,
+    kernel_route,
+    refuse_autograd,
+)
 
 DEFAULT_BK = 1024
 #: the unit of K4's split plan: its chunks are multiples of it, and the
@@ -87,13 +94,22 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale=None, block_k=DEFAUL
     CUDA tensors launch K4 (float32, bf16 or fp16, one type for q and the
     caches; head dim 64, 128 or 256) and count two launches in
     :data:`decode_launches`; CPU tensors run :func:`decode_attention_plain`.
+    K4 is forward-only: its route raises ``RuntimeError``
+    (:func:`~repro_torch.kernels.flash_attention.refuse_autograd`) where
+    autograd would need a gradient through it.
     """
-    global decode_launches
     lengths = torch.as_tensor(lengths)
     _check(q, k_cache, v_cache, lengths, block_k)
+    if not kernel_route(q):
+        return decode_attention_plain(q, k_cache, v_cache, lengths.to(q.device), scale=scale)
+    refuse_autograd("decode_attention (kernel K4)", q, k_cache, v_cache)
+    return _launch(q, k_cache, v_cache, lengths, scale)
+
+
+def _launch(q, k_cache, v_cache, lengths, scale):
+    """K4 on the card: the checks of its C interface, then its two launches."""
+    global decode_launches
     dev = q.device
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths.to(dev), scale=scale)
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
         raise ValueError(f"decode_attention runs on cuda or cpu tensors, got {dev}, "
                          f"{k_cache.device} and {v_cache.device}")

@@ -77,6 +77,21 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """``RuntimeError`` naming ``kernel`` when autograd would need it: grad
+    is enabled and a floating input requires grad.  The kernels write their
+    output through a raw pointer, so it has no ``grad_fn``, and a backward
+    pass would silently give the inputs no gradient; the reference has no
+    backward kernel either.  Differentiate the plain route (the models'
+    ``kernel=False``), or call under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad and t.is_floating_point() for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward pass: an input requires grad with grad enabled; "
+            "take gradients through the plain route (kernel=False) or call it under "
+            "torch.no_grad()")
+
+
 def _mask(S, causal, window, device):
     pos = torch.arange(S, device=device)
     q_pos, k_pos = pos[:, None], pos[None, :]
@@ -126,14 +141,28 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAU
 
     CUDA tensors launch K3 (float32, bf16 or fp16, one type for q, k and v;
     head dim 64, 128 or 256) and count in :data:`flash_launches`; CPU
-    tensors run :func:`flash_attention_plain`.
+    tensors run :func:`flash_attention_plain`.  K3 is forward-only: its
+    route raises ``RuntimeError`` (:func:`refuse_autograd`) where autograd
+    would need a gradient through it.
     """
-    global flash_launches
     _check(q, k, v, block_q, block_k)
     window = max(int(window), 0)
-    dev = q.device
-    if dev.type == "cpu":
+    if not kernel_route(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+    refuse_autograd("flash_attention (kernel K3)", q, k, v)
+    return _launch(q, k, v, causal, window, scale)
+
+
+def kernel_route(t) -> bool:
+    """Whether a call on ``t`` takes the kernel's route: every tensor but a
+    CPU one (which runs the plain version)."""
+    return t.device.type != "cpu"
+
+
+def _launch(q, k, v, causal, window, scale):
+    """K3 on the card: the checks of its C interface, then one launch."""
+    global flash_launches
+    dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}, "
                          f"{k.device} and {v.device}")

@@ -3,7 +3,10 @@ and defaults.
 
 There is no jit and no interpret flag: the device of the tensors picks the
 route.  CUDA tensors launch K3 or K4 (and raise if they cannot); CPU
-tensors run their plain PyTorch versions.
+tensors run their plain PyTorch versions.  Both kernels are forward-only, as
+the reference's are: on their route a call with grad enabled and an input
+that requires grad raises ``RuntimeError`` naming the kernel, instead of
+returning an output with no gradient path.
 """
 from __future__ import annotations
 

@@ -1,10 +1,12 @@
 """Models of the port: the dense decoder-only LMs behind the serving
-engine (the other families of ``repro.models`` are not ported yet)."""
+engine and the trainer (the other families of ``repro.models`` are not
+ported yet)."""
 from .model_zoo import (
     decode_fn,
     init_cache,
     init_params,
     logits_fn,
+    loss_fn,
     param_count,
     prefill_fn,
 )
@@ -14,6 +16,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "logits_fn",
+    "loss_fn",
     "param_count",
     "prefill_fn",
 ]

@@ -2,6 +2,7 @@
 far (the dense one).
 
   init_params(cfg, generator, device)   -> parameter dict
+  loss_fn(params, cfg, batch)           -> (loss, metrics)
   logits_fn(params, cfg, batch)         -> (B, S, V) float32 logits
   prefill_fn(params, cfg, batch, cache) -> (logits, cache)
   decode_fn(params, cfg, token, cur_len, cache) -> (logits, cache)
@@ -12,11 +13,13 @@ The port of ``repro.models.model_zoo``.  The functions that allocate take a
 ``device`` that defaults to ``"cuda"`` and raises where CUDA is absent;
 the rest run where their tensors are.  On the card, prefill and the full
 forward run kernel K3 in every layer and a decode step K4; ``kernel=False``
-selects the reference's einsum path there, as the kernels' oracle.  The
-encoder-decoder branches raise ``NotImplementedError``, as the other
-non-dense families do; ``loss_fn`` waits for the training slice and
-``abstract_*`` and ``input_specs`` for the dry-run launcher (ROADMAP.md,
-Queue 1 items 11 and 12).
+selects the reference's einsum path there, as the kernels' oracle, and is
+the path to differentiate: the kernels are forward-only, so ``loss_fn``
+with grad enabled on parameters that require grad raises on the card
+unless given ``kernel=False`` (the trainer's step).  The encoder-decoder
+branches raise ``NotImplementedError``, as the other non-dense families
+do; ``abstract_*`` and ``input_specs`` wait for the dry-run launcher
+(ROADMAP.md, Queue 1 items D and F).
 """
 from __future__ import annotations
 
@@ -32,6 +35,10 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> Any:
     """Random weights from ``generator`` (a ``torch.Generator``; one on the
     card draws a full-width model in well under a second)."""
     return transformer.init_lm_params(generator, cfg, _resolve_device(device, "init_params"))
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
+    return transformer.lm_loss(params, cfg, batch, kernel=kernel)
 
 
 def logits_fn(params, cfg: ModelConfig, batch: dict, kernel: bool = True):

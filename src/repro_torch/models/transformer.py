@@ -1,16 +1,26 @@
-"""Decoder-only LM of the dense family: init, forward and serving.
+"""Decoder-only LM of the dense family: init, train, forward and serving.
 
 The port of ``repro.models.transformer``.  The reference scans a stacked
 layer tree; here ``params["blocks"]`` is a list of per-layer dicts and the
-forward is a Python loop over it (the reference's ``remat`` has no effect
-without a backward pass and is left out).  The decode cache keeps the
-reference's layout, ``{"kv": KVCache}`` with the layer axis leading, and
-each layer updates its slice in place.  ``lm_loss`` waits for the
-training slice (ROADMAP.md, Queue 1 item 11).
+forward is a Python loop over it.  ``cfg.remat`` recomputes each layer in
+the backward pass (``"full"``, and ``"dots"`` as ``"full"``: PyTorch has no
+counterpart of JAX's save-the-matmuls policy) through
+``torch.utils.checkpoint``, or not at all (``"none"``); it changes no
+result.  :func:`lm_loss` streams the unembedding and the cross-entropy over
+:data:`LOSS_CHUNK` positions at a time, so the (B, S, V) logits never exist
+at once.  The decode cache keeps the reference's layout, ``{"kv":
+KVCache}`` with the layer axis leading, and each layer updates its slice
+in place.
+
+``kernel`` selects the attention route as in :mod:`repro_torch.models.
+attention`: on the card K3 (prefill, the full forward, the loss) and K4
+(decode), which are forward-only and raise where autograd needs them;
+``kernel=False`` is the reference's einsum path, the one to differentiate.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import KVCache
@@ -23,6 +33,9 @@ from .blocks import (
     require_dense,
 )
 from .layers import embed_tokens, init_embedding, init_rms_norm, rms_norm, unembed
+
+#: positions per chunk of the streamed cross-entropy
+LOSS_CHUNK = 512
 
 
 def init_lm_params(generator, cfg: ModelConfig, device) -> dict:
@@ -54,15 +67,72 @@ def _positions(batch: int, seq: int, device) -> torch.Tensor:
     return torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
 
 
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward pass unless ``cfg.remat`` is
+    ``"none"`` (and run as it is where no gradient is being taken)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+
+    def recomputed(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return recomputed
+
+
 def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                 kernel: bool = True):
     """Run the layer stack; returns (final-normed hidden states, total aux
     loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
-        x, a = layer_train(p, cfg, x, positions, kernel=kernel)
+        x, a = _remat(lambda h, p=p: layer_train(p, cfg, h, positions, kernel=kernel), cfg)(x)
         aux = aux + a
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+
+
+def _chunk_ce(h: torch.Tensor, tgt: torch.Tensor, table: torch.Tensor,
+              softcap: float) -> torch.Tensor:
+    """Summed next-token cross-entropy of one chunk: h (B, c, D), targets
+    (B, c); the (B, c, V) float32 logits live only inside this call."""
+    logits = unembed(h, table, softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
+    return torch.sum(lse - picked)
+
+
+def lm_loss(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
+    """Next-token CE over text positions, streamed in sequence chunks;
+    returns ``(loss, {"ce", "aux"})``, the MoE aux term added at 0.01 as
+    the reference adds it.  Where gradients are taken and the positions
+    span several chunks, each chunk's logits are recomputed in the
+    backward pass instead of kept."""
+    tokens = batch["tokens"]
+    B, S_text = tokens.shape
+    x = _embed_inputs(params, cfg, batch)
+    S_total = x.shape[1]
+    h, aux = lm_backbone(params, cfg, x, _positions(B, S_total, x.device), kernel=kernel)
+
+    # predictions for text tokens only: positions offset..offset+S_text-1
+    h_text = h[:, S_total - S_text:, :]
+    table = _unembed_table(params, cfg)
+    n_pred = S_text - 1
+    chunk = min(LOSS_CHUNK, max(n_pred, 1))
+    n_chunks = -(-n_pred // chunk)                          # ceil
+    ce = _chunk_ce
+    if n_chunks > 1 and torch.is_grad_enabled():
+        def ce(*args):
+            return torch.utils.checkpoint.checkpoint(_chunk_ce, *args, use_reentrant=False)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        lo, hi = i * chunk, min((i + 1) * chunk, n_pred)
+        total = total + ce(h_text[:, lo:hi], tokens[:, 1 + lo:1 + hi], table,
+                           cfg.logit_softcap)
+    loss = total / (B * n_pred)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    return loss, metrics
 
 
 def lm_logits(params, cfg: ModelConfig, batch: dict, kernel: bool = True) -> torch.Tensor:

@@ -504,13 +504,27 @@ class FleetProvisioner:
         return a.to(device=self.device, dtype=torch.int32)
 
 
+#: the hardware defaults of :func:`replica_cost_model`, all from one NVIDIA
+#: H100 80GB HBM3 at a 700.00 W power limit (``nvidia-smi
+#: --query-gpu=name,power.limit --format=csv,noheader``): its power limit;
+#: its median ``power.draw`` while idle, 131.26 W (``chip_smoke.py`` phase 14
+#: (f), ten samples after a sync and 2 s of rest, a context and 14 GB held);
+#: its memory rate, 3.35e12 B/s (NVIDIA's data sheet); and a cold build of
+#: the attention kernels K3 and K4, the replica's compile step, 13.26 s
+#: (``kernels/build_ms``, phase 2 of the same run)
+H100_PEAK_POWER_W = 700.0
+H100_IDLE_POWER_W = 131.26
+H100_HBM_BW = 3.35e12
+ATTENTION_BUILD_S = 13.26
+
+
 def replica_cost_model(
     weights_bytes_per_device: float,
     n_chips: int,
-    idle_power_w: float = 120.0,
-    peak_power_w: float = 250.0,
-    hbm_bw: float = 3.35e12,
-    compile_s: float = 30.0,
+    idle_power_w: float = H100_IDLE_POWER_W,
+    peak_power_w: float = H100_PEAK_POWER_W,
+    hbm_bw: float = H100_HBM_BW,
+    compile_s: float = ATTENTION_BUILD_S,
     slot_s: float = 600.0,
 ) -> CostModel:
     """Derive the paper's (P, beta) constants for one model replica.
@@ -518,9 +532,10 @@ def replica_cost_model(
     beta_on ~ energy of the spin-up: weight load (HBM-bandwidth bound) +
     compile/warmup at peak power; beta_off ~ drain at idle power.  P = idle
     power per slot (serving energy is charged to sessions either way).
-    Units: energy per slot (slot_s seconds).  ``hbm_bw`` defaults to the
-    memory rate of one H100 SXM (3.35e12 B/s, NVIDIA's data sheet); the
-    reference's default, 819e9 B/s, is a TPU v5e figure.
+    Units: energy per slot (slot_s seconds).  The hardware defaults are the
+    H100's (:data:`H100_PEAK_POWER_W` and the constants beside it), where
+    the reference's are a TPU v5e's memory rate with other power and
+    compile figures; with every argument given both compute the same.
     """
     load_s = weights_bytes_per_device / hbm_bw + compile_s
     beta_on = n_chips * peak_power_w * load_s / (idle_power_w * slot_s)

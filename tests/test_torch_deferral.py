@@ -118,7 +118,7 @@ def test_defer_stream_matches_reference_across_cuts(seed, slack, cap):
     rng, a, _ = _rows(seed + 20, T=40)
     cuts = (0, 7, 8, 23, 40)                      # chunks of 7, 1, 15 and 17 slots
     valid = rng.random(40) < 0.85
-    state = pdef.defer_stream_init(slack, (R,))
+    state = pdef.defer_stream_init(slack, (R,), device="cpu")
     outs = []
     for lo, hi in zip(cuts[:-1], cuts[1:]):
         o, state = pdef.defer_stream(_t(a[:, lo:hi]), state, slack=slack, cap=cap,
@@ -143,7 +143,7 @@ def test_queue_stream_matches_reference_across_cuts(seed, rule):
     rng, a, x = _rows(seed + 30, T=40)
     cuts = (0, 1, 14, 40)
     valid = rng.random(40) < 0.85
-    state = pdef.queue_stream_init(K, (R,))
+    state = pdef.queue_stream_init(K, (R,), device="cpu")
     backlog = []
     for lo, hi in zip(cuts[:-1], cuts[1:]):
         b, state = pdef.queue_stream(_t(a[:, lo:hi]), _t(x[:, lo:hi]), state, rule=rule,
@@ -168,7 +168,7 @@ def test_queue_stream_matches_reference_across_cuts(seed, rule):
 
 def test_queue_stream_unbatched_equals_queue_scan_at_scalar_slack():
     _, a, x = _rows(40, T=30)
-    state = pdef.queue_stream_init(K)
+    state = pdef.queue_stream_init(K, device="cpu")
     b, state = pdef.queue_stream(_t(a[0]), _t(x[0]), state, rule="EDF", max_slack=K)
     fin = pdef.queue_stream_finalize(state, max_slack=K)
     scan = pdef.queue_scan(_t(a[0]), _t(x[0]), K, rule="EDF", max_slack=K)
@@ -306,7 +306,7 @@ def _ref_uniforms(policy, n):
         return None
     keys = jax.random.split(jax.random.key(KEY_SEED), B)
     u0, u1 = jax.vmap(lambda k: ref_uniforms(k, T, n))(keys)
-    return uniforms_from_numpy(np.array(u0), np.array(u1))
+    return uniforms_from_numpy(np.array(u0), np.array(u1), device="cpu")
 
 
 def _pair(a, policy, costs, slack, n_levels=18, windows=(0, 2)):

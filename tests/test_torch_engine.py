@@ -161,7 +161,7 @@ def test_run_matches_reference_engine(policy, record, noise_sweep):
     want = (ref._run_noise_sweep if noise_sweep else ref._run)(*args, **kw)
     got = port._run(torch.as_tensor(a), torch.as_tensor(pred), windows,
                     torch.as_tensor(delta), *map(torch.as_tensor, per_level),
-                    None if u is None else uniforms_from_numpy(*u), **kw)
+                    None if u is None else uniforms_from_numpy(*u, device="cpu"), **kw)
     expect = sorted(want)
     assert sorted(got) == expect
     for k in expect:
@@ -177,7 +177,8 @@ def test_window_free_policies_broadcast_over_windows():
     a, pred, delta, per_level, max_h, u = _engine_inputs("AQ-rand", False)
     out = port._run(torch.as_tensor(a), torch.as_tensor(pred), [0, 1, 5],
                     torch.as_tensor(delta), *map(torch.as_tensor, per_level),
-                    uniforms_from_numpy(*u), n_levels=N, max_h=max_h, policy="AQ-rand")
+                    uniforms_from_numpy(*u, device="cpu"), n_levels=N, max_h=max_h,
+                    policy="AQ-rand")
     assert out["x"].shape == (1, 3, B, T)
     assert torch.equal(out["x"][:, 0], out["x"][:, 2])
 

@@ -28,7 +28,15 @@ def test_port_modules_found():
               "repro_torch.core.events", "repro_torch.data.requests",
               "repro_torch.configs.base", "repro_torch.models.attention",
               "repro_torch.models.model_zoo", "repro_torch.serving.cluster",
-              "repro_torch.serving.engine", "repro_torch.launch.serve"):
+              "repro_torch.serving.engine", "repro_torch.launch.serve",
+              "repro_torch.core.segments", "repro_torch.core.offline",
+              "repro_torch.core.online", "repro_torch.core.fluid",
+              "repro_torch.core.dp_oracle", "repro_torch.core.analysis",
+              "repro_torch.utils", "repro_torch.utils.tree", "repro_torch.data.tokens",
+              "repro_torch.optim.adamw", "repro_torch.distributed.compression",
+              "repro_torch.distributed.fault_tolerance", "repro_torch.launch.mesh",
+              "repro_torch.checkpoint.checkpointer", "repro_torch.train.trainer",
+              "repro_torch.launch.train"):
         assert m in MODULES
 
 

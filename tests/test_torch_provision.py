@@ -102,12 +102,13 @@ def _both(a, policy, costs, *, windows=None, window=0, noise_std=None, n_levels=
                                    np.asarray(costs.beta_off), costs.group_sizes,
                                    costs.group_names)
     tnoise = None if noise_std is None else port.PredictionNoise(
-        std_frac=noise_std, normals=normals_from_numpy(z))
+        std_frac=noise_std, normals=normals_from_numpy(z, device="cpu"))
     got = port.provision(port.ProvisionSpec(
         costs=tcosts,
         workload=port.Workload(demand=a, noise=tnoise),
         policy=port.PolicySpec(policy, window=window, windows=windows,
-                               uniforms=None if u is None else uniforms_from_numpy(*u)),
+                               uniforms=None if u is None
+                               else uniforms_from_numpy(*u, device="cpu")),
         n_levels=n_levels, device="cpu",
     ), record_decisions=record)
     return want, got
@@ -359,7 +360,8 @@ def _deferral_pair(policy, batched, slack=2):
         costs=cost_model_from_numpy(*COSTS["delta_3.0"]),
         workload=port.Workload(demand=a, deferral=PortDeferralSpec(slack=slack)),
         policy=port.PolicySpec(policy, window=1,
-                               uniforms=None if u is None else uniforms_from_numpy(*u)),
+                               uniforms=None if u is None
+                               else uniforms_from_numpy(*u, device="cpu")),
         n_levels=n, device="cpu",
     ))
     return want, got

@@ -157,14 +157,15 @@ def test_chained_calls_match_the_reference_chained(case):
     assert (carry["on"] & (carry["r"] > 0)).any()            # some lane mid-wait
     want2 = _run_ref(second, kw, T_CHUNK, carry=want1[2])
     got2 = _run_port(second, kw, T_CHUNK,
-                     carry=carry_from_numpy(carry["r"], carry["on"], carry["wait"]))
+                     carry=carry_from_numpy(carry["r"], carry["on"], carry["wait"], device="cpu"))
     _assert_equal(got2, want2, N)
     # threading the port's own carry gives the same
     _assert_equal(_run_port(second, kw, T_CHUNK, carry=got1[2]), want2, N)
 
 
 def test_carry_from_numpy_types():
-    c = carry_from_numpy(np.ones((2, 3)), np.array([[1, 0, 1]] * 2), np.zeros((2, 3)))
+    c = carry_from_numpy(np.ones((2, 3)), np.array([[1, 0, 1]] * 2), np.zeros((2, 3)),
+                         device="cpu")
     assert [c[k].dtype for k in ("r", "on", "wait")] == [torch.float32, torch.bool,
                                                         torch.float32]
 

@@ -352,11 +352,16 @@ def test_replica_cost_model_equals_the_reference_with_every_argument():
     want, got = ref.replica_cost_model(**kw), port.replica_cost_model(**kw)
     for f in ("P", "beta_on", "beta_off", "delta"):
         assert getattr(got, f) == getattr(want, f), f
-    # the port's default memory rate is the H100's, not the reference's TPU figure
+    # every hardware default of the port is the H100's: its 700 W power
+    # limit, its measured idle draw and kernel build, its memory rate
     default = port.replica_cost_model(weights_bytes_per_device=8e9, n_chips=16)
-    h100 = port.replica_cost_model(weights_bytes_per_device=8e9, n_chips=16, hbm_bw=3.35e12)
-    assert default.beta_on == h100.beta_on
-    assert default.beta_on < ref.replica_cost_model(weights_bytes_per_device=8e9,
+    h100 = port.replica_cost_model(weights_bytes_per_device=8e9, n_chips=16,
+                                   idle_power_w=131.26, peak_power_w=700.0, hbm_bw=3.35e12,
+                                   compile_s=13.26)
+    assert (default.beta_on, default.beta_off) == (h100.beta_on, h100.beta_off)
+    # the card's 700 W limit outweighs its shorter build: a dearer spin-up
+    # than the reference's figures give
+    assert default.beta_on > ref.replica_cost_model(weights_bytes_per_device=8e9,
                                                     n_chips=16).beta_on
     assert 0.1 < default.delta < 100
 

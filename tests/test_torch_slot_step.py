@@ -71,7 +71,8 @@ def _port_spec(a, policy, u):
         costs=cost_model_from_numpy(*(np.float32(c) for c in COSTS)),
         workload=port.Workload(demand=a),
         policy=port.PolicySpec(policy, windows=WINDOWS,
-                               uniforms=None if u is None else uniforms_from_numpy(*u)),
+                               uniforms=None if u is None
+                               else uniforms_from_numpy(*u, device="cpu")),
         device="cpu")
 
 

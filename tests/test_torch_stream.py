@@ -102,12 +102,13 @@ def _port_run(a, policy, costs, windows, noise_std, n_levels, t_chunk):
                                    np.asarray(costs.beta_off), costs.group_sizes,
                                    costs.group_names)
     tnoise = None if noise_std is None else port.PredictionNoise(
-        std_frac=noise_std, normals=normals_from_numpy(z))
+        std_frac=noise_std, normals=normals_from_numpy(z, device="cpu"))
     return port.provision_stream(port.ProvisionSpec(
         costs=tcosts,
         workload=port.Workload(demand=a, noise=tnoise),
         policy=port.PolicySpec(policy, windows=windows,
-                               uniforms=None if u is None else uniforms_from_numpy(*u)),
+                               uniforms=None if u is None
+                               else uniforms_from_numpy(*u, device="cpu")),
         n_levels=n_levels, device="cpu",
     ), t_chunk=t_chunk, record_decisions=True)
 
