@@ -9,8 +9,9 @@ The main paths are ``provision(ProvisionSpec(...))``,
 ``repro_torch.eval.evaluate(EvalGrid(...))``, the serving stepper
 ``FleetProvisioner(...).advance(chunk)``, the serving cluster with real
 tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
-full width) and training (``Trainer``, the same model at full width) of
-``repro_torch``; the first
+full width), training (``Trainer``, the same model at full width) and the
+hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
+llama4-scout-17b-a16e, xlstm-1.3b) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -177,6 +178,40 @@ Phases, one line or more each:
    ``a0_cost``; (f) the card's idle ``power.draw`` (median of 10 samples)
    and the cold builds' seconds, which ``replica_cost_model``'s defaults
    take.
+15. families (run after phase 14, before 9 and 10) — the hybrid, MoE and
+   xLSTM families, random weights from ``SEED`` on the card, bf16 serving:
+   (a) hymba-1.5b whole (32 layers, d 1600, 25/5 heads of 64, window 2048,
+   SSM state 16; 1,644,860,800 parameters) on three token streams through
+   ``InferenceEngine._generate``: B 1 with a prompt of 4096 and 16 new
+   tokens (K3's window path in every layer, the ring full from the first
+   step), B 2 with 2040 and 16 (the ring wraps at 2048), B 1 with 2100 and
+   8 (ROADMAP.md § 3.9: K4 over the ring's valid slots gathered to the
+   front); each held to phase 13's rules (float32 kernel route == plain
+   route within 1e-4 per row, greedy tokens equal where decided; bf16
+   kernel route no farther from the float32 model than 1.25 times the plain
+   route), with 32 K3 launches per prefill and 64 K4 per decode step on the
+   bf16 kernel route, and prefill-then-decode equal to ``logits_fn`` over
+   the whole sequence within 1e-4 in float32 (printed, not held, on the
+   § 3.9 stream, where the reference's ring loses positions); then the
+   engine bench (prefill ms, decode p50/p99, tokens/s, the profiler's busy
+   share and launches), K3 at B 1, S 4096 with the window and K4 over the
+   full 2048-slot ring on layer 0's projections, held to their plain
+   versions and timed beside their bounds and SDPA; and (d) ``run_cluster``
+   with the launcher's defaults and hymba engines (max_seq 96), whose
+   report must equal the run without engines, 32 K3 launches per session
+   and 64 K4 per decode step.  (b) qwen3-moe-30b-a3b (4 of 48 layers) and
+   llama4-scout-17b-a16e (2 of 48) at full width, B 4, prompt 192, 8 new
+   tokens: float32 kernel route == plain route as in (a), the bf16 routes'
+   distances and their routing flips (top-k sets that differ between the
+   routes) printed, the launch counts, prefill-then-decode == ``logits_fn``
+   in float32 with dropless capacity (as the reference's consistency test),
+   the bench, and for llama4-scout K3 (B 4, S 192, 40/8 heads of 128) and
+   K4 (200 slots at 193) timed as in (a).  (c) xlstm-1.3b whole (48 layers,
+   every 8th an sLSTM; 5,845,649,792 parameters), B 2, prompt 192, 16 new
+   tokens: no K3 or K4 launch in the whole part, prefill-then-decode ==
+   ``logits_fn`` within 1e-4 in float32, ``generate`` and the bench.  Each
+   model's peak device memory and seconds are printed, and each is freed
+   before the next.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -214,7 +249,7 @@ Phases, one line or more each:
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's and the stepper's, K3's and K4's the serving
-path's, K3's the training path's no-grad losses); the
+paths' of phases 13 and 15, K3's the training path's no-grad losses); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -1315,32 +1350,12 @@ def serving_phase(smi):
                                device=dev, kernel=kernel)._generate(
             prompt, COMPARE_STEPS + 1, forced=forced, keep_logits=True)
 
-    def held(got, got_picks, want, want_picks, tol, margin, what):
-        """Every row of ``got`` within ``tol`` of its largest |want|, and the
-        greedy picks equal wherever ``want``'s top-2 margin exceeds
-        ``margin`` of it; returns the largest row error and the picks that
-        agree and that the margin decides."""
-        worst, decided, agreed = 0.0, 0, 0
-        for step, (g, w) in enumerate(zip(got, want)):
-            check(g.shape == w.shape == (SERVE_BATCH, cfg.vocab_size)
-                  and bool(torch.isfinite(g).all()), f"serve: {what} step {step} logits")
-            rel = float(row_err(g, w).max())
-            check(rel <= tol, f"serve: {what} step {step}: a row of logits differs by "
-                  f"{rel:.3e} of its largest value, above {tol}")
-            worst = max(worst, rel)
-            top2 = w.topk(2, dim=-1).values
-            sure = ((top2[:, 0] - top2[:, 1]) > margin * w.abs().amax(dim=-1)).cpu().numpy()
-            same = got_picks[:, step] == want_picks[:, step]
-            check(same[sure].all(), f"serve: {what} step {step}: a greedy token differs where "
-                  "the top-2 margin exceeds the tolerance")
-            decided += int(sure.sum())
-            agreed += int(same.sum())
-        return worst, agreed, decided
-
     picks, exact = route(f32_cfg, params, False)
     k32_picks, k32 = route(f32_cfg, params, True, picks)
     tol = LOGIT_TOL["float32"]
-    f32_err, agreed, decided = held(k32, k32_picks, exact, picks, tol, tol, "float32")
+    shape = (SERVE_BATCH, cfg.vocab_size)
+    f32_err, agreed, decided = logits_held(k32, k32_picks, exact, picks, tol, tol, shape,
+                                           "serve: float32")
     print(f"serve: float32 model, kernel route == plain route: prefill + {COMPARE_STEPS} decode "
           f"steps x {SERVE_BATCH} rows, max_row_rel_err={f32_err:.3e} (tol {tol}); greedy "
           f"tokens agree in {agreed} of {SERVE_BATCH * (COMPARE_STEPS + 1)} picks, all "
@@ -1353,8 +1368,8 @@ def serving_phase(smi):
     check(to_f32[0] <= BF16_SLACK * to_f32[1],
           f"serve: bf16 kernel route {to_f32[0]:.3e} from the float32 model, the plain route "
           f"{to_f32[1]:.3e}: more than {BF16_SLACK} times as far")
-    bf16_err, agreed, decided = held(kernel, kernel_picks, plain, plain_picks, math.inf, tol,
-                                     "bf16")
+    bf16_err, agreed, decided = logits_held(kernel, kernel_picks, plain, plain_picks, math.inf,
+                                            tol, shape, "serve: bf16")
     print(f"serve: bf16 model (served): kernel route vs plain route max_row_rel_err="
           f"{bf16_err:.3e}; from the float32 model: kernel route {to_f32[0]:.3e}, plain route "
           f"{to_f32[1]:.3e} (held: kernel <= {BF16_SLACK} x plain); greedy tokens agree in "
@@ -1758,6 +1773,653 @@ def train_phase(smi, cluster, build_s):
           f"{default.beta_off:.4f} at 8 GB [{smi}]", flush=True)
     print(f"train: phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return k3_path
+
+
+HYBRID_ARCH = "hymba-1.5b"       # phase 15 (a): the hybrid family whole
+# (B, prompt, new tokens): the ring full from the first step (and K3's window
+# path in every layer); the ring wrapping at position 2048; a prompt past the
+# window and not a multiple of it (ROADMAP.md § 3.9)
+HYBRID_STREAMS = ((1, 4096, 16), (2, 2040, 16), (1, 2100, 8))
+# phase 15 (b): the MoE archs at full width, depth cut to this many layers
+MOE_ARCHS = (("qwen3-moe-30b-a3b", 4), ("llama4-scout-17b-a16e", 2))
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 192, 8
+XLSTM_ARCH = "xlstm-1.3b"        # phase 15 (c): the ssm family whole
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_NEW = 2, 192, 16
+FAMILY_PROFILE_STEPS = 4
+# float32 prefill-then-decode against the whole forward: within 1e-4 of a
+# row's largest logit, or for xlstm-1.3b's decode steps within this many
+# times its prefill's own distance (the forward over the prompt against the
+# one over the whole sequence), which its 48 random layers take past 1e-4
+# (printed by depth)
+CONSISTENCY_SLACK = 2.0
+XLSTM_DEPTHS = (2, 16)
+
+
+def family_weights(cfg, dev):
+    """Random float32 weights of ``cfg`` from ``SEED`` on the card and the
+    served bf16 copy; prints their size."""
+    import torch
+
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serving.engine import serving_params
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    shared = serving_params(params, cfg, dev)
+    torch.cuda.synchronize()
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        items = tree.values() if isinstance(tree, dict) else tree
+        return [x for v in items for x in leaves(v)]
+
+    n = sum(x.numel() for x in leaves(params))
+    check(n == param_count(cfg), f"families: {cfg.name} parameter count {n}")
+    print(f"families: {cfg.name} (layers={cfg.n_layers} d={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"experts={cfg.n_experts} top_k={cfg.top_k} moe_d_ff={cfg.moe_d_ff} "
+          f"window={cfg.window} ssm_state={cfg.ssm_state} vocab={cfg.vocab_size}): {n:,} "
+          f"parameters, {4 * n / 1e9:.2f} GB in float32, drawn and cast in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params, shared
+
+
+def logits_held(got, got_picks, want, want_picks, tol, margin, shape, what):
+    """Every step's logits in ``got`` of ``shape`` and finite, each row
+    within ``tol`` of its largest |want|, and the greedy picks equal
+    wherever ``want``'s top-2 margin exceeds ``margin`` of it; returns the
+    largest row error, the picks that agree and those the margin decides."""
+    import torch
+
+    worst, decided, agreed = 0.0, 0, 0
+    for step, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape == shape and bool(torch.isfinite(g).all()),
+              f"{what} step {step} logits")
+        rel = float(row_err(g, w).max())
+        check(rel <= tol, f"{what} step {step}: a row of logits differs by {rel:.3e} of its "
+              f"largest value, above {tol}")
+        worst = max(worst, rel)
+        top2 = w.topk(2, dim=-1).values
+        sure = ((top2[:, 0] - top2[:, 1]) > margin * w.abs().amax(dim=-1)).cpu().numpy()
+        same = got_picks[:, step] == want_picks[:, step]
+        check(same[sure].all(), f"{what} step {step}: a greedy token differs where the top-2 "
+              "margin exceeds the tolerance")
+        decided += int(sure.sum())
+        agreed += int(same.sum())
+    return worst, agreed, decided
+
+
+class MoeRoutes:
+    """The MoE layers' top-k expert sets, recorded while open: one list of
+    (B, S, K) sorted index tensors per run, one tensor per layer call, by a
+    wrapper around ``blocks.moe_layer`` installed by :meth:`installed`."""
+
+    def __init__(self):
+        self.runs, self.on = [], False
+
+    def open(self):
+        self.runs.append([])
+        self.on = True
+
+    def close(self):
+        self.on = False
+
+    def installed(self):
+        import contextlib
+
+        import torch
+
+        blocks = importlib.import_module("repro_torch.models.blocks")
+        original = blocks.moe_layer
+
+        def recording(x, p, cfg):
+            if self.on:
+                probs = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+                self.runs[-1].append(torch.topk(probs, cfg.top_k, dim=-1).indices.sort(-1).values)
+            return original(x, p, cfg)
+
+        @contextlib.contextmanager
+        def patch():
+            blocks.moe_layer = recording
+            try:
+                yield self
+            finally:
+                blocks.moe_layer = original
+
+        return patch()
+
+
+def routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, bf16_held=True,
+                routes=None):
+    """Phase 13's rules on one token stream: the float32 kernel route
+    against the float32 plain route (every row within 1e-4, the greedy
+    tokens equal where decided), then bf16, the served config: each route's
+    distance to the float32 model, the kernel route's held to BF16_SLACK
+    times the plain route's unless ``bf16_held`` is false.  ``routes`` (a
+    :class:`MoeRoutes`) records the bf16 routes' MoE picks.  Counts the
+    launches of the bf16 kernel route, the main path.  Returns (the float32
+    picks, the float32 kernel route's logits, K3 launches, K4 launches)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.serving import InferenceEngine
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    B, S = prompt.shape
+    f32_cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+
+    def route(route_cfg, weights, kernel, forced=None):
+        return InferenceEngine(route_cfg, weights, max_batch=B, max_seq=S + n_new, device=dev,
+                               kernel=kernel)._generate(prompt, n_new, forced=forced,
+                                                        keep_logits=True)
+
+    @contextlib.contextmanager
+    def recorded():
+        if routes is not None:
+            routes.open()
+        yield
+        if routes is not None:
+            routes.close()
+
+    picks, exact = route(f32_cfg, params, False)
+    k32_picks, k32 = route(f32_cfg, params, True, picks)
+    tol, shape = LOGIT_TOL["float32"], (B, cfg.vocab_size)
+    f32_err, agreed, decided = logits_held(k32, k32_picks, exact, picks, tol, tol, shape,
+                                           f"families: {what} float32")
+    print(f"families: {what} float32, kernel route == plain route: prefill + {n_new - 1} "
+          f"decode steps x {B} rows, max_row_rel_err={f32_err:.3e} (tol {tol}); greedy tokens "
+          f"agree in {agreed} of {B * n_new}, all {decided} whose top-2 margin exceeds the "
+          f"tolerance [{smi}]", flush=True)
+    with recorded():
+        plain_picks, plain = route(cfg, shared, False, picks)
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    with recorded():
+        kernel_picks, kernel = route(cfg, shared, True, picks)
+    torch.cuda.synchronize()
+    k3, k4 = flash.flash_launches, decode.decode_launches
+    n_attn = cfg.n_layers if cfg.family != "ssm" else 0
+    check(k3 == n_attn and k4 == 2 * n_attn * (n_new - 1),
+          f"families: {what} bf16 main path launched K3 {k3} and K4 {k4} times for one "
+          f"prefill and {n_new - 1} decode steps of {n_attn} attention layers")
+    to_f32 = [max(float(row_err(x, ref).max()) for x, ref in zip(logits, exact))
+              for logits in (kernel, plain)]
+    if bf16_held:
+        check(to_f32[0] <= BF16_SLACK * to_f32[1],
+              f"families: {what} bf16 kernel route {to_f32[0]:.3e} from the float32 model, "
+              f"the plain route {to_f32[1]:.3e}: more than {BF16_SLACK} times as far")
+    margin = LOGIT_TOL["bfloat16"] if bf16_held else math.inf
+    between, agreed, decided = logits_held(kernel, kernel_picks, plain, plain_picks, math.inf,
+                                           margin, shape, f"families: {what} bf16")
+    rule = (f"held: kernel <= {BF16_SLACK} x plain, tokens equal where the plain top-2 margin "
+            f"exceeds {margin}: {decided}" if bf16_held else "printed")
+    print(f"families: {what} bf16 (served): kernel route vs plain route max_row_rel_err="
+          f"{between:.3e}; from the float32 model: kernel route {to_f32[0]:.3e}, plain route "
+          f"{to_f32[1]:.3e} ({rule}); "
+          f"greedy tokens agree in {agreed} of {B * n_new}; main path K3 launches={k3} "
+          f"({k3} per prefill) K4 launches={k4} ({k4 // max(n_new - 1, 1)} per decode step) "
+          f"[{smi}]", flush=True)
+    return picks, k32, k3, k4
+
+
+def routing_flips(served, whole, n_layers):
+    """Where a served run's MoE picks (``n_layers`` prefill calls, then
+    ``n_layers`` per decode step) differ from a forward's over the whole
+    sequence (``n_layers`` calls): a (B, positions) bool tensor, True at
+    each token whose expert set differs in any layer."""
+    import torch
+
+    L = n_layers
+    steps = (len(served) - L) // L
+    per_layer = [torch.cat([served[l]] + [served[L * (i + 1) + l] for i in range(steps)], dim=1)
+                 for l in range(L)]
+    return torch.stack([(a != b).any(-1) for a, b in zip(per_layer, whole)]).any(0)
+
+
+def consistency_held(cfg, params, prompt, picks, k32, tol, what, routes=None,
+                     baseline=False):
+    """Prefill-then-decode == one longer forward: each of ``k32``'s logits
+    (the float32 kernel route's prefill and decode steps, fed ``picks``)
+    against ``logits_fn`` of the whole sequence at the same position, in
+    float32; returns (the largest row distance held, rows exempted, the
+    baseline or None).  The distance is checked against ``tol`` unless it
+    is None.  With ``baseline`` the prefill's own distance (the forward
+    over the prompt against the forward over the whole sequence: the same
+    function over another length, so other product shapes) is the
+    baseline, and the decode steps are held to the larger of ``tol`` and
+    ``CONSISTENCY_SLACK`` times it: a float32 model whose logits move by
+    more than ``tol`` when only the sequence's length changes is held to
+    that, not to ``tol``.  With ``routes``
+    (a :class:`MoeRoutes` whose last run holds the served run's picks) a
+    row is exempted from the position of its sequence's first token whose
+    expert set differs between the two (a top-k near-tie that the two
+    orders of summation break apart)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import logits_fn
+
+    B, S = prompt.shape
+    n_new = len(k32)
+    f32_cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+    tokens = torch.as_tensor(np.concatenate([prompt, picks[:, :n_new - 1]], axis=1),
+                             device=k32[0].device)
+    exempt = torch.zeros((B, n_new), dtype=torch.bool)
+    with torch.inference_mode():
+        if routes is not None:
+            routes.open()
+        full = logits_fn(params, f32_cfg, {"tokens": tokens})
+        if routes is not None:
+            routes.close()
+            flips = routing_flips(routes.runs[-2], routes.runs[-1], cfg.n_layers).cpu()
+            exempt = flips.cumsum(dim=1)[:, S - 1:] > 0
+    base = float(row_err(k32[0], full[:, S - 1]).max()) if baseline else None
+    dist = 0.0
+    for j in range(1 if baseline else 0, n_new):
+        keep = ~exempt[:, j]
+        if keep.any():
+            keep = keep.to(full.device)
+            dist = max(dist, float(row_err(k32[j][keep], full[keep, S - 1 + j]).max()))
+    if tol is not None:
+        limit = tol if base is None else max(tol, CONSISTENCY_SLACK * base)
+        check(dist <= limit, f"families: {what}: prefill-then-decode is {dist:.3e} from the "
+              f"forward over the whole sequence, above {limit:.3e}")
+    del full
+    return dist, int(exempt.sum()), base
+
+
+def family_bench(cfg, shared, prompt, n_new, dev, smi, what):
+    """The served bf16 engine: prefill ms (median of 3), decode-step p50/p99
+    ms and tokens/s over ``n_new - 1`` steps, and under the profiler the
+    device busy share and launches of one prefill and of
+    ``FAMILY_PROFILE_STEPS`` decode steps."""
+    import torch
+
+    from repro_torch.serving import InferenceEngine
+
+    B, S = prompt.shape
+    engine = InferenceEngine(cfg, shared, max_batch=B, max_seq=S + n_new, device=dev)
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+
+    def prefill(cache=None):
+        return engine._prefill(engine.params, batch,
+                               engine_cache(engine, B) if cache is None else cache)
+
+    with torch.inference_mode():
+        prefill_ms = []
+        for _ in range(3):
+            cache = engine_cache(engine, B)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(cache)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        step_ms = []
+        for i in range(n_new - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine._decode(engine.params, tok, S + i, cache)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms.sort()
+    p50 = statistics.median(step_ms)
+    p99 = step_ms[min(len(step_ms) - 1, int(0.99 * len(step_ms)))]
+    pre_wall, pre_busy, pre_launches, _ = device_window(torch.inference_mode()(prefill), 1)
+    with torch.inference_mode():
+        logits, cache = prefill()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    n = min(FAMILY_PROFILE_STEPS, n_new - 1)
+
+    def decode_steps():
+        with torch.inference_mode():
+            t = tok
+            for i in range(n):
+                out, _ = engine._decode(engine.params, t, S + i, cache)
+                t = torch.argmax(out, dim=-1).to(torch.int32)
+
+    dec_wall, dec_busy, dec_launches, dec_names = device_window(decode_steps, 1)
+    top = sorted(dec_names.items(), key=lambda kv: -kv[1])[:3]
+    print(f"families: {what} bench B={B} prompt={S} new={n_new}: "
+          f"prefill_ms={statistics.median(prefill_ms):.3f} decode step p50_ms={p50:.3f} "
+          f"p99_ms={p99:.3f} ({B / p50 * 1e3:.1f} tokens/s at p50); profiler: prefill wall "
+          f"{pre_wall:.3f} ms, device busy {pre_busy:.3f} ms ({pre_busy / pre_wall:.1%}), "
+          f"{pre_launches:.0f} launches; decode step wall {dec_wall / n:.3f} ms, device busy "
+          f"{dec_busy / n:.3f} ms ({dec_busy / dec_wall:.1%}), {dec_launches / n:.0f} launches; "
+          "most device time per step: "
+          + ", ".join(f"{name[:40]} {ms / n:.4f} ms" for name, ms in top) + f" [{smi}]",
+          flush=True)
+    del cache, engine
+
+
+def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
+    """K3 at a prefill of (b, s) and K4 over ``slots`` cache slots at
+    ``lengths``, on layer 0's own projections, against their plain versions
+    (bf16), timed beside their bounds, plain versions and SDPA as phase 13
+    times them, into ``out["times"][what]``; their errors raise
+    ``out["errs"]``."""
+    import numpy as np
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import attention
+    from repro_torch.models.blocks import attn_window
+    from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    cd, window = cfg.compute_dtype, attn_window(cfg)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(SEED)
+
+    def projections(n):
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n)), device=dev)
+        h = rms_norm(embed_tokens(tokens, shared["embed"], cd), shared["blocks"][0]["ln1"],
+                     cfg.norm_eps)
+        q, k, v = attention._qkv(h, shared["blocks"][0]["attn"], cd)
+        pos = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
+        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+
+    measured, errs = {}, {}
+    q, k, v = projections(s)
+
+    def run(q=q, k=k, v=v):
+        return flash.flash_attention(q, k, v, causal=True, window=window, block_q=s, block_k=s)
+
+    err, rel = compare(run(), flash.flash_attention_plain(q, k, v, causal=True, window=window),
+                       "bfloat16", f"families {what} K3")
+    mask = None
+    if window:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def library(q=q, k=k, v=v, mask=mask):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            is_causal=mask is None, enable_gqa=True)
+
+    flops = 4 * b * H * hd * admitted_pairs(s, True, window)
+    bound, bound_by = attention_bound_ms(flops, q.element_size() * 2 * b * s * (H + KVH) * hd,
+                                         "bfloat16")
+    measured["K3"] = dict(err=err, ms=kernel_ms(run, KERNEL_REPS,
+                                                 name=flash.k3_instance(q.dtype, hd)[0]),
+                          call=cuda_ms(run, KERNEL_REPS),
+                          plain=cuda_ms(lambda q=q, k=k, v=v: flash.flash_attention_plain(
+                              q, k, v, causal=True, window=window), PLAIN_REPS),
+                          library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
+    errs["K3"] = err
+    print(f"families: {what} K3 prefill B={b} S={s} H={H} KVH={KVH} hd={hd} window={window}: "
+          f"close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} kernel_ms={{ms:.4f}} "
+          "call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
+          "bound_ms={bound:.4f} ({bound_by})".format(**measured["K3"]) + f" [{smi}]", flush=True)
+    del q, k, v, mask
+    q, kc, vc = projections(slots)
+    q = q[:, -1].contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def run4(q=q, kc=kc, vc=vc, lens=lens):
+        return decode.decode_attention(q, kc, vc, lens, block_k=slots)
+
+    err, rel = compare(run4(), decode.decode_attention_plain(q, kc, vc, lens), "bfloat16",
+                       f"families {what} K4")
+    kmask = (torch.arange(slots, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+    def library4(q=q, kc=kc, vc=vc, kmask=kmask):
+        return F.scaled_dot_product_attention(q[:, :, None], kc.transpose(1, 2),
+                                              vc.transpose(1, 2), attn_mask=kmask,
+                                              enable_gqa=True)
+
+    valid = int(lens.sum())
+    nbytes = q.element_size() * (2 * valid * KVH * hd + 2 * b * H * hd) + 4 * b
+    bound, bound_by = attention_bound_ms(4 * H * hd * valid, nbytes, "bfloat16")
+    measured["K4"] = dict(err=err, ms=kernel_ms(run4, KERNEL_REPS,
+                                                 name=("decode_split", "decode_combine_kernel")),
+                          call=cuda_ms(run4, KERNEL_REPS),
+                          plain=cuda_ms(lambda q=q, kc=kc, vc=vc, lens=lens:
+                                        decode.decode_attention_plain(q, kc, vc, lens),
+                                        PLAIN_REPS),
+                          library=cuda_ms(library4, KERNEL_REPS), bound=bound, bound_by=bound_by)
+    errs["K4"] = err
+    print(f"families: {what} K4 decode B={b} slots={slots} lengths={sorted(set(lengths))} "
+          f"group={H // KVH}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
+          "bound_ms={bound:.4f} ({bound_by})".format(**measured["K4"]) + f" [{smi}]",
+          flush=True)
+    out["times"][what] = measured
+    for kernel, err in errs.items():
+        out["errs"][kernel] = max(out["errs"][kernel], err)
+
+
+def family_start():
+    """Free what earlier models left and reset the peak; returns (bytes
+    held now, the clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), time.perf_counter()
+
+
+def family_done(what, resident, t0):
+    import torch
+
+    print(f"families: {what}: peak device memory "
+          f"{(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f} GB above the "
+          f"{resident / 1e9:.2f} GB held before, {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def hybrid_part(smi, dev, rng, out):
+    """Phase 15 (a) and (d): hymba-1.5b whole on ``HYBRID_STREAMS``, its
+    bench and kernels, then ``run_cluster`` with hymba engines."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CostModel
+    from repro_torch.data import generate_sessions
+    from repro_torch.serving import InferenceEngine, make_window_max_predictor, run_cluster
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    resident, t0 = family_start()
+    cfg = get_config(HYBRID_ARCH)
+    params, shared = family_weights(cfg, dev)
+    tol = LOGIT_TOL["float32"]
+    for b, s, n_new in HYBRID_STREAMS:
+        what = f"{HYBRID_ARCH} B={b} prompt={s} new={n_new}"
+        prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+        picks, k32, k3, k4 = routes_held(cfg, params, shared, prompt, n_new, dev, smi, what)
+        out["launches"]["K3"] += k3
+        out["launches"]["K4"] += k4
+        fault = s > cfg.window and s % cfg.window
+        dist, _, _ = consistency_held(cfg, params, prompt, picks, k32, None if fault else tol,
+                                      what)
+        print(f"families: {what}: prefill-then-decode vs the forward over the whole sequence "
+              f"(float32, kernel route) max_row_rel_err={dist:.3e}"
+              + (" (the reference's ring fault, ROADMAP.md § 3.9: not held)" if fault
+                 else f" (tol {tol})"), flush=True)
+        del k32
+    b, s, n_new = HYBRID_STREAMS[0]
+    family_bench(cfg, shared, rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32), n_new,
+                 dev, smi, HYBRID_ARCH)
+    family_kernels(cfg, shared, b, s, cfg.window, (cfg.window,) * b, dev, smi, HYBRID_ARCH, out)
+
+    costs = CostModel(P=1.0, beta_on=3.0, beta_off=3.0)
+    trace = generate_sessions(np.random.default_rng(0), n_slots=60, mean_concurrency=4.0)
+
+    def cluster(factory):
+        return run_cluster(trace, costs, policy="A1", alpha=0.5,
+                           predictor=make_window_max_predictor(trace), engine_factory=factory,
+                           rng=np.random.default_rng(1))
+
+    want = cluster(None)
+    engines = []
+
+    def factory():
+        engines.append(InferenceEngine(cfg, shared, max_batch=1, max_seq=CLUSTER_SEQ,
+                                       device=dev))
+        return engines[-1]
+
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    t1 = time.perf_counter()
+    got = cluster(factory)
+    cluster_s = time.perf_counter() - t1
+    k3, k4 = flash.flash_launches, decode.decode_launches
+    sessions = len(trace.sessions)
+    check(got.sessions_served == sessions, "families: cluster: a session was not served")
+    check(got.tokens_generated > 0, "families: cluster generated no token")
+    check((got.total_cost, got.static_cost, got.reduction, got.peak_concurrency, got.scaler)
+          == (want.total_cost, want.static_cost, want.reduction, want.peak_concurrency,
+              want.scaler), "families: the hymba engines changed the cluster's schedule")
+    check(k3 == cfg.n_layers * sessions, f"families: cluster K3 launches {k3}")
+    check(k4 == 2 * cfg.n_layers * (got.tokens_generated - sessions),
+          f"families: cluster K4 launches {k4}")
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    print(f"families: run_cluster A1 alpha=0.5 with {HYBRID_ARCH} engines (launcher defaults, "
+          f"{sessions} sessions, {len(engines)} engines of max_seq {CLUSTER_SEQ}): report == "
+          f"run without engines (cost={got.total_cost:.1f} static={got.static_cost:.0f} "
+          f"reduction={got.reduction:.1%}); tokens_generated={got.tokens_generated} in "
+          f"{cluster_s:.2f} s ({got.tokens_generated / cluster_s:.1f} tokens/s); K3 "
+          f"launches={k3} K4 launches={k4} [{smi}]", flush=True)
+    family_done(HYBRID_ARCH, resident, t0)
+
+
+def moe_part(smi, dev, rng, out):
+    """Phase 15 (b): the MoE archs at full width, depth cut."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import InferenceEngine
+
+    tol = LOGIT_TOL["float32"]
+    for arch, layers in MOE_ARCHS:
+        resident, t0 = family_start()
+        cfg = get_config(arch).replace(n_layers=layers)
+        params, shared = family_weights(cfg, dev)
+        prompt = rng.integers(0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)
+        what = (f"{arch} ({layers} of {get_config(arch).n_layers} layers) B={MOE_BATCH} "
+                f"prompt={MOE_PROMPT} new={MOE_NEW}")
+        routes = MoeRoutes()
+        with routes.installed():
+            picks, _, k3, k4 = routes_held(cfg, params, shared, prompt, MOE_NEW, dev, smi,
+                                           what, bf16_held=False, routes=routes)
+            flips = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes.runs))
+            tokens = sum(a.shape[0] * a.shape[1] for a in routes.runs[0])
+            print(f"families: {what} bf16: {flips} of {tokens} (layer, token) routings differ "
+                  "between the kernel and the plain route (top-k sets)", flush=True)
+            # prefill-then-decode against the whole forward, dropless as the
+            # reference's consistency test runs MoE (capacity drops depend on
+            # the group's length)
+            dropless = cfg.replace(capacity_factor=float(cfg.n_experts))
+            f32 = dropless.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+            routes.open()
+            _, k32 = InferenceEngine(f32, params, max_batch=MOE_BATCH,
+                                     max_seq=MOE_PROMPT + MOE_NEW, device=dev)._generate(
+                prompt, MOE_NEW, forced=picks, keep_logits=True)
+            routes.close()
+            dist, exempt, _ = consistency_held(dropless, params, prompt, picks, k32, tol, what,
+                                               routes=routes)
+            flips = int(routing_flips(routes.runs[-2], routes.runs[-1], layers).sum())
+        out["launches"]["K3"] += k3
+        out["launches"]["K4"] += k4
+        print(f"families: {what}: prefill-then-decode vs the forward over the whole sequence "
+              f"(float32, kernel route, dropless capacity) max_row_rel_err={dist:.3e} (tol "
+              f"{tol}) over {MOE_BATCH * MOE_NEW - exempt} of {MOE_BATCH * MOE_NEW} rows; "
+              f"{flips} tokens' expert sets differ between the two (near-ties), the "
+              f"{exempt} rows from each one's first on not held", flush=True)
+        del k32
+        family_bench(cfg, shared, prompt, MOE_NEW, dev, smi, arch)
+        if arch.startswith("llama4"):
+            family_kernels(cfg, shared, MOE_BATCH, MOE_PROMPT, MOE_PROMPT + MOE_NEW,
+                           (MOE_PROMPT + 1,) * MOE_BATCH, dev, smi, arch, out)
+        family_done(arch, resident, t0)
+        del params, shared
+
+
+def xlstm_part(smi, dev, rng, out):
+    """Phase 15 (c): xlstm-1.3b whole, no kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import logits_fn
+    from repro_torch.serving import InferenceEngine
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    tol = LOGIT_TOL["float32"]
+    resident, t0 = family_start()
+    cfg = get_config(XLSTM_ARCH)
+    params, shared = family_weights(cfg, dev)
+    prompt = rng.integers(0, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT)).astype(np.int32)
+    f32 = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    picks, k32 = InferenceEngine(f32, params, max_batch=XLSTM_BATCH,
+                                 max_seq=XLSTM_PROMPT + XLSTM_NEW,
+                                 device=dev)._generate(prompt, XLSTM_NEW, keep_logits=True)
+    dist, _, base = consistency_held(cfg, params, prompt, picks, k32, tol, XLSTM_ARCH,
+                                     baseline=True)
+    del k32
+    # the baseline by depth: the forward over the prompt against the forward
+    # over the whole sequence, the first layers only
+    tokens = torch.as_tensor(np.concatenate([prompt, picks[:, :-1]], axis=1), device=dev)
+    by_depth = []
+    for depth in XLSTM_DEPTHS:
+        cut = f32.replace(n_layers=depth)
+        cut_params = dict(params, blocks=params["blocks"][:depth])
+        with torch.inference_mode():
+            a = logits_fn(cut_params, cut, {"tokens": tokens[:, :XLSTM_PROMPT]})[:, -1]
+            b = logits_fn(cut_params, cut, {"tokens": tokens})[:, XLSTM_PROMPT - 1]
+        by_depth.append(f"{depth} layers {float(row_err(a, b).max()):.3e}")
+    res = InferenceEngine(cfg, shared, max_batch=XLSTM_BATCH, max_seq=XLSTM_PROMPT + XLSTM_NEW,
+                          device=dev).generate(prompt, XLSTM_NEW)
+    check(res.tokens.shape == (XLSTM_BATCH, XLSTM_NEW), "families: xlstm generate's tokens")
+    family_bench(cfg, shared, prompt, XLSTM_NEW, dev, smi, XLSTM_ARCH)
+    torch.cuda.synchronize()
+    check(flash.flash_launches == decode.decode_launches == 0,
+          f"families: {XLSTM_ARCH} launched K3 {flash.flash_launches} and K4 "
+          f"{decode.decode_launches} times")
+    print(f"families: {XLSTM_ARCH} B={XLSTM_BATCH} prompt={XLSTM_PROMPT} new={XLSTM_NEW}: "
+          f"K3 launches=0 K4 launches=0; prefill-then-decode vs the forward over the whole "
+          f"sequence (float32): decode steps max_row_rel_err={dist:.3e}, the prefill (the "
+          f"forward over {XLSTM_PROMPT} tokens against the one over "
+          f"{XLSTM_PROMPT + XLSTM_NEW - 1}) {base:.3e} (held: steps <= max({tol}, "
+          f"{CONSISTENCY_SLACK} x the prefill's)); the prefill's by depth: "
+          + ", ".join(by_depth) + f" [{smi}]", flush=True)
+    family_done(XLSTM_ARCH, resident, t0)
+
+
+def families_phase(smi):
+    """Phase 15: the hybrid, MoE and xLSTM families on the card — hymba-1.5b
+    whole on three token streams through K3's window and K4 over its ring,
+    and in ``run_cluster``; the two MoE archs at full width with their
+    depth cut; xlstm-1.3b whole without a kernel.  Returns K3's and K4's
+    launches on the main path, their largest errors and their times at
+    hymba's and llama4-scout's serving shapes."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t_phase = time.perf_counter()
+    out = {"launches": {"K3": 0, "K4": 0}, "errs": {"K3": 0.0, "K4": 0.0}, "times": {}}
+    rng = np.random.default_rng(SEED)
+    for part in (hybrid_part, moe_part, xlstm_part):
+        part(smi, torch.device("cuda"), rng, out)
+    torch.cuda.empty_cache()
+    print(f"families: phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def engine_cache(engine, batch):
@@ -2357,12 +3019,17 @@ def main() -> int:
     # 14. training (after phase 13, before the attention phases)
     train_k3 = train_phase(smi, serving["cluster"], build_s)
 
+    # 15. the hybrid, MoE and xLSTM families (after phase 14, before the attention phases)
+    families = families_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
         entry["launches"] += train_k3 if kernel == "K3" else 0
-        entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel])
+        entry["launches"] += families["launches"][kernel]
+        entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
+                                   families["errs"][kernel])
 
     ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]

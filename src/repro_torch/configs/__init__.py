@@ -1,5 +1,6 @@
 """Architecture configs of the port: one module per architecture ported so
-far (the four dense ones; the rest wait, ROADMAP.md Queue 1 item 11).
+far (the dense, moe, hybrid and ssm ones; paligemma-3b and
+seamless-m4t-large-v2 wait, ROADMAP.md Queue 1 item D).
 
 ``get_config("<arch-id>")`` returns the exact published configuration;
 ``get_config("<arch-id>", reduced=True)`` returns a small same-family config

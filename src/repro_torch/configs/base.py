@@ -145,15 +145,18 @@ def runnable_cells() -> list[tuple[str, str]]:
 
 
 def _ensure_loaded() -> None:
-    """Register the configs ported so far: the four dense ones.  The other
-    six of the reference (hymba-1.5b, llama4-scout, paligemma, qwen3-moe,
-    seamless-m4t, xlstm) wait for their families (ROADMAP.md, Queue 1
-    item 11)."""
+    """Register the configs ported so far: eight of the reference's ten.
+    paligemma-3b (vlm) and seamless-m4t-large-v2 (encoder-decoder) wait for
+    their families (ROADMAP.md, Queue 1 item D)."""
     if _REGISTRY:
         return
     from . import (  # noqa: F401  (import side effect: registration)
         command_r_plus_104b,
         deepseek_67b,
+        hymba_1_5b,
         llama3_2_1b,
+        llama4_scout_17b_a16e,
+        qwen3_moe_30b_a3b,
+        xlstm_1_3b,
         yi_9b,
     )

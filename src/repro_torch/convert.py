@@ -68,8 +68,10 @@ def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
     """The port's LM parameter dict from the reference's tree as numpy
     (``jax.tree.map(np.asarray, params)``): nested dicts whose ``blocks``
     hold every layer stacked on axis 0 (the reference's ``jax.vmap``'d
-    init).  The port keeps a list of per-layer dicts; each tensor keeps its
-    array's dtype and goes to ``device`` (``"cuda"`` unless given
+    init), whatever the family's layer holds (``attn``, ``mlp``, ``moe``
+    with its experts stacked on their own axis, ``ssm``, xLSTM's ``mlstm``
+    and ``slstm``).  The port keeps a list of per-layer dicts; each tensor
+    keeps its array's dtype and goes to ``device`` (``"cuda"`` unless given
     ``"cpu"``)."""
     require_dense(cfg)
     return _layer_tree(params, cfg, _resolve_device(device, "lm_params_from_numpy"))

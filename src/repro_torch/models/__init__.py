@@ -1,8 +1,10 @@
-"""Models of the port: the dense decoder-only LMs behind the serving
-engine and the trainer (the other families of ``repro.models`` are not
-ported yet)."""
+"""Models of the port: the decoder-only LMs of the dense, moe, hybrid and
+ssm families behind the serving engine and the trainer (vlm, audio and the
+encoder-decoder of ``repro.models`` are not ported yet)."""
 from .model_zoo import (
+    active_param_count,
     decode_fn,
+    embedding_param_count,
     init_cache,
     init_params,
     logits_fn,
@@ -12,7 +14,9 @@ from .model_zoo import (
 )
 
 __all__ = [
+    "active_param_count",
     "decode_fn",
+    "embedding_param_count",
     "init_cache",
     "init_params",
     "logits_fn",

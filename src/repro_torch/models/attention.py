@@ -1,28 +1,56 @@
-"""GQA attention of the dense family: training, prefill and cached decode.
+"""GQA attention: training (full or sliding-window causal), prefill and
+cached decode, with the ring cache of the windowed layers.
 
-The port of the dense subset of ``repro.models.attention``.  The reference
-computes attention with einsums and names the Pallas kernels as having the
-same semantics; here the card runs those kernels:
+The port of ``repro.models.attention`` (all but ``cross_attention``, which
+belongs to the encoder-decoder).  The reference computes attention with
+einsums and names the Pallas kernels as having the same semantics; here
+the card runs those kernels:
 
 * prefill (and the full-sequence ``attention_train``) calls K3,
-  :func:`repro_torch.kernels.flash_attention`, causal, with K and V left
-  unexpanded (K3 reads each query-head group's KV head itself);
-* decode writes the new K/V at slot ``cur_len`` and calls K4,
-  :func:`repro_torch.kernels.decode_attention`, over the layer's cache with
-  ``lengths = cur_len + 1`` for every row.
+  :func:`repro_torch.kernels.flash_attention`, causal, with the layer's
+  window (hymba: 2048; 0 elsewhere) and K and V left unexpanded (K3 reads
+  each query-head group's KV head itself);
+* decode writes the new K/V at slot ``cur_len % cache_len`` and calls K4,
+  :func:`repro_torch.kernels.decode_attention`, over the layer's cache.
 
 On the CPU, and on the card only under ``kernel=False`` (the oracle of the
 kernel route), the reference's path runs: K/V expanded to every head,
-``_causal_mask`` or the cache's positions as the mask, scores in float32
-masked to ``finfo(float32).min``, probabilities cast to the compute dtype
-before the PV product.  There is no fallback between the two: a head dim
-the kernels have no instance for raises their ``ValueError``.
+``_causal_mask`` (or the banded :func:`_local_attention` where
+``cfg.local_attention`` asks for it) or the cache's positions as the mask,
+scores in float32 masked to ``finfo(float32).min``, probabilities cast to
+the compute dtype before the PV product.  There is no fallback between the
+two: a head dim the kernels have no instance for raises their
+``ValueError``.
+
+**The ring cache.**  A windowed layer's cache has ``min(window, s_max)``
+slots.  A prefill longer than the cache stores its last ``cache_len``
+tokens at slots 0..cache_len-1; a decode step writes at slot ``cur_len %
+cache_len``; ``pos`` holds each slot's absolute position, and the mask is
+``0 <= pos <= cur_len`` and ``pos > cur_len - window``, as the reference
+keeps them.  K4 reads the first ``lengths`` slots of a cache, and softmax
+does not depend on slot order, so on the kernel route a windowed layer's
+decode copies the step's validity mask to the host (one 1-byte-per-slot
+read per layer and step) and
+
+* passes the cache as it is, with ``lengths`` = the count of valid slots,
+  when the valid slots are the first ones: a prompt that fits the cache,
+  or one whose length is a multiple of it, keeps ``slot == pos %
+  cache_len`` and so a prefix;
+* otherwise gathers the valid slots to the front of a scratch copy (a
+  stable sort of the mask, then ``index_select``) and passes that, with
+  the same ``lengths``.  This is the case of a prompt longer than the
+  window and not a multiple of it (ROADMAP.md § 3.9): the reference's
+  prefill then stores position p at a slot other than ``p % cache_len``,
+  the first decode steps overwrite positions still inside the window, and
+  the reference attends to what is left; the port matches it on both
+  routes.
+
+A layer without a window keeps a cache as long as its sequence: a prompt
+longer than the cache, or a position past it, raises ``ValueError``.
 
 The KV cache is updated in place.  The reference's sharding constraints
 (``constrain_attention*`` of ``distributed/ctx.py``) are no-ops outside a
-mesh, and the port has no mesh, so it drops them.  Sliding windows, ring
-caches, the banded ``_local_attention`` and ``cross_attention`` belong to
-the families not ported yet (ROADMAP.md, Queue 1 item 11).
+mesh, and the port has no mesh, so it drops them.
 """
 from __future__ import annotations
 
@@ -36,8 +64,9 @@ from .layers import apply_rope, init_dense
 
 
 class KVCache(NamedTuple):
-    """A dense layer's KV cache: ``pos`` holds the absolute position stored
-    in each slot (-1 = empty)."""
+    """A layer's KV cache; for sliding-window layers a ring of the window's
+    slots.  ``pos`` holds the absolute position stored in each slot (-1 =
+    empty), so masking never reasons about the ring's wrap."""
 
     k: torch.Tensor       # (B, S_cache, KVH, hd)
     v: torch.Tensor       # (B, S_cache, KVH, hd)
@@ -74,11 +103,15 @@ def _expand_kv(x, n_heads: int):
     return torch.repeat_interleave(x, n_heads // kvh, dim=2)
 
 
-def _causal_mask(q_len: int, kv_len: int, q_offset: int = 0, device=None) -> torch.Tensor:
-    """Boolean (q_len, kv_len): True = attend (full causal)."""
+def _causal_mask(q_len: int, kv_len: int, window: int = 0, q_offset: int = 0,
+                 device=None) -> torch.Tensor:
+    """Boolean (q_len, kv_len): True = attend.  window=0 -> full causal."""
     q_pos = q_offset + torch.arange(q_len, dtype=torch.int32, device=device)[:, None]
     k_pos = torch.arange(kv_len, dtype=torch.int32, device=device)[None, :]
-    return k_pos <= q_pos
+    mask = k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
 
 
 def _project(x, w, cd):
@@ -101,26 +134,66 @@ def _kernel_route(x: torch.Tensor, kernel: bool) -> bool:
     return kernel and x.device.type == "cuda"
 
 
-def _causal_attention(q, k, v, cfg: ModelConfig, kernel: bool):
-    """Causal self-attention of q (B, S, H, hd) over k, v (B, S, KVH, hd):
-    K3 on the card, the reference's masked einsums elsewhere."""
+def _local_attention(q, k, v, window: int, cd):
+    """Banded sliding-window attention in chunks of W: chunk i attends to
+    chunks {i-1, i}, O(S * 2W) instead of O(S^2), the same function as the
+    masked full-score path.  q/k/v: (B, S, H, hd) with KV pre-expanded;
+    S % W == 0."""
+    B, S, H, hd = q.shape
+    W = window
+    nc = S // W
+    qc = q.reshape(B, nc, W, H, hd)
+    kc = k.reshape(B, nc, W, H, hd)
+    vc = v.reshape(B, nc, W, H, hd)
+    k_prev = torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
+    k2 = torch.cat([k_prev, kc], dim=2)                  # (B, nc, 2W, H, hd)
+    v2 = torch.cat([v_prev, vc], dim=2)
+    scores = torch.einsum("bcqhd,bckhd->bchqk", qc, k2).float()
+    scores = scores * (hd ** -0.5)
+    qi = torch.arange(W, device=q.device)[:, None]       # local q index
+    ki = torch.arange(2 * W, device=q.device)[None, :]   # index into [prev|cur]
+    rel = qi + W - ki                                    # k_pos = q_pos - rel
+    band = (rel >= 0) & (rel < W)
+    ci = torch.arange(nc, device=q.device)[:, None, None]
+    valid_prev = (ci > 0) | (ki[None] >= W)              # chunk 0 has no prev
+    mask = band[None] & valid_prev                       # (nc, W, 2W)
+    scores = torch.where(mask[None, :, None], scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(cd)
+    out = torch.einsum("bchqk,bckhd->bcqhd", probs, v2)
+    return out.reshape(B, S, H, hd)
+
+
+def _banded(cfg: ModelConfig, s: int, window: int) -> bool:
+    """Whether the reference takes its banded path (``cfg.local_attention``)."""
+    return cfg.local_attention and window > 0 and s % window == 0 and s >= 2 * window
+
+
+def _causal_attention(q, k, v, cfg: ModelConfig, window: int, kernel: bool):
+    """Causal self-attention of q (B, S, H, hd) over k, v (B, S, KVH, hd)
+    within ``window`` (0 = none): K3 on the card, the reference's masked
+    einsums (or its banded form) elsewhere."""
     s = q.shape[1]
     if _kernel_route(q, kernel):
         # blocks of S: the reference's block sizes only constrain S, and K3
         # picks its own tiles
-        return ops.flash_attention(q, k, v, causal=True, block_q=s, block_k=s)
-    mask = _causal_mask(s, s, device=q.device)[None, None]
-    return _sdpa(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads), mask,
-                 cfg.compute_dtype)
+        return ops.flash_attention(q, k, v, causal=True, window=window, block_q=s, block_k=s)
+    ke, ve = _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+    if _banded(cfg, s, window):
+        return _local_attention(q, ke, ve, window, cfg.compute_dtype)
+    mask = _causal_mask(s, s, window, device=q.device)[None, None]
+    return _sdpa(q, ke, ve, mask, cfg.compute_dtype)
 
 
-def attention_train(x, p, cfg: ModelConfig, positions, kernel: bool = True):
-    """Causal self-attention over a full sequence (no cache)."""
+def attention_train(x, p, cfg: ModelConfig, positions, window: int = 0,
+                    kernel: bool = True):
+    """Causal self-attention over a full sequence (no cache), within
+    ``window`` (0 = none)."""
     cd = cfg.compute_dtype
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return _out(_causal_attention(q, k, v, cfg, kernel), p["wo"], cd)
+    return _out(_causal_attention(q, k, v, cfg, window, kernel), p["wo"], cd)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +201,7 @@ def attention_train(x, p, cfg: ModelConfig, positions, kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache:
+    """``max_len`` slots; a sliding-window layer passes min(W, seq)."""
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=cfg.kv_cache_dtype, device=device),
@@ -136,57 +210,91 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache
     )
 
 
-def prefill_attention(x, p, cfg: ModelConfig, positions, cache: KVCache,
+def prefill_attention(x, p, cfg: ModelConfig, positions, cache: KVCache, window: int = 0,
                       kernel: bool = True):
-    """Full-sequence attention that also fills the KV cache, in place: the
-    S new K/V rows at slots 0..S-1, zeros and position -1 past them, as the
-    reference's padded cache holds.  The cache must have at least S slots
-    (a shorter one is the ring buffer of the windowed families)."""
+    """Full-sequence attention that also fills the KV cache, in place.  A
+    cache of at least S slots gets the S new K/V rows at slots 0..S-1, zeros
+    and position -1 past them, as the reference's padded cache holds; a
+    windowed layer's shorter ring gets the last ``cache_len`` tokens at
+    slots 0..cache_len-1 with their positions."""
     cd = cfg.compute_dtype
     s = x.shape[1]
     cache_len = cache.k.shape[1]
-    if cache_len < s:
+    if cache_len < s and window <= 0:
         raise ValueError(f"a cache of {cache_len} slots cannot hold a prompt of {s} tokens; "
-                         "ring caches belong to the windowed families, not ported yet")
+                         "only a sliding-window layer keeps a ring")
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.k[:, s:] = 0
-    cache.v[:, :s] = v.to(cache.v.dtype)
-    cache.v[:, s:] = 0
-    slots = torch.arange(cache_len, dtype=torch.int32, device=x.device)
-    cache.pos.copy_(torch.where(slots < s, slots, -1))
-    return _out(_causal_attention(q, k, v, cfg, kernel), p["wo"], cd), cache
+    if cache_len < s:
+        cache.k.copy_(k[:, s - cache_len:])
+        cache.v.copy_(v[:, s - cache_len:])
+        cache.pos.copy_(torch.arange(s - cache_len, s, dtype=torch.int32, device=x.device))
+    else:
+        cache.k[:, :s] = k.to(cache.k.dtype)
+        cache.k[:, s:] = 0
+        cache.v[:, :s] = v.to(cache.v.dtype)
+        cache.v[:, s:] = 0
+        slots = torch.arange(cache_len, dtype=torch.int32, device=x.device)
+        cache.pos.copy_(torch.where(slots < s, slots, -1))
+    return _out(_causal_attention(q, k, v, cfg, window, kernel), p["wo"], cd), cache
 
 
-def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int,
+def _decode_mask(pos, cur_len: int, window: int):
+    """The slots a decode step at ``cur_len`` attends to, from their
+    positions: (S_cache,) bool."""
+    mask = (pos >= 0) & (pos <= cur_len)
+    if window > 0:
+        mask &= pos > cur_len - window
+    return mask
+
+
+def _ring_slots(kc, vc, mask):
+    """K4's inputs for a windowed layer's cache: (k, v, the count of valid
+    slots).  The cache itself where its valid slots are its first ones,
+    else a copy with the valid slots gathered to the front in slot order
+    (a stable sort of the mask); see the module's docstring."""
+    valid = mask.cpu()
+    n = int(valid.sum())
+    if not bool(valid[:n].all()):
+        order = torch.sort((~mask).to(torch.uint8), stable=True).indices
+        kc, vc = kc.index_select(1, order), vc.index_select(1, order)
+    return kc, vc, n
+
+
+def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int, window: int = 0,
                      kernel: bool = True):
     """One-token attention against the cache.  x: (B, 1, D); ``cur_len``:
-    the absolute position of the new token, written at slot ``cur_len`` in
-    place.  Slots 0..cur_len-1 must hold positions 0..cur_len-1 (a prefill
-    and the decode steps after it), so that the reference's mask ``0 <= pos
-    <= cur_len`` is the first ``cur_len + 1`` slots, K4's ``lengths``."""
+    the absolute position of the new token, written at slot ``cur_len %
+    cache_len`` in place, and the reference's mask over the cache's
+    positions (within ``window`` when it is positive).  Without a window
+    the position must lie inside the cache, whose first ``cur_len`` slots
+    hold positions 0..cur_len-1 (a prefill and the decode steps after it),
+    so that the mask is the first ``cur_len + 1`` slots, K4's ``lengths``."""
     cd = cfg.compute_dtype
     b = x.shape[0]
     cur_len = int(cur_len)
     cache_len = cache.k.shape[1]
-    if not 0 <= cur_len < cache_len:
+    if window <= 0 and not 0 <= cur_len < cache_len:
         raise ValueError(f"position {cur_len} is past the cache's {cache_len} slots; "
-                         "ring caches belong to the windowed families, not ported yet")
+                         "only a sliding-window layer keeps a ring")
+    slot = cur_len % cache_len
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    cache.k[:, cur_len] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, cur_len] = v[:, 0].to(cache.v.dtype)
-    cache.pos[cur_len] = cur_len
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.pos[slot] = cur_len
     kc, vc = cache.k.to(cd), cache.v.to(cd)
     if _kernel_route(x, kernel):
-        lengths = torch.full((b,), cur_len + 1, dtype=torch.int32, device=x.device)
+        n = cur_len + 1
+        if window > 0:
+            kc, vc, n = _ring_slots(kc, vc, _decode_mask(cache.pos, cur_len, window))
+        lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
         out = ops.decode_attention(q[:, 0], kc, vc, lengths, block_k=cache_len)[:, None]
     else:
-        mask = (cache.pos >= 0) & (cache.pos <= cur_len)
+        mask = _decode_mask(cache.pos, cur_len, window)
         out = _sdpa(q, _expand_kv(kc, cfg.n_heads), _expand_kv(vc, cfg.n_heads),
                     mask[None, None, None, :], cd)
     return _out(out, p["wo"], cd), cache

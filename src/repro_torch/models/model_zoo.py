@@ -1,5 +1,5 @@
 """Model facade: the reference's uniform API, over the families ported so
-far (the dense one).
+far (dense, moe, hybrid and ssm).
 
   init_params(cfg, generator, device)   -> parameter dict
   loss_fn(params, cfg, batch)           -> (loss, metrics)
@@ -8,6 +8,8 @@ far (the dense one).
   decode_fn(params, cfg, token, cur_len, cache) -> (logits, cache)
   init_cache(cfg, batch, s_max, device)  -> cache
   param_count(cfg)                      -> parameters, without allocating
+  embedding_param_count(cfg)            -> of which in the token tables
+  active_param_count(cfg)               -> per token (MoE: top_k of n_experts)
 
 The port of ``repro.models.model_zoo``.  The functions that allocate take a
 ``device`` that defaults to ``"cuda"`` and raises where CUDA is absent;
@@ -17,8 +19,8 @@ selects the reference's einsum path there, as the kernels' oracle, and is
 the path to differentiate: the kernels are forward-only, so ``loss_fn``
 with grad enabled on parameters that require grad raises on the card
 unless given ``kernel=False`` (the trainer's step).  The encoder-decoder
-branches raise ``NotImplementedError``, as the other non-dense families
-do; ``abstract_*`` and ``input_specs`` wait for the dry-run launcher
+branches raise ``NotImplementedError``, as the vlm and audio families do;
+``abstract_*`` and ``input_specs`` wait for the dry-run launcher
 (ROADMAP.md, Queue 1 items D and F).
 """
 from __future__ import annotations
@@ -29,6 +31,8 @@ from ..configs.base import ModelConfig
 from ..core.provision import _resolve_device
 from . import transformer
 from .blocks import require_dense
+from .ssm import ssm_dims
+from .xlstm import xlstm_dims
 
 
 def init_params(cfg: ModelConfig, generator, device="cuda") -> Any:
@@ -59,10 +63,46 @@ def decode_fn(params, cfg: ModelConfig, token, cur_len, cache, kernel: bool = Tr
     return transformer.lm_decode_step(params, cfg, token, cur_len, cache, kernel=kernel)
 
 
+def _layer_param_count(cfg: ModelConfig) -> int:
+    """Parameters of one layer of ``blocks.init_layer``, from the shapes."""
+    d, h, kvh, hd, fam = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.family
+    n = d                                                   # ln1
+    if fam in ("dense", "moe", "hybrid"):
+        n += d * (h + 2 * kvh) * hd + h * hd * d + d        # attn, ln2
+    if fam in ("dense", "hybrid"):
+        n += 3 * d * cfg.d_ff
+    if fam == "moe":
+        n += d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
+    if fam == "hybrid":
+        di, nh = ssm_dims(cfg)
+        n += (d * 2 * di + cfg.ssm_conv_width * di + di * 2 * cfg.ssm_state + di * nh
+              + 3 * nh + di * d)
+    if fam == "ssm":
+        di, nh, xhd = xlstm_dims(cfg)
+        n += d * 2 * di + 2 * di * nh * xhd + di * 2 * nh + 2 * nh + di * d      # mLSTM
+        n += d * nh * 4 * xhd + nh * xhd * 4 * xhd + nh * 4 * xhd + di * d       # sLSTM
+    return n
+
+
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``init_params(cfg, ...)``, from the shapes alone."""
     require_dense(cfg)
-    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layer = 2 * d + d * (h + 2 * kvh) * hd + h * hd * d + 3 * d * cfg.d_ff
-    tables = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * d
-    return tables + cfg.n_layers * layer + d
+    return embedding_param_count(cfg) + cfg.n_layers * _layer_param_count(cfg) + cfg.d_model
+
+
+def embedding_param_count(cfg: ModelConfig) -> int:
+    """Parameters of the token tables (the embedding, and the unembedding
+    unless tied)."""
+    require_dense(cfg)
+    return (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Per-token active parameters: for MoE, ``top_k`` of ``n_experts``
+    experts' weights (the router counts in full), by the reference's
+    float arithmetic."""
+    total = param_count(cfg)
+    if not cfg.n_experts:
+        return total
+    expert_params = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+    return int(total - expert_params + expert_params * cfg.top_k / cfg.n_experts)

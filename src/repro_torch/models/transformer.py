@@ -1,4 +1,5 @@
-"""Decoder-only LM of the dense family: init, train, forward and serving.
+"""Decoder-only LM of the dense, moe, hybrid and ssm families: init, train,
+forward and serving.
 
 The port of ``repro.models.transformer``.  The reference scans a stacked
 layer tree; here ``params["blocks"]`` is a list of per-layer dicts and the
@@ -11,6 +12,9 @@ result.  :func:`lm_loss` streams the unembedding and the cross-entropy over
 at once.  The decode cache keeps the reference's layout, ``{"kv":
 KVCache}`` with the layer axis leading, and each layer updates its slice
 in place.
+The hybrid family's cache is ``{"kv": KVCache, "ssm": SSMState}`` and the
+ssm (xLSTM) family's ``{"mlstm": MLSTMState, "slstm": SLSTMState}``, each
+leaf stacked on a leading layer axis in the same way.
 
 ``kernel`` selects the attention route as in :mod:`repro_torch.models.
 attention`: on the card K3 (prefill, the full forward, the loss) and K4
@@ -23,11 +27,11 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import KVCache
 from .blocks import (
     init_layer,
     init_layer_cache,
     layer_decode,
+    layer_flags,
     layer_prefill,
     layer_train,
     require_dense,
@@ -58,7 +62,7 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Token embeddings.  The modality stubs (``frontend``) belong to the
-    vlm and audio families, which are not ported."""
+    vlm and audio families, which are not ported yet."""
     require_dense(cfg)
     return embed_tokens(batch["tokens"], params["embed"], cfg.compute_dtype)
 
@@ -84,8 +88,9 @@ def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     """Run the layer stack; returns (final-normed hidden states, total aux
     loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["blocks"]:
-        x, a = _remat(lambda h, p=p: layer_train(p, cfg, h, positions, kernel=kernel), cfg)(x)
+    for p, flag in zip(params["blocks"], layer_flags(cfg)):
+        x, a = _remat(lambda h, p=p, flag=flag: layer_train(p, cfg, h, positions, flag,
+                                                            kernel=kernel), cfg)(x)
         aux = aux + a
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
@@ -148,24 +153,25 @@ def lm_logits(params, cfg: ModelConfig, batch: dict, kernel: bool = True) -> tor
 # ---------------------------------------------------------------------------
 
 def init_lm_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
-    """``{"kv": KVCache}`` with k, v (L, B, s_max, KVH, hd) and pos (L,
-    s_max), as the reference stacks its layer caches."""
-    caches = [init_layer_cache(cfg, batch, s_max, device)["kv"] for _ in range(cfg.n_layers)]
-    return {"kv": KVCache(*(torch.stack(xs) for xs in zip(*caches)))}
+    """Every layer's cache stacked on a leading layer axis, as the reference
+    stacks them: for the dense and moe families ``{"kv": KVCache}`` with k,
+    v (L, B, s_max, KVH, hd) and pos (L, s_max)."""
+    caches = [init_layer_cache(cfg, batch, s_max, device) for _ in range(cfg.n_layers)]
+    return {name: type(state)(*(torch.stack(xs) for xs in zip(*(c[name] for c in caches))))
+            for name, state in caches[0].items()}
 
 
 def _layer_cache(cache: dict, i: int) -> dict:
     """Layer ``i``'s cache as views into the stacked one."""
-    kv = cache["kv"]
-    return {"kv": KVCache(kv.k[i], kv.v[i], kv.pos[i])}
+    return {name: type(state)(*(x[i] for x in state)) for name, state in cache.items()}
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: dict, cache: dict, kernel: bool = True):
     """Returns (last-position logits, the cache filled in place)."""
     x = _embed_inputs(params, cfg, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for i, p in enumerate(params["blocks"]):
-        x, _ = layer_prefill(p, cfg, x, positions, _layer_cache(cache, i), kernel=kernel)
+    for i, (p, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
+        x, _ = layer_prefill(p, cfg, x, positions, _layer_cache(cache, i), flag, kernel=kernel)
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = unembed(h[:, -1:, :], _unembed_table(params, cfg), cfg.logit_softcap)
     return logits[:, 0, :], cache
@@ -177,8 +183,8 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor, cur_len, cache
     the cache updated in place)."""
     x = embed_tokens(token[:, None], params["embed"], cfg.compute_dtype)
     cur_len = int(cur_len)
-    for i, p in enumerate(params["blocks"]):
-        x, _ = layer_decode(p, cfg, x, cur_len, _layer_cache(cache, i), kernel=kernel)
+    for i, (p, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
+        x, _ = layer_decode(p, cfg, x, cur_len, _layer_cache(cache, i), flag, kernel=kernel)
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = unembed(h[:, -1:, :], _unembed_table(params, cfg), cfg.logit_softcap)
     return logits[:, 0, :], cache

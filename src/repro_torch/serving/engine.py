@@ -5,8 +5,9 @@ are admitted in rolling batches and decoded greedily in lockstep; the
 cluster layer (and the paper's autoscaler) handles everything across
 replicas.  It runs eagerly, under ``torch.inference_mode()``, with no jit
 and no CUDA graph: on the card each prefill is one launch of kernel K3 per
-layer and each decode step two of K4 (its split pass and merge) per layer,
-among the matrix products and elementwise launches around them.
+attention layer and each decode step two of K4 (its split pass and merge)
+per attention layer, among the matrix products and elementwise launches
+around them; xLSTM has no attention layer and launches neither.
 """
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ from ..models import decode_fn, init_cache, prefill_fn
 from ..models.blocks import require_dense
 
 #: the layer weights that the reference casts to the compute dtype on every
-#: call (``p[...].astype(cd)``); the engine casts them once
-_MATRICES = ("wq", "wk", "wv", "wo", "wi", "wg")
+#: call (``p[...].astype(cd)``); the engine casts them once: attention and
+#: MLP (and MoE's experts, whose names they share), the SSM's and mLSTM's.
+#: What the reference reads in float32 stays: MoE's ``router``, sLSTM's
+#: ``w_in``, ``r_in`` and ``bias``, the SSM's ``a_log`` and ``d_skip``
+_MATRICES = ("wq", "wk", "wv", "wo", "wi", "wg", "in_proj", "out_proj", "conv", "wbc", "wdt",
+             "dt_bias", "wif", "if_bias")
 
 
 @dataclasses.dataclass
@@ -32,8 +37,8 @@ class GenerationResult:
 
 
 def serving_params(params: dict, cfg: ModelConfig, device) -> dict:
-    """``params`` on ``device`` with the attention and MLP matrices in the
-    compute dtype: the copies the reference makes on every call, made once.
+    """``params`` on ``device`` with the :data:`_MATRICES` in the compute
+    dtype: the copies the reference makes on every call, made once.
     The cast is deterministic, so every product sees the same bits.  The
     embedding table (gathered, then cast, per token; unembedded in float32)
     and the norms' scales (read in float32) keep their dtype.  A tensor

@@ -36,7 +36,10 @@ def test_port_modules_found():
               "repro_torch.optim.adamw", "repro_torch.distributed.compression",
               "repro_torch.distributed.fault_tolerance", "repro_torch.launch.mesh",
               "repro_torch.checkpoint.checkpointer", "repro_torch.train.trainer",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.models.ssm",
+              "repro_torch.models.moe", "repro_torch.models.xlstm",
+              "repro_torch.configs.hymba_1_5b", "repro_torch.configs.qwen3_moe_30b_a3b",
+              "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.xlstm_1_3b"):
         assert m in MODULES
 
 

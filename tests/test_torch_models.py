@@ -4,14 +4,16 @@ Every dense reduced config runs with the reference's own random weights,
 carried across by ``lm_params_from_numpy``, on token ids made with numpy:
 ``logits_fn``, ``prefill_fn`` (logits and the cache's k, v and pos) and
 four ``decode_fn`` steps fed the same tokens, against the reference's jit
-on the CPU.  Each output row (the last axis) must be within ``tol *
-max|ref row|``: tol 1e-4 with float32 compute and cache (the two packages
-sum in other orders), 2e-2 in bf16 (the reference's XLA keeps excess
-precision across fused ops, so its bf16 roundings fall elsewhere).  At
+on the CPU (the other families: ``tests/test_torch_families*.py``).  Each
+output row (the last axis) must be within ``tol * max|ref row|``: tol 1e-4
+with float32 compute and cache (the two packages sum in other orders),
+2e-2 in bf16 (the reference's XLA keeps excess precision across fused
+ops, so its bf16 roundings fall elsewhere).  At
 float32 the greedy tokens must be equal.  Also the port's own
 prefill/decode consistency (as ``tests/test_arch_smoke.py`` checks the
 reference's), the kernel route's wiring on the CPU, and the refusals: the
-families not ported, and entry points without CUDA.
+families not ported (vlm, audio, the encoder-decoder), and entry points
+without CUDA.
 """
 import numpy as np
 import pytest
@@ -36,6 +38,8 @@ from repro_torch.models.layers import activation  # noqa: E402
 from repro_torch.serving import InferenceEngine  # noqa: E402
 
 ARCHS = ("llama3.2-1b", "yi-9b", "deepseek-67b", "command-r-plus-104b")
+#: the hybrid, moe and ssm archs (their parity: ``tests/test_torch_families*.py``)
+FAMILY_ARCHS = ("hymba-1.5b", "llama4-scout-17b-a16e", "qwen3-moe-30b-a3b", "xlstm-1.3b")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 B, S, SLOTS, STEPS = 2, 12, 20, 4
 
@@ -109,12 +113,16 @@ def pair(request):
 
 
 def test_list_archs_is_the_dense_four():
-    assert list_archs() == sorted(ARCHS)
+    """The dense four, and since the hybrid, moe and ssm families were
+    ported, their four archs: every reference arch but vlm's and the
+    encoder-decoder's."""
+    assert list_archs() == sorted(ARCHS + FAMILY_ARCHS)
     assert set(ARCHS) <= set(ref_archs())
+    assert set(ref_archs()) - set(list_archs()) == {"paligemma-3b", "seamless-m4t-large-v2"}
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_config_matches_reference(arch, reduced):
     got, want = get_config(arch, reduced=reduced), ref_config(arch, reduced=reduced)
     dtypes = {"param_dtype": torch.float32, "compute_dtype": torch.bfloat16,
@@ -127,9 +135,14 @@ def test_config_matches_reference(arch, reduced):
             assert getattr(got, field) == getattr(want, field), field
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_param_count_matches_reference(arch):
+    """At full size from the shapes alone (no allocation), and at the
+    reduced size against the parameters ``init_params`` draws."""
     assert pm.param_count(get_config(arch)) == rm.param_count(ref_config(arch))
+    assert pm.embedding_param_count(get_config(arch)) == \
+        rm.embedding_param_count(ref_config(arch))
+    assert pm.active_param_count(get_config(arch)) == rm.active_param_count(ref_config(arch))
     cfg = get_config(arch, reduced=True)
     params = pm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     leaves = [params["embed"], params["final_ln"]] + ([params["unembed"]]
@@ -264,10 +277,9 @@ def test_activation_matches_reference(act):
 
 
 @pytest.mark.parametrize("family,extra", [
-    ("moe", {"n_experts": 4, "top_k": 2}), ("hybrid", {"window": 8, "ssm_state": 4}),
-    ("ssm", {"slstm_every": 2}), ("vlm", {"frontend": "vision_stub", "n_frontend_tokens": 4}),
+    ("vlm", {"frontend": "vision_stub", "n_frontend_tokens": 4}),
     ("audio", {"frontend": "audio_stub"}), ("dense", {"n_enc_layers": 2, "n_dec_layers": 2}),
-], ids=["moe", "hybrid", "ssm", "vlm", "audio", "encdec"])
+], ids=["vlm", "audio", "encdec"])
 def test_families_not_ported_raise(family, extra):
     cfg = ModelConfig(name="toy", family=family, n_layers=2, d_model=32, n_heads=2,
                       n_kv_heads=1, d_ff=64, vocab_size=64, **extra)
@@ -277,7 +289,7 @@ def test_families_not_ported_raise(family, extra):
                  lambda: pm.param_count(cfg),
                  lambda: pm.logits_fn({}, cfg, {"tokens": torch.zeros((1, 2), dtype=torch.int64)}),
                  lambda: InferenceEngine(cfg, {}, device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item D"):
             call()
 
 
