@@ -9,9 +9,10 @@ The main paths are ``provision(ProvisionSpec(...))``,
 ``repro_torch.eval.evaluate(EvalGrid(...))``, the serving stepper
 ``FleetProvisioner(...).advance(chunk)``, the serving cluster with real
 tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
-full width), training (``Trainer``, the same model at full width) and the
+full width), training (``Trainer``, the same model at full width), the
 hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
-llama4-scout-17b-a16e, xlstm-1.3b) of ``repro_torch``; the first
+llama4-scout-17b-a16e, xlstm-1.3b) and the vlm and encoder-decoder ones
+(paligemma-3b, seamless-m4t-large-v2) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -212,6 +213,30 @@ Phases, one line or more each:
    ``logits_fn`` within 1e-4 in float32, ``generate`` and the bench.  Each
    model's peak device memory and seconds are printed, and each is freed
    before the next.
+16. vlm and encoder-decoder (run after phase 15, before 9 and 10) — random
+   weights from ``SEED``, bf16 serving, float32 checks, frontend
+   embeddings random wherever a check compares (the stub's zeros would
+   hide a wrong position or cross-attention): (c) K3 at S_q != S_kv as a
+   bare kernel (191 over 192 and 64 over 1000 keys at seamless's 16 heads
+   of 64, float32 and bf16), each held to its plain version as in phase 9
+   with two planted faults (zeros; the keys past S_q dropped) rejected and
+   timed beside SDPA and its bound, and a causal call at unequal lengths
+   refused without a launch; (a) paligemma-3b whole (18 layers, d 2048,
+   8/1 heads of 256; 2,512,857,088 parameters) on B 4, 256 image tokens
+   and a prompt of 192 in 512 slots, 16 new tokens, by phase 15's rules
+   (18 K3 launches per prefill, 36 K4 per decode step), prefill-then-decode
+   == ``logits_fn`` within 1e-4, then the launcher's engine (B 1, 96
+   slots, a prompt of 32: its cache overflows from the prefill on,
+   ROADMAP.md § 3.10) by the same rules, its distance to the whole forward
+   printed, and its ``generate`` with the stub's zeros counted; (b)
+   seamless-m4t-large-v2 whole (24 + 24 layers, d 1024, 16/16 heads of 64;
+   1,773,477,888 parameters) on B 4, 192 frames and a prompt of 192, 16
+   new tokens, by the same rules (72 K3 launches per prefill, 96 K4 per
+   step), prefill-then-decode == ``logits_fn`` with 191 tokens over 192
+   frames (K3 at S_q != S_kv in every cross-attention) and ``generate``
+   with zero frames; (d) for both, ``loss_fn`` through K3 under
+   ``no_grad`` against the einsum route (1e-4 relative in float32, 1e-2 in
+   bf16); each model's bench, K3 and K4 at its shapes timed, peak memory.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -249,7 +274,8 @@ Phases, one line or more each:
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's and the stepper's, K3's and K4's the serving
-paths' of phases 13 and 15, K3's the training path's no-grad losses); the
+paths' of phases 13, 15 and 16, K3's the no-grad losses of phases 14 and
+16); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -1795,7 +1821,7 @@ CONSISTENCY_SLACK = 2.0
 XLSTM_DEPTHS = (2, 16)
 
 
-def family_weights(cfg, dev):
+def family_weights(cfg, dev, tag="families"):
     """Random float32 weights of ``cfg`` from ``SEED`` on the card and the
     served bf16 copy; prints their size."""
     import torch
@@ -1815,8 +1841,8 @@ def family_weights(cfg, dev):
         return [x for v in items for x in leaves(v)]
 
     n = sum(x.numel() for x in leaves(params))
-    check(n == param_count(cfg), f"families: {cfg.name} parameter count {n}")
-    print(f"families: {cfg.name} (layers={cfg.n_layers} d={cfg.d_model} "
+    check(n == param_count(cfg), f"{tag}: {cfg.name} parameter count {n}")
+    print(f"{tag}: {cfg.name} (layers={cfg.n_layers} d={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
           f"experts={cfg.n_experts} top_k={cfg.top_k} moe_d_ff={cfg.moe_d_ff} "
           f"window={cfg.window} ssm_state={cfg.ssm_state} vocab={cfg.vocab_size}): {n:,} "
@@ -1890,14 +1916,27 @@ class MoeRoutes:
         return patch()
 
 
+def attention_launches(cfg):
+    """K3 launches per prefill and K4 launches per decode step of ``cfg``'s
+    model: one K3 per attention layer and two K4 (split pass and merge);
+    the encoder-decoder's encoder layers run K3 once, its decoder layers
+    twice (self- and cross-attention) and K4 twice; xLSTM neither."""
+    if cfg.is_encdec:
+        return cfg.n_enc_layers + 2 * cfg.n_dec_layers, 4 * cfg.n_dec_layers
+    n_attn = cfg.n_layers if cfg.family != "ssm" else 0
+    return n_attn, 2 * n_attn
+
+
 def routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, bf16_held=True,
-                routes=None):
+                routes=None, max_seq=None, frontend=None, tag="families"):
     """Phase 13's rules on one token stream: the float32 kernel route
     against the float32 plain route (every row within 1e-4, the greedy
     tokens equal where decided), then bf16, the served config: each route's
     distance to the float32 model, the kernel route's held to BF16_SLACK
     times the plain route's unless ``bf16_held`` is false.  ``routes`` (a
-    :class:`MoeRoutes`) records the bf16 routes' MoE picks.  Counts the
+    :class:`MoeRoutes`) records the bf16 routes' MoE picks.  The engines
+    hold ``max_seq`` slots (prompt and new tokens when None) and get
+    ``frontend`` for the modality stub (its zeros when None).  Counts the
     launches of the bf16 kernel route, the main path.  Returns (the float32
     picks, the float32 kernel route's logits, K3 launches, K4 launches)."""
     import contextlib
@@ -1912,9 +1951,9 @@ def routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, bf16_held=Tr
     f32_cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
 
     def route(route_cfg, weights, kernel, forced=None):
-        return InferenceEngine(route_cfg, weights, max_batch=B, max_seq=S + n_new, device=dev,
-                               kernel=kernel)._generate(prompt, n_new, forced=forced,
-                                                        keep_logits=True)
+        return InferenceEngine(route_cfg, weights, max_batch=B, max_seq=max_seq or S + n_new,
+                               device=dev, kernel=kernel)._generate(
+            prompt, n_new, forced=forced, keep_logits=True, frontend=frontend)
 
     @contextlib.contextmanager
     def recorded():
@@ -1928,8 +1967,8 @@ def routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, bf16_held=Tr
     k32_picks, k32 = route(f32_cfg, params, True, picks)
     tol, shape = LOGIT_TOL["float32"], (B, cfg.vocab_size)
     f32_err, agreed, decided = logits_held(k32, k32_picks, exact, picks, tol, tol, shape,
-                                           f"families: {what} float32")
-    print(f"families: {what} float32, kernel route == plain route: prefill + {n_new - 1} "
+                                           f"{tag}: {what} float32")
+    print(f"{tag}: {what} float32, kernel route == plain route: prefill + {n_new - 1} "
           f"decode steps x {B} rows, max_row_rel_err={f32_err:.3e} (tol {tol}); greedy tokens "
           f"agree in {agreed} of {B * n_new}, all {decided} whose top-2 margin exceeds the "
           f"tolerance [{smi}]", flush=True)
@@ -1941,22 +1980,22 @@ def routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, bf16_held=Tr
         kernel_picks, kernel = route(cfg, shared, True, picks)
     torch.cuda.synchronize()
     k3, k4 = flash.flash_launches, decode.decode_launches
-    n_attn = cfg.n_layers if cfg.family != "ssm" else 0
-    check(k3 == n_attn and k4 == 2 * n_attn * (n_new - 1),
-          f"families: {what} bf16 main path launched K3 {k3} and K4 {k4} times for one "
-          f"prefill and {n_new - 1} decode steps of {n_attn} attention layers")
+    per_prefill, per_step = attention_launches(cfg)
+    check(k3 == per_prefill and k4 == per_step * (n_new - 1),
+          f"{tag}: {what} bf16 main path launched K3 {k3} and K4 {k4} times for one "
+          f"prefill and {n_new - 1} decode steps, not {per_prefill} and {per_step} per step")
     to_f32 = [max(float(row_err(x, ref).max()) for x, ref in zip(logits, exact))
               for logits in (kernel, plain)]
     if bf16_held:
         check(to_f32[0] <= BF16_SLACK * to_f32[1],
-              f"families: {what} bf16 kernel route {to_f32[0]:.3e} from the float32 model, "
+              f"{tag}: {what} bf16 kernel route {to_f32[0]:.3e} from the float32 model, "
               f"the plain route {to_f32[1]:.3e}: more than {BF16_SLACK} times as far")
     margin = LOGIT_TOL["bfloat16"] if bf16_held else math.inf
     between, agreed, decided = logits_held(kernel, kernel_picks, plain, plain_picks, math.inf,
-                                           margin, shape, f"families: {what} bf16")
+                                           margin, shape, f"{tag}: {what} bf16")
     rule = (f"held: kernel <= {BF16_SLACK} x plain, tokens equal where the plain top-2 margin "
             f"exceeds {margin}: {decided}" if bf16_held else "printed")
-    print(f"families: {what} bf16 (served): kernel route vs plain route max_row_rel_err="
+    print(f"{tag}: {what} bf16 (served): kernel route vs plain route max_row_rel_err="
           f"{between:.3e}; from the float32 model: kernel route {to_f32[0]:.3e}, plain route "
           f"{to_f32[1]:.3e} ({rule}); "
           f"greedy tokens agree in {agreed} of {B * n_new}; main path K3 launches={k3} "
@@ -1980,7 +2019,7 @@ def routing_flips(served, whole, n_layers):
 
 
 def consistency_held(cfg, params, prompt, picks, k32, tol, what, routes=None,
-                     baseline=False):
+                     baseline=False, frontend=None, tag="families"):
     """Prefill-then-decode == one longer forward: each of ``k32``'s logits
     (the float32 kernel route's prefill and decode steps, fed ``picks``)
     against ``logits_fn`` of the whole sequence at the same position, in
@@ -1996,7 +2035,9 @@ def consistency_held(cfg, params, prompt, picks, k32, tol, what, routes=None,
     (a :class:`MoeRoutes` whose last run holds the served run's picks) a
     row is exempted from the position of its sequence's first token whose
     expert set differs between the two (a top-k near-tie that the two
-    orders of summation break apart)."""
+    orders of summation break apart).  ``frontend`` is the modality stub's
+    input of the served run; the vlm's image tokens come before the text,
+    so its positions are offset by their number."""
     import numpy as np
     import torch
 
@@ -2007,11 +2048,16 @@ def consistency_held(cfg, params, prompt, picks, k32, tol, what, routes=None,
     f32_cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
     tokens = torch.as_tensor(np.concatenate([prompt, picks[:, :n_new - 1]], axis=1),
                              device=k32[0].device)
+    batch = {"tokens": tokens}
+    if frontend is not None:
+        batch["frontend"] = frontend
     exempt = torch.zeros((B, n_new), dtype=torch.bool)
     with torch.inference_mode():
         if routes is not None:
             routes.open()
-        full = logits_fn(params, f32_cfg, {"tokens": tokens})
+        full = logits_fn(params, f32_cfg, batch)
+        if cfg.frontend == "vision_stub":
+            full = full[:, frontend.shape[1]:]
         if routes is not None:
             routes.close()
             flips = routing_flips(routes.runs[-2], routes.runs[-1], cfg.n_layers).cpu()
@@ -2025,33 +2071,40 @@ def consistency_held(cfg, params, prompt, picks, k32, tol, what, routes=None,
             dist = max(dist, float(row_err(k32[j][keep], full[keep, S - 1 + j]).max()))
     if tol is not None:
         limit = tol if base is None else max(tol, CONSISTENCY_SLACK * base)
-        check(dist <= limit, f"families: {what}: prefill-then-decode is {dist:.3e} from the "
+        check(dist <= limit, f"{tag}: {what}: prefill-then-decode is {dist:.3e} from the "
               f"forward over the whole sequence, above {limit:.3e}")
     del full
     return dist, int(exempt.sum()), base
 
 
-def family_bench(cfg, shared, prompt, n_new, dev, smi, what):
+def family_bench(cfg, shared, prompt, n_new, dev, smi, what, frontend=None, max_seq=None,
+                 tag="families"):
     """The served bf16 engine: prefill ms (median of 3), decode-step p50/p99
     ms and tokens/s over ``n_new - 1`` steps, and under the profiler the
     device busy share and launches of one prefill and of
-    ``FAMILY_PROFILE_STEPS`` decode steps."""
+    ``FAMILY_PROFILE_STEPS`` decode steps.  ``frontend``: the modality
+    stub's input, whose image tokens (vlm) the decode positions count."""
     import torch
 
     from repro_torch.serving import InferenceEngine
 
     B, S = prompt.shape
-    engine = InferenceEngine(cfg, shared, max_batch=B, max_seq=S + n_new, device=dev)
+    engine = InferenceEngine(cfg, shared, max_batch=B, max_seq=max_seq or S + n_new, device=dev)
     batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    if frontend is not None:
+        batch["frontend"] = frontend
+        if cfg.frontend == "vision_stub":
+            S += frontend.shape[1]          # the decode steps' positions follow the image
 
     def prefill(cache=None):
         return engine._prefill(engine.params, batch,
-                               engine_cache(engine, B) if cache is None else cache)
+                               engine_cache(engine, B, prompt.shape[1]) if cache is None
+                               else cache)
 
     with torch.inference_mode():
         prefill_ms = []
         for _ in range(3):
-            cache = engine_cache(engine, B)
+            cache = engine_cache(engine, B, prompt.shape[1])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = prefill(cache)
@@ -2084,7 +2137,7 @@ def family_bench(cfg, shared, prompt, n_new, dev, smi, what):
 
     dec_wall, dec_busy, dec_launches, dec_names = device_window(decode_steps, 1)
     top = sorted(dec_names.items(), key=lambda kv: -kv[1])[:3]
-    print(f"families: {what} bench B={B} prompt={S} new={n_new}: "
+    print(f"{tag}: {what} bench B={B} positions={S} new={n_new}: "
           f"prefill_ms={statistics.median(prefill_ms):.3f} decode step p50_ms={p50:.3f} "
           f"p99_ms={p99:.3f} ({B / p50 * 1e3:.1f} tokens/s at p50); profiler: prefill wall "
           f"{pre_wall:.3f} ms, device busy {pre_busy:.3f} ms ({pre_busy / pre_wall:.1%}), "
@@ -2096,25 +2149,110 @@ def family_bench(cfg, shared, prompt, n_new, dev, smi, what):
     del cache, engine
 
 
+def k3_timed(q, k, v, causal, what, smi, tag, window=0):
+    """K3 through its wrapper on (q, k, v) (S_kv keys of its own when the
+    call is full), held to its plain version at phase 9's limits, and timed
+    beside its plain version, SDPA (the window as a boolean mask) and its
+    bound; returns (the times, the plain output)."""
+    import torch
+    import torch.nn.functional as F
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    b, s_q, h, hd = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    dt = str(q.dtype).split(".")[1]
+
+    def run():
+        return flash.flash_attention(q, k, v, causal=causal, window=window, block_q=s_q,
+                                     block_k=s_kv)
+
+    def plain():
+        return flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    mask = None
+    if window:
+        i = torch.arange(s_q, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def library():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask,
+                                              is_causal=causal and mask is None,
+                                              enable_gqa=True)
+
+    want = plain()
+    err, rel = compare(run(), want, dt, f"{tag}: K3 {what}")
+    pairs = admitted_pairs(s_q, causal, window) if s_q == s_kv else s_q * s_kv
+    flops = 4 * b * h * hd * pairs
+    nbytes = q.element_size() * 2 * b * hd * (s_q * h + s_kv * kvh)   # q, k, v read; out written
+    bound, bound_by = attention_bound_ms(flops, nbytes, dt)
+    m = dict(err=err, ms=kernel_ms(run, KERNEL_REPS, name=flash.k3_instance(q.dtype, hd)[0]),
+             call=cuda_ms(run, KERNEL_REPS), plain=cuda_ms(plain, PLAIN_REPS),
+             library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
+    print(f"{tag}: K3 {what}: B={b} S_q={s_q} S_kv={s_kv} H={h} KVH={kvh} hd={hd} "
+          f"causal={causal} window={window}: close=True max_abs_err={err:.3e} "
+          f"max_row_rel_err={rel:.3e} "
+          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
+          "bound_ms={bound:.4f} ({bound_by})".format(**m)
+          + f" ({flops / 1e9:.2f} GFLOP, {flops / m['ms'] / 1e9:.1f} TFLOP/s; SDPA "
+          f"{flops / m['library'] / 1e9:.1f}) [{smi}]", flush=True)
+    return m, want
+
+
+def k4_timed(q, kc, vc, lengths, what, smi, tag):
+    """K4 through its wrapper over the caches at ``lengths``, held to its
+    plain version and timed as :func:`k3_timed`."""
+    import torch
+    import torch.nn.functional as F
+
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    b, h, hd = q.shape
+    slots, kvh = kc.shape[1], kc.shape[2]
+    dt = str(q.dtype).split(".")[1]
+
+    def run():
+        return decode.decode_attention(q, kc, vc, lengths, block_k=slots)
+
+    mask = (torch.arange(slots, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q[:, :, None], kc.transpose(1, 2),
+                                              vc.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)
+
+    err, rel = compare(run(), decode.decode_attention_plain(q, kc, vc, lengths), dt,
+                       f"{tag}: K4 {what}")
+    valid = int(lengths.clamp(0, slots).sum())
+    nbytes = q.element_size() * (2 * valid * kvh * hd + 2 * b * h * hd) + 4 * b
+    bound, bound_by = attention_bound_ms(4 * h * hd * valid, nbytes, dt)
+    m = dict(err=err, ms=kernel_ms(run, KERNEL_REPS, name=("decode_split",
+                                                            "decode_combine_kernel")),
+             call=cuda_ms(run, KERNEL_REPS),
+             plain=cuda_ms(lambda: decode.decode_attention_plain(q, kc, vc, lengths),
+                           PLAIN_REPS),
+             library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
+    print(f"{tag}: K4 {what}: B={b} slots={slots} lengths={sorted(set(lengths.tolist()))} "
+          f"H={h} KVH={kvh} hd={hd}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
+          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
+          "bound_ms={bound:.4f} ({bound_by})".format(**m)
+          + f" ({nbytes / 1e6:.2f} MB) [{smi}]", flush=True)
+    return m
+
+
 def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
     """K3 at a prefill of (b, s) and K4 over ``slots`` cache slots at
     ``lengths``, on layer 0's own projections, against their plain versions
-    (bf16), timed beside their bounds, plain versions and SDPA as phase 13
-    times them, into ``out["times"][what]``; their errors raise
-    ``out["errs"]``."""
+    (bf16), timed beside their bounds, plain versions and SDPA
+    (:func:`k3_timed`, :func:`k4_timed`), into ``out["times"][what]``; their
+    errors raise ``out["errs"]``."""
     import numpy as np
-
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.models import attention
     from repro_torch.models.blocks import attn_window
     from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
 
-    flash = importlib.import_module("repro_torch.kernels.flash_attention")
-    decode = importlib.import_module("repro_torch.kernels.decode_attention")
-    cd, window = cfg.compute_dtype, attn_window(cfg)
-    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd = cfg.compute_dtype
     rng = np.random.default_rng(SEED)
 
     def projections(n):
@@ -2125,74 +2263,16 @@ def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
         pos = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
         return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
 
-    measured, errs = {}, {}
     q, k, v = projections(s)
-
-    def run(q=q, k=k, v=v):
-        return flash.flash_attention(q, k, v, causal=True, window=window, block_q=s, block_k=s)
-
-    err, rel = compare(run(), flash.flash_attention_plain(q, k, v, causal=True, window=window),
-                       "bfloat16", f"families {what} K3")
-    mask = None
-    if window:
-        i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-
-    def library(q=q, k=k, v=v, mask=mask):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-            is_causal=mask is None, enable_gqa=True)
-
-    flops = 4 * b * H * hd * admitted_pairs(s, True, window)
-    bound, bound_by = attention_bound_ms(flops, q.element_size() * 2 * b * s * (H + KVH) * hd,
-                                         "bfloat16")
-    measured["K3"] = dict(err=err, ms=kernel_ms(run, KERNEL_REPS,
-                                                 name=flash.k3_instance(q.dtype, hd)[0]),
-                          call=cuda_ms(run, KERNEL_REPS),
-                          plain=cuda_ms(lambda q=q, k=k, v=v: flash.flash_attention_plain(
-                              q, k, v, causal=True, window=window), PLAIN_REPS),
-                          library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
-    errs["K3"] = err
-    print(f"families: {what} K3 prefill B={b} S={s} H={H} KVH={KVH} hd={hd} window={window}: "
-          f"close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} kernel_ms={{ms:.4f}} "
-          "call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
-          "bound_ms={bound:.4f} ({bound_by})".format(**measured["K3"]) + f" [{smi}]", flush=True)
-    del q, k, v, mask
+    measured = {"K3": k3_timed(q, k, v, True, f"{what} prefill", smi, "families",
+                               window=attn_window(cfg))[0]}
     q, kc, vc = projections(slots)
-    q = q[:, -1].contiguous()
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-
-    def run4(q=q, kc=kc, vc=vc, lens=lens):
-        return decode.decode_attention(q, kc, vc, lens, block_k=slots)
-
-    err, rel = compare(run4(), decode.decode_attention_plain(q, kc, vc, lens), "bfloat16",
-                       f"families {what} K4")
-    kmask = (torch.arange(slots, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-
-    def library4(q=q, kc=kc, vc=vc, kmask=kmask):
-        return F.scaled_dot_product_attention(q[:, :, None], kc.transpose(1, 2),
-                                              vc.transpose(1, 2), attn_mask=kmask,
-                                              enable_gqa=True)
-
-    valid = int(lens.sum())
-    nbytes = q.element_size() * (2 * valid * KVH * hd + 2 * b * H * hd) + 4 * b
-    bound, bound_by = attention_bound_ms(4 * H * hd * valid, nbytes, "bfloat16")
-    measured["K4"] = dict(err=err, ms=kernel_ms(run4, KERNEL_REPS,
-                                                 name=("decode_split", "decode_combine_kernel")),
-                          call=cuda_ms(run4, KERNEL_REPS),
-                          plain=cuda_ms(lambda q=q, kc=kc, vc=vc, lens=lens:
-                                        decode.decode_attention_plain(q, kc, vc, lens),
-                                        PLAIN_REPS),
-                          library=cuda_ms(library4, KERNEL_REPS), bound=bound, bound_by=bound_by)
-    errs["K4"] = err
-    print(f"families: {what} K4 decode B={b} slots={slots} lengths={sorted(set(lengths))} "
-          f"group={H // KVH}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
-          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
-          "bound_ms={bound:.4f} ({bound_by})".format(**measured["K4"]) + f" [{smi}]",
-          flush=True)
+    measured["K4"] = k4_timed(q[:, -1].contiguous(), kc, vc, lens, f"{what} decode", smi,
+                              "families")
     out["times"][what] = measured
-    for kernel, err in errs.items():
-        out["errs"][kernel] = max(out["errs"][kernel], err)
+    for kernel, m in measured.items():
+        out["errs"][kernel] = max(out["errs"][kernel], m["err"])
 
 
 def family_start():
@@ -2206,10 +2286,10 @@ def family_start():
     return torch.cuda.memory_allocated(), time.perf_counter()
 
 
-def family_done(what, resident, t0):
+def family_done(what, resident, t0, tag="families"):
     import torch
 
-    print(f"families: {what}: peak device memory "
+    print(f"{tag}: {what}: peak device memory "
           f"{(torch.cuda.max_memory_allocated() - resident) / 1e9:.2f} GB above the "
           f"{resident / 1e9:.2f} GB held before, {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2422,11 +2502,293 @@ def families_phase(smi):
     return out
 
 
-def engine_cache(engine, batch):
-    """A fresh cache for ``engine``, as its ``generate`` makes one."""
+TAG = "vlm_encdec"               # phase 16's lines
+VLM_ARCH = "paligemma-3b"        # phase 16 (a): the vlm family whole
+# (B, prompt, new tokens, cache slots): 256 image tokens + 192 text = 448
+# positions in 512 slots, nothing overflows
+VLM_STREAM = (4, 192, 16, 512)
+# the launcher's engines (max_batch 1, CLUSTER_SEQ slots): a prompt of 32
+# after the 256 image tokens overflows the cache from the prefill on
+# (ROADMAP.md § 3.10)
+VLM_LAUNCHER_STREAM = (1, 32, 16)
+ENCDEC_ARCH = "seamless-m4t-large-v2"   # phase 16 (b): the encoder-decoder whole
+ENCDEC_STREAM = (4, 192, 16)     # B, source frames = prompt tokens, new tokens
+# phase 16 (c): K3 with a key length of its own, as a bare kernel at
+# seamless's heads: (name, B, S_q, S_kv, H, KVH, hd, dtype name)
+CROSS_CASES = (
+    ("cross 191 over 192, f32", 4, 191, 192, 16, 16, 64, "float32"),
+    ("cross 191 over 192, bf16", 4, 191, 192, 16, 16, 64, "bfloat16"),
+    ("cross 64 over 1000, f32", 4, 64, 1000, 16, 16, 64, "float32"),
+    ("cross 64 over 1000, bf16", 4, 64, 1000, 16, 16, 64, "bfloat16"),
+)
+
+
+def random_qkv(gen, q_shape, kv_shape, dtype):
+    """q and k at ``QK_STD``, v at 1, drawn from ``gen`` on its device."""
+    import torch
+
+    return tuple((torch.randn(*shape, generator=gen, device=gen.device) * std).to(dtype)
+                 for shape, std in ((q_shape, QK_STD), (kv_shape, QK_STD), (kv_shape, 1.0)))
+
+
+def loss_held(cfg, params, b, seq, dev, smi, out):
+    """Phase 16 (d): ``loss_fn`` through K3 under ``no_grad`` against the
+    einsum route, on one batch of the token pipeline (random frontend
+    embeddings), in float32 and bf16 compute; counts the K3 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import make_token_batch
+    from repro_torch.models import loss_fn
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    batch = make_token_batch(cfg, np.random.default_rng(SEED), b, seq, dev)
+    per_prefill, _ = attention_launches(cfg)
+    for dtype, tol in TRAIN_LOSS_TOL.items():
+        c = cfg.replace(compute_dtype=getattr(torch, dtype), kv_cache_dtype=getattr(torch, dtype))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            flash.flash_launches = decode.decode_launches = 0
+            got = float(loss_fn(params, c, batch)[0])
+            k3, k4 = flash.flash_launches, decode.decode_launches
+            want = float(loss_fn(params, c, batch, kernel=False)[0])
+        check(k3 == per_prefill and k4 == 0,
+              f"{TAG}: {cfg.name} loss_fn launched K3 {k3} and K4 {k4} times, not "
+              f"{per_prefill} and 0")
+        out["launches"]["K3"] += k3
+        rel = abs(got - want) / abs(want)
+        check(math.isfinite(got) and rel <= tol,
+              f"{TAG}: {cfg.name} {dtype} loss through K3 {got} vs the einsum route {want}: "
+              f"{rel:.3e}")
+        print(f"{TAG}: (d) {cfg.name} loss_fn B={b} S={seq} {dtype} compute "
+              f"under no_grad: K3 launches={k3}, K4 launches={k4}; kernel route {got:.6f} vs "
+              f"einsum route {want:.6f}, relative difference {rel:.3e} (tol {tol}) [{smi}]",
+              flush=True)
+
+
+def counted_generate(cfg, shared, prompt, n_new, max_seq, dev, smi, out, what):
+    """``InferenceEngine.generate`` on the served weights with the stub's
+    zeros, as the launcher runs it: its tokens' shape, and exactly
+    :func:`attention_launches` per prefill and decode step."""
+    import torch
+
+    from repro_torch.serving import InferenceEngine
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    engine = InferenceEngine(cfg, shared, max_batch=prompt.shape[0], max_seq=max_seq, device=dev)
+    torch.cuda.synchronize()
+    flash.flash_launches = decode.decode_launches = 0
+    t0 = time.perf_counter()
+    res = engine.generate(prompt, n_new)
+    seconds = time.perf_counter() - t0
+    k3, k4 = flash.flash_launches, decode.decode_launches
+    per_prefill, per_step = attention_launches(cfg)
+    check(res.tokens.shape == (prompt.shape[0], n_new), f"{TAG}: {what} generate's tokens")
+    check(k3 == per_prefill and k4 == per_step * (n_new - 1),
+          f"{TAG}: {what} generate launched K3 {k3} and K4 {k4} times")
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    print(f"{TAG}: {what} generate() with the stub's zeros (the launcher's input): "
+          f"{res.tokens.size} tokens in {seconds:.2f} s; K3 launches={k3} K4 launches={k4} "
+          f"({k4 // max(n_new - 1, 1)} per decode step) [{smi}]", flush=True)
+
+
+def vlm_part(smi, dev, rng, out):
+    """Phase 16 (a): paligemma-3b whole on one stream of 448 positions, its
+    loss, the launcher's overflowing 96-slot engine, the bench and K3/K4 at
+    its shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    resident, t0 = family_start()
+    cfg = get_config(VLM_ARCH)
+    params, shared = family_weights(cfg, dev, tag=TAG)
+    nf, tol = cfg.n_frontend_tokens, LOGIT_TOL["float32"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def images(b):
+        """Random image embeddings, bf16 (the stub's type): a wrong position
+        or a dropped image token shows in them, as it would not in zeros."""
+        return torch.randn((b, nf, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+
+    b, s, n_new, slots = VLM_STREAM
+    prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    image = images(b)
+    what = f"{VLM_ARCH} B={b} image={nf} prompt={s} new={n_new} slots={slots}"
+    picks, k32, k3, k4 = routes_held(cfg, params, shared, prompt, n_new, dev, smi, what,
+                                     max_seq=slots, frontend=image, tag=TAG)
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    dist, _, _ = consistency_held(cfg, params, prompt, picks, k32, tol, what, frontend=image,
+                                  tag=TAG)
+    print(f"{TAG}: {what}: prefill-then-decode vs the forward over the whole sequence "
+          f"(float32, kernel route) max_row_rel_err={dist:.3e} (tol {tol})", flush=True)
+    del k32
+    lb, ls, ln = VLM_LAUNCHER_STREAM
+    lprompt = rng.integers(0, cfg.vocab_size, (lb, ls)).astype(np.int32)
+    limage = images(lb)
+    lwhat = (f"{VLM_ARCH} launcher engine B={lb} image={nf} prompt={ls} new={ln} "
+             f"slots={CLUSTER_SEQ} (overflowing, ROADMAP.md § 3.10)")
+    picks, k32, k3, k4 = routes_held(cfg, params, shared, lprompt, ln, dev, smi, lwhat,
+                                     max_seq=CLUSTER_SEQ, frontend=limage, tag=TAG)
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    dist, _, _ = consistency_held(cfg, params, lprompt, picks, k32, None, lwhat,
+                                  frontend=limage, tag=TAG)
+    print(f"{TAG}: {lwhat}: prefill-then-decode vs the forward over the whole sequence "
+          f"(float32, kernel route) max_row_rel_err={dist:.3e} (the reference's fault: not "
+          "held)", flush=True)
+    del k32
+    counted_generate(cfg, shared, lprompt, ln, CLUSTER_SEQ, dev, smi, out, lwhat)
+    loss_held(cfg, params, b, nf + s, dev, smi, out)
+    family_bench(cfg, shared, prompt, n_new, dev, smi, VLM_ARCH,
+                 frontend=torch.zeros_like(image), max_seq=slots, tag=TAG)
+    kgen = torch.Generator(device=dev).manual_seed(SEED)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = random_qkv(kgen, (b, nf + s, H, hd), (b, nf + s, KVH, hd), torch.bfloat16)
+    k3m, _ = k3_timed(q, k, v, True, f"{VLM_ARCH} prefill", smi, TAG)
+    q, kc, vc = random_qkv(kgen, (b, H, hd), (b, slots, KVH, hd), torch.bfloat16)
+    lengths = torch.full((b,), nf + s + 1, dtype=torch.int32, device=dev)
+    k4m = k4_timed(q, kc, vc, lengths, f"{VLM_ARCH} decode", smi, TAG)
+    out["times"][VLM_ARCH] = {"K3": k3m, "K4": k4m}
+    for kernel, m in (("K3", k3m), ("K4", k4m)):
+        out["errs"][kernel] = max(out["errs"][kernel], m["err"])
+    family_done(VLM_ARCH, resident, t0, tag=TAG)
+
+
+def encdec_part(smi, dev, rng, out):
+    """Phase 16 (b): seamless-m4t-large-v2 whole on one stream of 192
+    frames and prompt tokens, prefill-then-decode with S - 1 tokens over S
+    frames, ``generate`` with zero frames, its loss, the bench and K3/K4 at
+    its shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import InferenceEngine
+
+    resident, t0 = family_start()
+    cfg = get_config(ENCDEC_ARCH)
+    params, shared = family_weights(cfg, dev, tag=TAG)
+    tol = LOGIT_TOL["float32"]
+    b, s, n_new = ENCDEC_STREAM
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    frames = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    what = f"{ENCDEC_ARCH} B={b} frames={s} prompt={s} new={n_new}"
+    _, k32, k3, k4 = routes_held(cfg, params, shared, prompt, n_new, dev, smi, what,
+                                 frontend=frames, tag=TAG)
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    del k32
+    # prefill-then-decode: S - 1 tokens over S frames, so that every prefill's
+    # cross-attention runs K3 at S_q != S_kv inside the model
+    f32 = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+    short = prompt[:, :-1]
+    picks, k32 = InferenceEngine(f32, params, max_batch=b, max_seq=s - 1 + n_new,
+                                 device=dev)._generate(short, n_new, keep_logits=True,
+                                                       frontend=frames)
+    swhat = f"{ENCDEC_ARCH} B={b} frames={s} prompt={s - 1} new={n_new}"
+    dist, _, _ = consistency_held(cfg, params, short, picks, k32, tol, swhat, frontend=frames,
+                                  tag=TAG)
+    print(f"{TAG}: {swhat}: prefill-then-decode vs the forward over the whole sequence "
+          f"(float32, kernel route: K3 at S_q {s - 1} over S_kv {s} in every cross-attention) "
+          f"max_row_rel_err={dist:.3e} (tol {tol})", flush=True)
+    del k32
+    counted_generate(cfg, shared, prompt, n_new, s + n_new, dev, smi, out, what)
+    loss_held(cfg, params, b, s, dev, smi, out)
+    family_bench(cfg, shared, prompt, n_new, dev, smi, ENCDEC_ARCH,
+                 frontend=torch.zeros_like(frames), tag=TAG)
+    kgen = torch.Generator(device=dev).manual_seed(SEED)
+    H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    times = {}
+    for name, causal in (("encoder", False), ("decoder self-attention", True)):
+        q, k, v = random_qkv(kgen, (b, s, H, hd), (b, s, KVH, hd), torch.bfloat16)
+        times[f"K3 {name}"], _ = k3_timed(q, k, v, causal, f"{ENCDEC_ARCH} {name} prefill",
+                                          smi, TAG)
+    for name, slots, length in (("self cache", s + n_new, s + 1), ("cross cache", s, s)):
+        q, kc, vc = random_qkv(kgen, (b, H, hd), (b, slots, KVH, hd), torch.bfloat16)
+        lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+        times[f"K4 {name}"] = k4_timed(q, kc, vc, lengths, f"{ENCDEC_ARCH} decode, {name}",
+                                       smi, TAG)
+    out["times"][ENCDEC_ARCH] = times
+    for name, m in times.items():
+        kernel = name[:2]
+        out["errs"][kernel] = max(out["errs"][kernel], m["err"])
+    family_done(ENCDEC_ARCH, resident, t0, tag=TAG)
+
+
+def cross_part(smi, dev, out):
+    """Phase 16 (c): K3 at S_q != S_kv as a bare kernel: each case held to
+    its plain version, a planted fault rejected (zeros; the keys past S_q
+    dropped, what a kernel bounded by S_q would compute), timed; and a
+    causal call at unequal lengths refused without a launch."""
+    import torch
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    times = {}
+    for name, b, s_q, s_kv, h, kvh, hd, dt in CROSS_CASES:
+        q, k, v = random_qkv(gen, (b, s_q, h, hd), (b, s_kv, kvh, hd), getattr(torch, dt))
+        m, want = k3_timed(q, k, v, False, name, smi, TAG)
+        for fault, bad in (("zeros", torch.zeros_like(want)),
+                           (f"keys past {s_q} dropped", flash.flash_attention_plain(
+                               q, k[:, :s_q], v[:, :s_q], causal=False))):
+            try:
+                compare(bad, want, dt, f"{TAG}: K3 {name} planted {fault}")
+            except SmokeFailure:
+                print(f"{TAG}: K3 {name}: planted fault rejected: {fault} "
+                      f"({float(row_err(bad, want).max()):.2e})", flush=True)
+                continue
+            raise SmokeFailure(f"{TAG}: K3 {name}: the check passed a planted fault ({fault})")
+        times[name] = m
+        out["errs"]["K3"] = max(out["errs"]["K3"], m["err"])
+        before = flash.flash_launches
+        try:
+            flash.flash_attention(q, k, v, causal=True)
+        except ValueError as e:
+            check(flash.flash_launches == before, f"{TAG}: a refused call launched K3")
+            refused = str(e)
+        else:
+            raise SmokeFailure(f"{TAG}: K3 took a causal call at S_q {s_q} != S_kv {s_kv}")
+    print(f"{TAG}: K3 refuses a causal call at unequal lengths without a launch: "
+          f"ValueError({refused[:80]}...)", flush=True)
+    out["times"]["cross"] = times
+
+
+def vlm_encdec_phase(smi):
+    """Phase 16: the vlm family and the encoder-decoder on the card —
+    paligemma-3b and seamless-m4t-large-v2 whole, K3 at S_q != S_kv and
+    the losses through K3.  Returns K3's and K4's launches on the main
+    path, their largest errors and their times at the two models' shapes."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    t_phase = time.perf_counter()
+    out = {"launches": {"K3": 0, "K4": 0}, "errs": {"K3": 0.0, "K4": 0.0}, "times": {}}
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+    cross_part(smi, dev, out)
+    vlm_part(smi, dev, rng, out)
+    encdec_part(smi, dev, rng, out)
+    torch.cuda.empty_cache()
+    print(f"{TAG}: phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def engine_cache(engine, batch, src_len=0):
+    """A fresh cache for ``engine``, as its ``generate`` makes one for a
+    prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
     from repro_torch.models import init_cache
 
-    return init_cache(engine.cfg, batch, engine.max_seq, device=engine.device)
+    return init_cache(engine.cfg, batch, engine.max_seq, src_len=src_len, device=engine.device)
 
 
 def main() -> int:
@@ -3022,14 +3384,17 @@ def main() -> int:
     # 15. the hybrid, MoE and xLSTM families (after phase 14, before the attention phases)
     families = families_phase(smi)
 
+    # 16. the vlm family and the encoder-decoder (after phase 15, before the attention phases)
+    vlm_encdec = vlm_encdec_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
         entry["launches"] += train_k3 if kernel == "K3" else 0
-        entry["launches"] += families["launches"][kernel]
+        entry["launches"] += families["launches"][kernel] + vlm_encdec["launches"][kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
-                                   families["errs"][kernel])
+                                   families["errs"][kernel], vlm_encdec["errs"][kernel])
 
     ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]

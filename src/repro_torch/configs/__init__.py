@@ -1,6 +1,5 @@
-"""Architecture configs of the port: one module per architecture ported so
-far (the dense, moe, hybrid and ssm ones; paligemma-3b and
-seamless-m4t-large-v2 wait, ROADMAP.md Queue 1 item D).
+"""Architecture configs of the port: one module per architecture of the
+reference, all ten.
 
 ``get_config("<arch-id>")`` returns the exact published configuration;
 ``get_config("<arch-id>", reduced=True)`` returns a small same-family config

@@ -145,9 +145,7 @@ def runnable_cells() -> list[tuple[str, str]]:
 
 
 def _ensure_loaded() -> None:
-    """Register the configs ported so far: eight of the reference's ten.
-    paligemma-3b (vlm) and seamless-m4t-large-v2 (encoder-decoder) wait for
-    their families (ROADMAP.md, Queue 1 item D)."""
+    """Register the reference's ten configs."""
     if _REGISTRY:
         return
     from . import (  # noqa: F401  (import side effect: registration)
@@ -156,7 +154,9 @@ def _ensure_loaded() -> None:
         hymba_1_5b,
         llama3_2_1b,
         llama4_scout_17b_a16e,
+        paligemma_3b,
         qwen3_moe_30b_a3b,
+        seamless_m4t_large_v2,
         xlstm_1_3b,
         yi_9b,
     )

@@ -15,7 +15,6 @@ import torch
 
 from .core.costs import CostModel
 from .core.provision import _resolve_device
-from .models.blocks import require_dense
 from .optim import AdamWState
 
 
@@ -65,20 +64,28 @@ def carry_from_numpy(r, on, wait, device="cuda") -> dict[str, torch.Tensor]:
 
 
 def lm_params_from_numpy(params, cfg, device="cuda") -> dict:
-    """The port's LM parameter dict from the reference's tree as numpy
+    """The port's model parameter dict from the reference's tree as numpy
     (``jax.tree.map(np.asarray, params)``): nested dicts whose ``blocks``
     hold every layer stacked on axis 0 (the reference's ``jax.vmap``'d
     init), whatever the family's layer holds (``attn``, ``mlp``, ``moe``
     with its experts stacked on their own axis, ``ssm``, xLSTM's ``mlstm``
-    and ``slstm``).  The port keeps a list of per-layer dicts; each tensor
-    keeps its array's dtype and goes to ``device`` (``"cuda"`` unless given
-    ``"cpu"``)."""
-    require_dense(cfg)
+    and ``slstm``), with the vlm's ``frontend_proj`` beside them; for the
+    encoder-decoder, ``encoder`` and ``decoder`` stacked in the same way
+    (each decoder layer with its ``xattn``).  The port keeps a list of
+    per-layer dicts for each stack; each tensor keeps its array's dtype and
+    goes to ``device`` (``"cuda"`` unless given ``"cpu"``)."""
     return _layer_tree(params, cfg, _resolve_device(device, "lm_params_from_numpy"))
 
 
+def _stacks(cfg) -> dict[str, int]:
+    """The reference's stacked-layer keys of ``cfg``'s tree, with their depths."""
+    if cfg.is_encdec:
+        return {"encoder": cfg.n_enc_layers, "decoder": cfg.n_dec_layers}
+    return {"blocks": cfg.n_layers}
+
+
 def _layer_tree(params, cfg, dev) -> dict:
-    """The reference's stacked-layer tree as the port's list of layers."""
+    """The reference's stacked-layer tree as the port's lists of layers."""
 
     def tensor(a):
         return torch.as_tensor(np.array(a), device=dev)
@@ -86,8 +93,10 @@ def _layer_tree(params, cfg, dev) -> dict:
     def layer(tree, i):
         return {k: layer(v, i) if isinstance(v, dict) else tensor(v[i]) for k, v in tree.items()}
 
-    out = {k: tensor(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [layer(params["blocks"], i) for i in range(cfg.n_layers)]
+    stacks = _stacks(cfg)
+    out = {k: tensor(v) for k, v in params.items() if k not in stacks}
+    for name, depth in stacks.items():
+        out[name] = [layer(params[name], i) for i in range(depth)]
     return out
 
 
@@ -97,7 +106,6 @@ def adamw_state_from_numpy(step, m, v, cfg, device="cuda"):
     scalar and the moment trees ``m`` and ``v``, laid out as
     :func:`lm_params_from_numpy` lays out the parameters, so a trainer can
     go on from the reference's exact state."""
-    require_dense(cfg)
     dev = _resolve_device(device, "adamw_state_from_numpy")
     return AdamWState(step=torch.as_tensor(np.array(step, np.int32), device=dev),
                       m=_layer_tree(m, cfg, dev), v=_layer_tree(v, cfg, dev))

@@ -112,7 +112,7 @@ def load_attention() -> ctypes.CDLL:
         lib = _compile(ATTENTION,
                        ("flash_attention.cu", "decode_attention.cu"), BUILD_DIR / "attention")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.repro_flash_attention.argtypes = [ptr] * 4 + [i32] * 8 + [f32, ptr]
+        lib.repro_flash_attention.argtypes = [ptr] * 4 + [i32] * 9 + [f32, ptr]
         lib.repro_flash_attention.restype = i32
         lib.repro_decode_attention.argtypes = [ptr] * 8 + [i32] * 8 + [f32, ptr]
         lib.repro_decode_attention.restype = i32

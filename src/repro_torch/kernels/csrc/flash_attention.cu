@@ -11,6 +11,9 @@
 // softmax over the keys j that the mask admits of (q_i . k_j) * scale,
 // applied to v, where k and v are read from kv head h / (H / KVH).  The mask
 // is the reference's: j <= i when causal, j > i - window when window > 0.
+// K and V hold S_kv rows of their own: S_kv == S wherever a mask applies,
+// and may differ in a full (non-causal, unwindowed) call, cross-attention's
+// S queries over S_kv memory rows.
 // Masked scores are set to -1e30 and their probabilities to 0, m, l and the
 // accumulator are float32 and carried across key tiles (online softmax), and
 // the output is acc / max(l, 1e-30), stored in the input type, so a row
@@ -94,10 +97,10 @@ __device__ __forceinline__ int out_col(int tx, int c) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
-             const T* __restrict__ k,      // (B, S, KVH, HD)
-             const T* __restrict__ v,      // (B, S, KVH, HD)
+             const T* __restrict__ k,      // (B, S_kv, KVH, HD)
+             const T* __restrict__ v,      // (B, S_kv, KVH, HD)
              T* __restrict__ out,          // (B, S, H, HD)
-             int S, int H, int KVH, int causal, int window, float scale) {
+             int S, int S_kv, int H, int KVH, int causal, int window, float scale) {
   constexpr int QS = HD + 4;    // padded row stride of the Q and K tiles
   constexpr int PS = kBK + 4;   // padded row stride of the probability tile
   constexpr int CPT = HD / 16;  // output columns per thread
@@ -121,8 +124,8 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
   const size_t q_row = static_cast<size_t>(H) * HD;
   const size_t kv_row = static_cast<size_t>(KVH) * HD;
   const T* qb = q + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * HD;
-  const T* kb = k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kh) * HD;
-  const T* vb = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kh) * HD;
+  const T* kb = k + static_cast<size_t>(b) * S_kv * kv_row + static_cast<size_t>(kh) * HD;
+  const T* vb = v + static_cast<size_t>(b) * S_kv * kv_row + static_cast<size_t>(kh) * HD;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
@@ -131,7 +134,7 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
 
   // the key tiles that hold an admitted key for some row of this block
   int kt_lo = 0;
-  int kt_hi = (S + kBK - 1) / kBK;
+  int kt_hi = (S_kv + kBK - 1) / kBK;
   if (causal) kt_hi = min(kt_hi, q_last / kBK + 1);
   if (window > 0) kt_lo = max(0, (q0 - window + 1) / kBK);
 
@@ -149,8 +152,8 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
     __syncthreads();   // the previous tile's V and P are consumed
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
-      kv_s[r * QS + c] = k0 + r < S ? to_float(kb[static_cast<size_t>(k0 + r) * kv_row + c])
-                                    : 0.f;
+      kv_s[r * QS + c] = k0 + r < S_kv ? to_float(kb[static_cast<size_t>(k0 + r) * kv_row + c])
+                                       : 0.f;
     }
     __syncthreads();
 
@@ -189,7 +192,7 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+        ok[j] = kp < S_kv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -215,8 +218,8 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
 
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
-      kv_s[r * HD + c] = k0 + r < S ? to_float(vb[static_cast<size_t>(k0 + r) * kv_row + c])
-                                    : 0.f;
+      kv_s[r * HD + c] = k0 + r < S_kv ? to_float(vb[static_cast<size_t>(k0 + r) * kv_row + c])
+                                       : 0.f;
     }
     __syncthreads();
 
@@ -260,8 +263,9 @@ flash_kernel(const T* __restrict__ q,      // (B, S, H, HD)
 }
 
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                   int KVH, int causal, int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
+                   int S_kv, int H, int KVH, int causal, int window, float scale,
+                   cudaStream_t stream) {
   auto kernel = flash_kernel<T, HD>;
   const size_t smem = (static_cast<size_t>(kBQ + kBK) * (HD + 4) + kBQ * (kBK + 4)) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -272,18 +276,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KVH, causal, window, scale);
+      static_cast<T*>(out), S, S_kv, H, KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int B, int S,
-                      int H, int KVH, int HD, int causal, int window, float scale,
+                      int S_kv, int H, int KVH, int HD, int causal, int window, float scale,
                       cudaStream_t stream) {
   switch (HD) {
-    case 64: return launch<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -514,10 +520,10 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 template <typename T, int HD, int BK>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // q (B, S, H, HD)
-                   const __grid_constant__ CUtensorMap tm_k,   // k (B, S, KVH, HD)
-                   const __grid_constant__ CUtensorMap tm_v,   // v (B, S, KVH, HD)
+                   const __grid_constant__ CUtensorMap tm_k,   // k (B, S_kv, KVH, HD)
+                   const __grid_constant__ CUtensorMap tm_v,   // v (B, S_kv, KVH, HD)
                    T* __restrict__ out,                        // (B, S, H, HD)
-                   int S, int H, int KVH, int causal, int window, float scale) {
+                   int S, int S_kv, int H, int KVH, int causal, int window, float scale) {
   static_assert(HD % 64 == 0 && HD <= 256, "head dims 64, 128, 256");
   constexpr int kQBytes = kTcBQ * HD * 2;
   constexpr int kKVBytes = BK * HD * 2;      // one K or V tile
@@ -555,12 +561,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // q (B, S, H, HD
 
   // the key tiles that hold an admitted key for some row of this block
   int kt_lo = 0;
-  int kt_hi = (S + BK - 1) / BK;
+  int kt_hi = (S_kv + BK - 1) / BK;
   if (causal) kt_hi = min(kt_hi, q_last / BK + 1);
   if (window > 0) kt_lo = max(0, (q0 - window + 1) / BK);
 
   // thread 0 loads: tile it into stage it % kTcStages, once every thread is
-  // done with the tile it replaces (rows past S arrive as zeros)
+  // done with the tile it replaces (rows past S_kv arrive as zeros)
   auto produce = [&](int it) {
     const int st = it % kTcStages, use = it / kTcStages;
     if (use > 0) mbar_wait(empty(st), (use - 1) & 1);
@@ -637,7 +643,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // q (B, S, H, HD
   auto softmax = [&](int kt, float* alpha) {
     const int k0 = kt * BK;
     // every (row, key) pair of the tile admitted: no mask
-    const bool full = k0 + BK <= S && (!causal || k0 + BK - 1 <= wq0) &&
+    const bool full = k0 + BK <= S_kv && (!causal || k0 + BK - 1 <= wq0) &&
                       (window <= 0 || k0 > wq_last - window);
     // accumulator element i: row row0 + 8 * ((i / 2) % 2), key k0 + 8 * (i / 4) +
     // 2 * (lane % 4) + i % 2.  Masked scores become -1e30 by selects.
@@ -649,7 +655,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,   // q (B, S, H, HD
       for (int i = 0; i < NS; ++i) {
         const int kp = k0 + (i / 4) * 8 + 2 * (lane % 4) + (i % 2);
         const int qp = row0 + 8 * ((i / 2) % 2);
-        const bool ok = kp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+        const bool ok = kp < S_kv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
         s[i] = ok ? s[i] * scale : kNegInf;
       }
     }
@@ -797,13 +803,14 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int 
 
 template <typename T, int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S,
-                      int H, int KVH, int causal, int window, float scale,
+                      int S_kv, int H, int KVH, int causal, int window, float scale,
                       cudaStream_t stream) {
   constexpr int BK = HD > 128 ? 32 : 128;
   auto kernel = flash_wgmma_kernel<T, HD, BK>;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map<T, HD>(&tm_q, q, B, S, H, kTcBQ) || !tensor_map<T, HD>(&tm_k, k, B, S, KVH, BK) ||
-      !tensor_map<T, HD>(&tm_v, v, B, S, KVH, BK)) {
+  if (!tensor_map<T, HD>(&tm_q, q, B, S, H, kTcBQ) ||
+      !tensor_map<T, HD>(&tm_k, k, B, S_kv, KVH, BK) ||
+      !tensor_map<T, HD>(&tm_v, v, B, S_kv, KVH, BK)) {
     return cudaErrorInvalidValue;
   }
   const size_t smem = 1024 + static_cast<size_t>(kTcBQ) * HD * 2 +
@@ -812,19 +819,22 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, in
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTcBQ - 1) / kTcBQ, H, B);
-  kernel<<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<T*>(out), S, H, KVH,
-                                             causal, window, scale);
+  kernel<<<grid, kTcThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<T*>(out), S, S_kv,
+                                             H, KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_tc_hd(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int H, int KVH, int HD, int causal, int window, float scale,
+                         int S_kv, int H, int KVH, int HD, int causal, int window, float scale,
                          cudaStream_t stream) {
   switch (HD) {
-    case 64: return launch_tc<T, 64>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    case 128: return launch_tc<T, 128>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
-    case 256: return launch_tc<T, 256>(q, k, v, out, B, S, H, KVH, causal, window, scale, stream);
+    case 64:
+      return launch_tc<T, 64>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
+    case 128:
+      return launch_tc<T, 128>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
+    case 256:
+      return launch_tc<T, 256>(q, k, v, out, B, S, S_kv, H, KVH, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -832,17 +842,20 @@ cudaError_t launch_tc_hd(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // Plain C interface, bound with ctypes.  dtype: 0 float32, 1 bf16, 2 fp16
-// (q, k, v and out all of it); every tensor contiguous.  The type picks the
-// kernel: float32 runs flash_kernel on the CUDA cores, bf16 and fp16 run
-// flash_wgmma_kernel on the tensor cores, whose tensor maps need every
-// pointer 16-byte aligned.  Launches on `stream`, does not synchronise,
+// (q, k, v and out all of it); every tensor contiguous; q and out hold S
+// rows, k and v S_kv, which must equal S when causal or window > 0.  The
+// type picks the kernel: float32 runs flash_kernel on the CUDA cores, bf16
+// and fp16 run flash_wgmma_kernel on the tensor cores, whose tensor maps
+// need every pointer 16-byte aligned.  Launches on `stream`, does not synchronise,
 // allocates nothing; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a head dim, type or alignment it has no
-// instance for; there is no fallback from one kernel to the other).
+// instance for, or unequal lengths under a mask; there is no fallback from one kernel to the other).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int S, int H, int KVH, int HD, int dtype,
-                                     int causal, int window, float scale, void* stream) {
-  if (B < 1 || S < 1 || KVH < 1 || H % KVH != 0 || H > 65535 || B > 65535) {
+                                     int B, int S, int S_kv, int H, int KVH, int HD,
+                                     int dtype, int causal, int window, float scale,
+                                     void* stream) {
+  if (B < 1 || S < 1 || S_kv < 1 || KVH < 1 || H % KVH != 0 || H > 65535 || B > 65535 ||
+      (S_kv != S && (causal || window > 0))) {
     return cudaErrorInvalidValue;
   }
   const uintptr_t any_bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -850,11 +863,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (dtype != 0 && any_bits % 16 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_hd<float>(q, k, v, out, B, S, H, KVH, HD, causal, window, scale, s);
-    case 1: return launch_tc_hd<__nv_bfloat16>(q, k, v, out, B, S, H, KVH, HD, causal, window,
-                                               scale, s);
-    case 2: return launch_tc_hd<__half>(q, k, v, out, B, S, H, KVH, HD, causal, window, scale,
-                                        s);
+    case 0:
+      return launch_hd<float>(q, k, v, out, B, S, S_kv, H, KVH, HD, causal, window, scale, s);
+    case 1:
+      return launch_tc_hd<__nv_bfloat16>(q, k, v, out, B, S, S_kv, H, KVH, HD, causal, window,
+                                         scale, s);
+    case 2:
+      return launch_tc_hd<__half>(q, k, v, out, B, S, S_kv, H, KVH, HD, causal, window, scale,
+                                  s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,21 +38,27 @@ INSTANCES = {
 flash_launches = 0
 
 
-def _check(q, k, v, block_q, block_k):
+def _check(q, k, v, block_q, block_k, causal, window):
     """The reference's shape contract, and its rejection of blocks that do
-    not divide S, as ``ValueError`` on both routes."""
+    not divide the lengths, as ``ValueError`` on both routes.  K and V may
+    be longer or shorter than q (cross-attention) only without a mask."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(
-            f"need q (B, S, H, hd) and k, v (B, S, KVH, hd), got {tuple(q.shape)}, "
+            f"need q (B, S, H, hd) and k, v (B, S_kv, KVH, hd), got {tuple(q.shape)}, "
             f"{tuple(k.shape)} and {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != hd:
+    S_kv = k.shape[1]
+    if k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if S_kv != S and (causal or window > 0):
+        raise ValueError(f"k and v {tuple(k.shape)} do not fit q {tuple(q.shape)}: a causal "
+                         "or windowed call needs as many keys as queries")
     if k.shape[2] < 1 or H % k.shape[2]:
         raise ValueError(f"{H} query heads do not split into groups of {k.shape[2]} kv heads")
-    bq, bk = min(block_q, S), min(block_k, S)
-    if bq < 1 or bk < 1 or S % bq or S % bk:
-        raise ValueError(f"S = {S} is not a multiple of the blocks ({bq}, {bk})")
+    bq, bk = min(block_q, S), min(block_k, S_kv)
+    if bq < 1 or bk < 1 or S % bq or S_kv % bk:
+        raise ValueError(f"S = {S} or S_kv = {S_kv} is not a multiple of the blocks "
+                         f"({bq}, {bk})")
 
 
 def k3_instance(dtype, hd):
@@ -92,10 +98,10 @@ def refuse_autograd(kernel: str, *tensors) -> None:
             "torch.no_grad()")
 
 
-def _mask(S, causal, window, device):
-    pos = torch.arange(S, device=device)
-    q_pos, k_pos = pos[:, None], pos[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+def _mask(S, S_kv, causal, window, device):
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(S_kv, device=device)[None, :]
+    mask = torch.ones((S, S_kv), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window > 0:
@@ -109,35 +115,37 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     scores set to -1e30, probabilities zeroed by the mask, and
     ``(P V) / max(l, 1e-30)`` cast to q's type."""
     B, S, H, hd = q.shape
-    kvh = k.shape[2]
+    S_kv, kvh = k.shape[1], k.shape[2]
     rep = H // kvh
     scale = hd ** -0.5 if scale is None else scale
     qg = q.float().reshape(B, S, kvh, rep, hd).permute(0, 2, 3, 1, 4).reshape(
         B, kvh, rep * S, hd)
-    kf = k.float().permute(0, 2, 1, 3)                      # (B, KVH, S, hd)
+    kf = k.float().permute(0, 2, 1, 3)                      # (B, KVH, S_kv, hd)
     vf = v.float().permute(0, 2, 1, 3)
-    s = torch.matmul(qg, kf.transpose(-1, -2)).view(B, kvh, rep, S, S) * scale
-    mask = _mask(S, causal, window, q.device)
+    s = torch.matmul(qg, kf.transpose(-1, -2)).view(B, kvh, rep, S, S_kv) * scale
+    mask = _mask(S, S_kv, causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.matmul(p.view(B, kvh, rep * S, S), vf).view(B, kvh, rep, S, hd) / denom
+    o = torch.matmul(p.view(B, kvh, rep * S, S_kv), vf).view(B, kvh, rep, S, hd) / denom
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAULT_BQ,
                     block_k=DEFAULT_BK):
-    """Attention of q (B, S, H, hd) over k, v (B, S, KVH, hd), H a multiple
-    of KVH: causal (key j <= query i), sliding-window (j > i - window, when
-    ``window > 0``), both, or full; ``scale`` defaults to hd ** -0.5.
-    Returns (B, S, H, hd) in q's type.
+    """Attention of q (B, S, H, hd) over k, v (B, S_kv, KVH, hd), H a
+    multiple of KVH: causal (key j <= query i), sliding-window (j > i -
+    window, when ``window > 0``), both, or full; ``scale`` defaults to
+    hd ** -0.5.  Returns (B, S, H, hd) in q's type.  S_kv may differ from S only
+    in a full call (cross-attention: every query over every key), or
+    ``ValueError``; the reference's kernel takes S_kv == S alone.
 
     ``block_q`` and ``block_k`` are the reference's tile sizes: S must be a
-    multiple of ``min(block, S)`` for each, or ``ValueError``, but they do
-    not change the result.  K3 picks its own tiles (:func:`k3_instance`):
-    bf16 and fp16 run on the tensor cores in blocks of 128 query rows
-    against key tiles of 128 (32 at head dim 256); float32 runs on the CUDA
-    cores, 64 query rows by 64 keys.
+    multiple of ``min(block_q, S)`` and S_kv of ``min(block_k, S_kv)``, or
+    ``ValueError``, but they do not change the result.  K3 picks its own
+    tiles (:func:`k3_instance`): bf16 and fp16 run on the tensor cores in
+    blocks of 128 query rows against key tiles of 128 (32 at head dim 256);
+    float32 runs on the CUDA cores, 64 query rows by 64 keys.
 
     CUDA tensors launch K3 (float32, bf16 or fp16, one type for q, k and v;
     head dim 64, 128 or 256) and count in :data:`flash_launches`; CPU
@@ -145,8 +153,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None, block_q=DEFAU
     route raises ``RuntimeError`` (:func:`refuse_autograd`) where autograd
     would need a gradient through it.
     """
-    _check(q, k, v, block_q, block_k)
     window = max(int(window), 0)
+    _check(q, k, v, block_q, block_k, causal, window)
     if not kernel_route(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     refuse_autograd("flash_attention (kernel K3)", q, k, v)
@@ -181,8 +189,8 @@ def _launch(q, k, v, causal, window, scale):
         with torch.cuda.device(dev):
             err = lib.repro_flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, H, k.shape[2], hd, DTYPE_IDS[q.dtype], int(bool(causal)), window,
-                float(scale), torch.cuda.current_stream(dev).cuda_stream,
+                B, S, k.shape[1], H, k.shape[2], hd, DTYPE_IDS[q.dtype], int(bool(causal)),
+                window, float(scale), torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError("flash_attention: K3 launch failed: "

@@ -6,10 +6,11 @@
 The port of ``repro.launch.serve``, with the reference's flags plus
 ``--device``.  On the card (the default) ``--real-tokens`` gives every
 replica an :class:`~repro_torch.serving.InferenceEngine` of the arch (any
-the port registers: dense, moe, hybrid, ssm) at its full width, with
-random weights from seed 0 shared by all replicas, running kernels K3 and
-K4 (xLSTM runs neither); ``--device cpu`` runs the arch's reduced config
-on the plain route, as the reference's launcher does.  Without CUDA and
+of the ten the port registers) at its full width, with random weights
+from seed 0 shared by all replicas, running kernels K3 and K4 (xLSTM runs
+neither; paligemma-3b's 256 image tokens overflow the 96-slot engines,
+as in the reference, ROADMAP.md § 3.10); ``--device cpu`` runs the arch's
+reduced config on the plain route, as the reference's launcher does.  Without CUDA and
 without ``--device cpu`` it exits 2.  ``--dry-run`` and ``--multi-pod``
 need the dry-run launcher, not ported yet (ROADMAP.md, Queue 1 item F):
 they exit 2 and say so.

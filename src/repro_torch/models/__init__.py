@@ -1,6 +1,6 @@
-"""Models of the port: the decoder-only LMs of the dense, moe, hybrid and
-ssm families behind the serving engine and the trainer (vlm, audio and the
-encoder-decoder of ``repro.models`` are not ported yet)."""
+"""Models of the port: the decoder-only LMs of the dense, vlm, moe, hybrid
+and ssm families and the encoder-decoder, behind the serving engine and the
+trainer."""
 from .model_zoo import (
     active_param_count,
     decode_fn,

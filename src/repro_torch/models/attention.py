@@ -1,24 +1,27 @@
-"""GQA attention: training (full or sliding-window causal), prefill and
-cached decode, with the ring cache of the windowed layers.
+"""GQA attention: training (full or sliding-window causal, or
+bidirectional), cross-attention, prefill and cached decode, with the ring
+cache of the windowed layers.
 
-The port of ``repro.models.attention`` (all but ``cross_attention``, which
-belongs to the encoder-decoder).  The reference computes attention with
-einsums and names the Pallas kernels as having the same semantics; here
-the card runs those kernels:
+The port of ``repro.models.attention``.  The reference computes attention
+with einsums and names the Pallas kernels as having the same semantics;
+here the card runs those kernels:
 
 * prefill (and the full-sequence ``attention_train``) calls K3,
   :func:`repro_torch.kernels.flash_attention`, causal, with the layer's
   window (hymba: 2048; 0 elsewhere) and K and V left unexpanded (K3 reads
-  each query-head group's KV head itself);
+  each query-head group's KV head itself); the encoder's bidirectional
+  layers and ``cross_attention`` call it with ``causal=False``, the latter
+  with as many keys as the memory has rows;
 * decode writes the new K/V at slot ``cur_len % cache_len`` and calls K4,
   :func:`repro_torch.kernels.decode_attention`, over the layer's cache.
 
 On the CPU, and on the card only under ``kernel=False`` (the oracle of the
 kernel route), the reference's path runs: K/V expanded to every head,
 ``_causal_mask`` (or the banded :func:`_local_attention` where
-``cfg.local_attention`` asks for it) or the cache's positions as the mask,
-scores in float32 masked to ``finfo(float32).min``, probabilities cast to
-the compute dtype before the PV product.  There is no fallback between the
+``cfg.local_attention`` asks for it), an all-true mask (bidirectional and
+cross-attention) or the cache's positions as the mask, scores in float32
+masked to ``finfo(float32).min``, probabilities cast to the compute dtype
+before the PV product.  There is no fallback between the
 two: a head dim the kernels have no instance for raises their
 ``ValueError``.
 
@@ -45,8 +48,14 @@ read per layer and step) and
   the reference attends to what is left; the port matches it on both
   routes.
 
-A layer without a window keeps a cache as long as its sequence: a prompt
-longer than the cache, or a position past it, raises ``ValueError``.
+A layer without a window behaves the same way once its sequence outgrows
+its cache, as the reference's does: a prefill longer than the cache keeps
+its last ``cache_len`` tokens at slots 0..cache_len-1, and a step past the
+cache overwrites slot ``cur_len % cache_len`` (ROADMAP.md § 3.10: the vlm
+engine's image tokens take it there).  Its mask is ``0 <= pos <=
+cur_len``, and K4 reads the first ``min(cur_len + 1, cache_len)`` slots
+(:func:`decode_attention` proves that this is the mask) without reading
+anything to the host.
 
 The KV cache is updated in place.  The reference's sharding constraints
 (``constrain_attention*`` of ``distributed/ctx.py``) are no-ops outside a
@@ -185,15 +194,39 @@ def _causal_attention(q, k, v, cfg: ModelConfig, window: int, kernel: bool):
     return _sdpa(q, ke, ve, mask, cfg.compute_dtype)
 
 
+def _full_attention(q, k, v, cfg: ModelConfig, kernel: bool):
+    """Every query of q (B, S, H, hd) over every row of k, v (B, S_kv, KVH,
+    hd), S_kv of its own: K3 without a mask on the card, the reference's
+    einsums over an all-true mask elsewhere."""
+    s, s_kv = q.shape[1], k.shape[1]
+    if _kernel_route(q, kernel):
+        return ops.flash_attention(q, k, v, causal=False, block_q=s, block_k=s_kv)
+    mask = torch.ones((1, 1, s, s_kv), dtype=torch.bool, device=q.device)
+    return _sdpa(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads), mask,
+                 cfg.compute_dtype)
+
+
 def attention_train(x, p, cfg: ModelConfig, positions, window: int = 0,
-                    kernel: bool = True):
-    """Causal self-attention over a full sequence (no cache), within
-    ``window`` (0 = none)."""
+                    bidirectional: bool = False, kernel: bool = True):
+    """Self-attention over a full sequence (no cache): causal within
+    ``window`` (0 = none), or ``bidirectional`` (the encoder's: every
+    position over every position, never banded)."""
     cd = cfg.compute_dtype
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return _out(_causal_attention(q, k, v, cfg, window, kernel), p["wo"], cd)
+    att = (_full_attention(q, k, v, cfg, kernel) if bidirectional
+           else _causal_attention(q, k, v, cfg, window, kernel))
+    return _out(att, p["wo"], cd)
+
+
+def cross_attention(x, memory, p, cfg: ModelConfig, kernel: bool = True):
+    """x (B, S, D) attending over ``memory`` (B, S_src, D): q from x, k and
+    v from the memory, no rope and no mask."""
+    cd = cfg.compute_dtype
+    q = _project(x, p["wq"], cd)
+    k, v = _project(memory, p["wk"], cd), _project(memory, p["wv"], cd)
+    return _out(_full_attention(q, k, v, cfg, kernel), p["wo"], cd)
 
 
 # ---------------------------------------------------------------------------
@@ -215,14 +248,12 @@ def prefill_attention(x, p, cfg: ModelConfig, positions, cache: KVCache, window:
     """Full-sequence attention that also fills the KV cache, in place.  A
     cache of at least S slots gets the S new K/V rows at slots 0..S-1, zeros
     and position -1 past them, as the reference's padded cache holds; a
-    windowed layer's shorter ring gets the last ``cache_len`` tokens at
-    slots 0..cache_len-1 with their positions."""
+    shorter one (a windowed layer's ring, or a full layer's cache that the
+    sequence outgrows, § 3.10) gets the last ``cache_len`` tokens at slots
+    0..cache_len-1 with their positions."""
     cd = cfg.compute_dtype
     s = x.shape[1]
     cache_len = cache.k.shape[1]
-    if cache_len < s and window <= 0:
-        raise ValueError(f"a cache of {cache_len} slots cannot hold a prompt of {s} tokens; "
-                         "only a sliding-window layer keeps a ring")
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -267,17 +298,26 @@ def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int, windo
     """One-token attention against the cache.  x: (B, 1, D); ``cur_len``:
     the absolute position of the new token, written at slot ``cur_len %
     cache_len`` in place, and the reference's mask over the cache's
-    positions (within ``window`` when it is positive).  Without a window
-    the position must lie inside the cache, whose first ``cur_len`` slots
-    hold positions 0..cur_len-1 (a prefill and the decode steps after it),
-    so that the mask is the first ``cur_len + 1`` slots, K4's ``lengths``."""
+    positions, ``0 <= pos <= cur_len`` (and ``pos > cur_len - window`` when
+    the window is positive).
+
+    Without a window, on the kernel route, K4 reads the first
+    ``min(cur_len + 1, cache_len)`` slots, which is the mask when the cache
+    was filled by a prefill of s tokens and the decode steps at s, s + 1,
+    ..., cur_len after it (the engine's use).  Proof, L = cache_len: every
+    write stores a position at most cur_len and at least 0, so a slot is
+    masked out exactly when it still holds -1.  If s >= L, the prefill
+    wrote all L slots, so all are valid, and cur_len >= s >= L gives L =
+    min(cur_len + 1, L).  If s < L, the prefill wrote slots 0..s-1 and the
+    step at position p writes slot p % L, which is p while p < L; so while
+    cur_len < L the written slots are exactly 0..cur_len, a prefix of
+    cur_len + 1, and once cur_len >= L the steps s..L-1 have written the
+    rest, so all L are valid.  In both cases the valid slots are the first
+    min(cur_len + 1, L)."""
     cd = cfg.compute_dtype
     b = x.shape[0]
     cur_len = int(cur_len)
     cache_len = cache.k.shape[1]
-    if window <= 0 and not 0 <= cur_len < cache_len:
-        raise ValueError(f"position {cur_len} is past the cache's {cache_len} slots; "
-                         "only a sliding-window layer keeps a ring")
     slot = cur_len % cache_len
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(x, p, cd)
@@ -288,7 +328,7 @@ def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int, windo
     cache.pos[slot] = cur_len
     kc, vc = cache.k.to(cd), cache.v.to(cd)
     if _kernel_route(x, kernel):
-        n = cur_len + 1
+        n = min(cur_len + 1, cache_len)
         if window > 0:
             kc, vc, n = _ring_slots(kc, vc, _decode_mask(cache.pos, cur_len, window))
         lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)

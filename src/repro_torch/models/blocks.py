@@ -1,4 +1,5 @@
-"""Per-layer blocks of the decoder-only families: dense, moe, hybrid, ssm.
+"""Per-layer blocks of the decoder-only families: dense, vlm, moe, hybrid,
+ssm.
 
 The port of ``repro.models.blocks``.  Each family provides:
 
@@ -13,9 +14,9 @@ port keeps a list of per-layer dicts and loops over it, and a layer's
 cache is updated in place.  ``flag`` is the layer's entry of
 :func:`layer_flags` (xLSTM: whether it is an sLSTM layer; every xLSTM
 layer holds both parameter sets and both states, as the reference's
-stacked layers do).  The vlm and audio families and the encoder-decoder
-raise ``NotImplementedError``: they are not ported yet (ROADMAP.md, Queue
-1 item D).
+stacked layers do).  A vlm layer is a dense one: its image tokens reach it
+as embeddings fused in front of the text (:mod:`.transformer`).  The
+encoder-decoder's layers are :mod:`.encdec`'s.
 """
 from __future__ import annotations
 
@@ -34,21 +35,6 @@ from .layers import init_mlp, init_rms_norm, mlp, rms_norm
 from .moe import init_moe, moe_layer
 from .ssm import init_ssm, init_ssm_state, ssm_decode, ssm_prefill, ssm_train
 
-#: the families the port runs
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    """``NotImplementedError`` for the families not ported yet: vlm, audio
-    and the encoder-decoder (the name dates from when only the dense family
-    ran)."""
-    if cfg.is_encdec or cfg.family not in FAMILIES:
-        kind = "the encoder-decoder route" if cfg.is_encdec else f"family {cfg.family!r}"
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} is not ported yet; the port runs the "
-            f"{', '.join(FAMILIES)} families (ROADMAP.md, Queue 1 item D)")
-
-
 def attn_window(cfg: ModelConfig) -> int:
     return cfg.window if cfg.family == "hybrid" else 0
 
@@ -61,13 +47,12 @@ def layer_flags(cfg: ModelConfig) -> list[bool]:
 
 
 def init_layer(generator, cfg: ModelConfig, device) -> dict:
-    require_dense(cfg)
     d, fam = cfg.d_model, cfg.family
     p: dict = {"ln1": init_rms_norm(d, cfg.param_dtype, device)}
-    if fam in ("dense", "moe", "hybrid"):
+    if fam in ("dense", "vlm", "moe", "hybrid"):
         p["attn"] = init_attention(generator, cfg, device)
         p["ln2"] = init_rms_norm(d, cfg.param_dtype, device)
-    if fam in ("dense", "hybrid"):
+    if fam in ("dense", "vlm", "hybrid"):
         p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.param_dtype, device)
     if fam == "moe":
         p["moe"] = init_moe(generator, cfg, device)
@@ -95,7 +80,6 @@ def _zero(x):
 
 def layer_train(p: dict, cfg: ModelConfig, x, positions, flag: bool = False,
                 kernel: bool = True):
-    require_dense(cfg)
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":
@@ -111,9 +95,8 @@ def layer_train(p: dict, cfg: ModelConfig, x, positions, flag: bool = False,
 
 
 def init_layer_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
-    require_dense(cfg)
     fam = cfg.family
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "vlm", "moe"):
         return {"kv": init_kv_cache(cfg, batch, s_max, device)}
     if fam == "hybrid":
         w = min(cfg.window, s_max) if cfg.window else s_max
@@ -125,7 +108,6 @@ def init_layer_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
 
 def layer_prefill(p: dict, cfg: ModelConfig, x, positions, cache, flag: bool = False,
                   kernel: bool = True):
-    require_dense(cfg)
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":
@@ -142,7 +124,6 @@ def layer_prefill(p: dict, cfg: ModelConfig, x, positions, cache, flag: bool = F
 
 def layer_decode(p: dict, cfg: ModelConfig, x, cur_len, cache, flag: bool = False,
                  kernel: bool = True):
-    require_dense(cfg)
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":

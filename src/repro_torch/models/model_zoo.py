@@ -1,12 +1,12 @@
-"""Model facade: the reference's uniform API, over the families ported so
-far (dense, moe, hybrid and ssm).
+"""Model facade: the reference's uniform API over all ten architectures
+(dense, vlm, moe, hybrid, ssm, and the encoder-decoder).
 
   init_params(cfg, generator, device)   -> parameter dict
   loss_fn(params, cfg, batch)           -> (loss, metrics)
   logits_fn(params, cfg, batch)         -> (B, S, V) float32 logits
   prefill_fn(params, cfg, batch, cache) -> (logits, cache)
   decode_fn(params, cfg, token, cur_len, cache) -> (logits, cache)
-  init_cache(cfg, batch, s_max, device)  -> cache
+  init_cache(cfg, batch, s_max, src_len, device) -> cache
   param_count(cfg)                      -> parameters, without allocating
   embedding_param_count(cfg)            -> of which in the token tables
   active_param_count(cfg)               -> per token (MoE: top_k of n_experts)
@@ -18,10 +18,11 @@ forward run kernel K3 in every layer and a decode step K4; ``kernel=False``
 selects the reference's einsum path there, as the kernels' oracle, and is
 the path to differentiate: the kernels are forward-only, so ``loss_fn``
 with grad enabled on parameters that require grad raises on the card
-unless given ``kernel=False`` (the trainer's step).  The encoder-decoder
-branches raise ``NotImplementedError``, as the vlm and audio families do;
-``abstract_*`` and ``input_specs`` wait for the dry-run launcher
-(ROADMAP.md, Queue 1 items D and F).
+unless given ``kernel=False`` (the trainer's step).  The vlm and audio
+families take the modality stub's embeddings as ``batch["frontend"]``;
+``cfg.is_encdec`` (seamless-m4t) routes every entry point to
+:mod:`.encdec`.  ``abstract_*`` and ``input_specs`` wait for the dry-run
+launcher (ROADMAP.md, Queue 1 item F).
 """
 from __future__ import annotations
 
@@ -29,8 +30,7 @@ from typing import Any
 
 from ..configs.base import ModelConfig
 from ..core.provision import _resolve_device
-from . import transformer
-from .blocks import require_dense
+from . import encdec, transformer
 from .ssm import ssm_dims
 from .xlstm import xlstm_dims
 
@@ -38,28 +38,45 @@ from .xlstm import xlstm_dims
 def init_params(cfg: ModelConfig, generator, device="cuda") -> Any:
     """Random weights from ``generator`` (a ``torch.Generator``; one on the
     card draws a full-width model in well under a second)."""
-    return transformer.init_lm_params(generator, cfg, _resolve_device(device, "init_params"))
+    device = _resolve_device(device, "init_params")
+    if cfg.is_encdec:
+        return encdec.init_encdec_params(generator, cfg, device)
+    return transformer.init_lm_params(generator, cfg, device)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
+    if cfg.is_encdec:
+        return encdec.encdec_loss(params, cfg, batch, kernel=kernel)
     return transformer.lm_loss(params, cfg, batch, kernel=kernel)
 
 
 def logits_fn(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
+    """(B, S, V) float32 logits; the encoder-decoder's unembed with
+    ``params["embed"]``, its one token table."""
+    if cfg.is_encdec:
+        return encdec.encdec_logits(params, cfg, batch, kernel=kernel)
     return transformer.lm_logits(params, cfg, batch, kernel=kernel)
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, device="cuda"):
-    """The decode cache of ``s_max`` slots (the reference's ``src_len`` is
-    the encoder-decoder's source length: that route is not ported)."""
-    return transformer.init_lm_cache(cfg, batch, s_max, _resolve_device(device, "init_cache"))
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, src_len: int = 0, device="cuda"):
+    """The decode cache of ``s_max`` slots; the encoder-decoder's also holds
+    the cross K/V of ``src_len`` source frames (4096 when 0, as in the
+    reference)."""
+    device = _resolve_device(device, "init_cache")
+    if cfg.is_encdec:
+        return encdec.init_encdec_cache(cfg, batch, s_max, src_len or 4096, device)
+    return transformer.init_lm_cache(cfg, batch, s_max, device)
 
 
 def prefill_fn(params, cfg: ModelConfig, batch: dict, cache, kernel: bool = True):
+    if cfg.is_encdec:
+        return encdec.encdec_prefill(params, cfg, batch, cache, kernel=kernel)
     return transformer.lm_prefill(params, cfg, batch, cache, kernel=kernel)
 
 
 def decode_fn(params, cfg: ModelConfig, token, cur_len, cache, kernel: bool = True):
+    if cfg.is_encdec:
+        return encdec.encdec_decode_step(params, cfg, token, cur_len, cache, kernel=kernel)
     return transformer.lm_decode_step(params, cfg, token, cur_len, cache, kernel=kernel)
 
 
@@ -67,9 +84,9 @@ def _layer_param_count(cfg: ModelConfig) -> int:
     """Parameters of one layer of ``blocks.init_layer``, from the shapes."""
     d, h, kvh, hd, fam = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.family
     n = d                                                   # ln1
-    if fam in ("dense", "moe", "hybrid"):
+    if fam in ("dense", "vlm", "moe", "hybrid"):
         n += d * (h + 2 * kvh) * hd + h * hd * d + d        # attn, ln2
-    if fam in ("dense", "hybrid"):
+    if fam in ("dense", "vlm", "hybrid"):
         n += 3 * d * cfg.d_ff
     if fam == "moe":
         n += d * cfg.n_experts + 3 * cfg.n_experts * d * cfg.moe_d_ff
@@ -86,15 +103,18 @@ def _layer_param_count(cfg: ModelConfig) -> int:
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``init_params(cfg, ...)``, from the shapes alone."""
-    require_dense(cfg)
-    return embedding_param_count(cfg) + cfg.n_layers * _layer_param_count(cfg) + cfg.d_model
+    if cfg.is_encdec:
+        return encdec.param_count(cfg)
+    frontend = cfg.d_model ** 2 if cfg.frontend != "none" else 0
+    return (embedding_param_count(cfg) + cfg.n_layers * _layer_param_count(cfg) + cfg.d_model
+            + frontend)
 
 
 def embedding_param_count(cfg: ModelConfig) -> int:
     """Parameters of the token tables (the embedding, and the unembedding
-    unless tied)."""
-    require_dense(cfg)
-    return (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model
+    unless tied; the encoder-decoder has the one table)."""
+    tables = 1 if cfg.tie_embeddings or cfg.is_encdec else 2
+    return tables * cfg.vocab_size * cfg.d_model
 
 
 def active_param_count(cfg: ModelConfig) -> int:

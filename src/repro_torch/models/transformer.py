@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, moe, hybrid and ssm families: init, train,
-forward and serving.
+"""Decoder-only LM of the dense, vlm, moe, hybrid and ssm families: init,
+train, forward and serving.
 
 The port of ``repro.models.transformer``.  The reference scans a stacked
 layer tree; here ``params["blocks"]`` is a list of per-layer dicts and the
@@ -11,7 +11,11 @@ result.  :func:`lm_loss` streams the unembedding and the cross-entropy over
 :data:`LOSS_CHUNK` positions at a time, so the (B, S, V) logits never exist
 at once.  The decode cache keeps the reference's layout, ``{"kv":
 KVCache}`` with the layer axis leading, and each layer updates its slice
-in place.
+in place.  The vlm family's image tokens are the modality stub's
+embeddings, ``batch["frontend"]`` (B, n_frontend_tokens, D), projected by
+``frontend_proj`` and put before the text's (early fusion): the sequence
+the layers see is [image | text] at positions 0..nf+S-1, causal over
+both as in the reference, and the loss scores the text alone.
 The hybrid family's cache is ``{"kv": KVCache, "ssm": SSMState}`` and the
 ssm (xLSTM) family's ``{"mlstm": MLSTMState, "slstm": SLSTMState}``, each
 leaf stacked on a leading layer axis in the same way.
@@ -34,16 +38,21 @@ from .blocks import (
     layer_flags,
     layer_prefill,
     layer_train,
-    require_dense,
 )
-from .layers import embed_tokens, init_embedding, init_rms_norm, rms_norm, unembed
+from .layers import (
+    embed_tokens,
+    init_dense,
+    init_embedding,
+    init_rms_norm,
+    rms_norm,
+    unembed,
+)
 
 #: positions per chunk of the streamed cross-entropy
 LOSS_CHUNK = 512
 
 
 def init_lm_params(generator, cfg: ModelConfig, device) -> dict:
-    require_dense(cfg)
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, cfg.param_dtype,
                                 device),
@@ -53,6 +62,9 @@ def init_lm_params(generator, cfg: ModelConfig, device) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                       cfg.param_dtype, device)
+    if cfg.frontend != "none":
+        p["frontend_proj"] = init_dense(generator, (cfg.d_model, cfg.d_model),
+                                        cfg.param_dtype, device)
     return p
 
 
@@ -61,10 +73,14 @@ def _unembed_table(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token embeddings.  The modality stubs (``frontend``) belong to the
-    vlm and audio families, which are not ported yet."""
-    require_dense(cfg)
-    return embed_tokens(batch["tokens"], params["embed"], cfg.compute_dtype)
+    """Token embeddings, with the modality stub's tokens (projected by
+    ``frontend_proj``) fused at the front."""
+    cd = cfg.compute_dtype
+    x = embed_tokens(batch["tokens"], params["embed"], cd)
+    if cfg.frontend != "none":
+        fe = torch.matmul(batch["frontend"].to(cd), params["frontend_proj"].to(cd))
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def _positions(batch: int, seq: int, device) -> torch.Tensor:

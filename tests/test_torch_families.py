@@ -204,9 +204,10 @@ def check_cache(got, want, tol, first_flip, what):
 
 
 def test_list_archs_holds_the_families():
+    from repro.configs import list_archs as ref_archs
     from repro_torch.configs import list_archs
 
-    assert set(ARCHS) <= set(list_archs())
+    assert set(ARCHS) <= set(list_archs()) == set(ref_archs())
 
 
 def test_logits_match_reference(pair):
