@@ -237,6 +237,30 @@ Phases, one line or more each:
    with zero frames; (d) for both, ``loss_fn`` through K3 under
    ``no_grad`` against the einsum route (1e-4 relative in float32, 1e-2 in
    bf16); each model's bench, K3 and K4 at its shapes timed, peak memory.
+17. mesh (run after phase 16, before 9 and 10) — the multi-device route,
+   ``ProvisionSpec(mesh=...)``, each rank a process of
+   ``repro_torch.distributed.world.run_world`` (a ``FileStore`` in a
+   temporary directory, a 120 s group timeout, every group destroyed):
+   (a) phase 4's fleet in a world of one over NCCL, A1, A2, A3,
+   delayedoff, AQ-det and AQ-rand through ``provision(mesh=)`` and
+   ``provision_stream(mesh=)``, A2 over a noise sweep of S = 2, A1 and
+   AQ-rand with ``record_decisions``; (b) a fleet of 4099 levels (not a
+   multiple of 4) over phase 4's demand times 1.6 (past the cap), untyped
+   and typed (three groups of 1000, 1500 and 1599, Δ 2.5, 3.0, 2.5), A1,
+   A3 and AQ-rand through both entry points, in a world of four processes
+   on the one card over gloo.  Every rank's x, level_cost, cost, energy,
+   toggle_cost, group_cost and decision_counts must equal the
+   single-device kernel route's and the plain route's, and the other
+   ranks', and each call launch K2 once and K1 never on each rank; (c)
+   ``FleetProvisioner(mesh=).plan_sweep`` equal to the planner without a
+   mesh, and the eval CLI's mesh smoke (cells equal, one K2 launch for its
+   block); (d) two planted faults (pad lanes routed past the fleet and
+   unmasked; the level blocks gathered in reverse) must change a leaf;
+   (e) wall ms of A1 on the mesh route at worlds 1 and 4 beside the
+   single-device route, and K2's CUPTI ms per rank; (f) only on a machine
+   with several cards: (b)'s cases and planted faults in a world of one
+   process per card over NCCL, each rank on its own card, checked as (b)
+   (there (b)'s gloo ranks take a card each too).
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -273,7 +297,7 @@ Phases, one line or more each:
    group of 32 in bf16), each held to the plain version.
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
-launches include the eval's and the stepper's, K3's and K4's the serving
+launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
 paths' of phases 13, 15 and 16, K3's the no-grad losses of phases 14 and
 16); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -2783,6 +2807,390 @@ def vlm_encdec_phase(smi):
     return out
 
 
+MESH_WORLD = 4                   # phase 17 (b): four processes on the one card, over gloo
+MESH_LEVELS = 4099               # phase 17 (b): a fleet that does not divide by the world
+MESH_SCALE = 1.6                 # (b): demand scaled past the cap (peak about 7,600), so pad lanes would show
+MESH_POLICIES = ("A1", "A2", "A3", "delayedoff", "AQ-det", "AQ-rand")     # (a)
+MESH_POLICIES_B = ("A1", "A3", "AQ-rand")                                 # (b)
+MESH_NOISE = (0.0, 0.25)         # (a): the noise sweep, S = 2
+# (b): a typed fleet of three groups of uneven sizes, Δ 2.5, 3.0 and 2.5:
+# (servers, P, beta_on, beta_off); 4099 servers in all
+MESH_GROUPS = ((1000, 1.0, 1.25, 1.25), (1500, 2.0, 3.0, 3.0), (1599, 1.5, 2.0, 1.75))
+MESH_REPS = 5                    # (e): timed calls per route, the same number on every rank
+MESH_LEAVES = ("x", "level_cost", "cost", "energy", "toggle_cost", "group_cost")
+
+
+def mesh_cases(part, dev):
+    """Phase 17's cases of part ``"a"`` (phase 4's smoke fleet) or ``"b"`` (the
+    fleet of ``MESH_LEVELS`` over scaled demand, untyped and typed), as the
+    case dicts of :func:`run_specs`.  Every
+    call builds the specs anew, each keyed one with a fresh generator from
+    ``SEED``: a rank and the single-device runs then draw the same numbers,
+    and a generator serves one call."""
+    import numpy as np
+    import torch
+
+    from repro_torch import (
+        PAPER_COSTS,
+        CostModel,
+        PolicySpec,
+        PredictionNoise,
+        ProvisionSpec,
+        ServerGroup,
+        Workload,
+        msr_like_trace,
+    )
+
+    demand = np.stack([
+        msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
+                       mean_jobs=N_LEVELS / 4.0)
+        for b in range(N_TRACES)
+    ])
+    ab = torch.as_tensor(demand, device=dev).to(torch.int32)
+
+    def spec(policy, costs=PAPER_COSTS, a=ab, n=N_LEVELS, noise=None):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return ProvisionSpec(
+            costs=costs,
+            workload=Workload(demand=a, noise=None if noise is None else PredictionNoise(
+                std_frac=list(noise),
+                generator=torch.Generator(device=dev).manual_seed(SEED + 1))),
+            policy=PolicySpec(policy, windows=WINDOWS, generator=gen),
+            n_levels=n, device=dev,
+        )
+
+    cases = []
+    if part == "a":
+        for p in MESH_POLICIES:
+            cases += [dict(name=p, spec=spec(p)), dict(name=f"{p}/stream", spec=spec(p), stream=True)]
+        cases += [
+            dict(name="A2/noise", spec=spec("A2", noise=MESH_NOISE)),
+            dict(name="A2/noise/stream", spec=spec("A2", noise=MESH_NOISE), stream=True),
+            dict(name="A1/record", spec=spec("A1"), record_decisions=True),
+            dict(name="AQ-rand/record/stream", spec=spec("AQ-rand"), stream=True,
+                 record_decisions=True),
+        ]
+        return cases
+    scaled = torch.round(ab.to(torch.float32) * MESH_SCALE).to(torch.int32)
+    typed = CostModel.from_groups(*[
+        ServerGroup(f"g{i}", n, P=P, beta_on=bon, beta_off=boff)
+        for i, (n, P, bon, boff) in enumerate(MESH_GROUPS)])
+    for fleet, costs in (("N4099", PAPER_COSTS), ("typed", typed)):
+        for p in MESH_POLICIES_B:
+            cases += [dict(name=f"{fleet}/{p}", spec=spec(p, costs, scaled, MESH_LEVELS)),
+                      dict(name=f"{fleet}/{p}/stream", spec=spec(p, costs, scaled, MESH_LEVELS),
+                           stream=True)]
+    return cases
+
+
+#: the result fields a rank returns for each case (``decision_counts`` too, when filled)
+RESULT_FIELDS = ("x", "cost", "energy", "toggle_cost", "level_cost", "group_cost",
+                 "backlog", "max_delay", "p99_delay", "deadline_misses", "unserved")
+
+
+def run_specs(mesh, cases):
+    """Each case's spec once with ``mesh=mesh``, through ``provision`` or
+    (``stream``) ``provision_stream``: ``{name: {field: tensor, ...,
+    "decisions", "decision_counts", "launches": {"K1": n, "K2": n}}}``, the
+    launches being this rank's kernel launches in that call."""
+    import dataclasses
+
+    from repro_torch import provision, provision_stream
+    from repro_torch.kernels import provision_scan as kernels
+
+    out = {}
+    for case in cases:
+        spec = dataclasses.replace(case["spec"], mesh=mesh)
+        record = bool(case.get("record_decisions", False))
+        k1, k2 = kernels.launches, kernels.stream_launches
+        res = (provision_stream(spec, record_decisions=record) if case.get("stream")
+               else provision(spec, record_decisions=record))
+        row = {f: getattr(res, f) for f in RESULT_FIELDS + ("decisions", "decision_counts")}
+        row["launches"] = {"K1": kernels.launches - k1, "K2": kernels.stream_launches - k2}
+        out[case["name"]] = row
+    return out
+
+
+def mesh_timed_spec(part, dev):
+    """The spec of (e)'s timings: A1 on part ``part``'s fleet."""
+    name = "A1" if part == "a" else "N4099/A1"
+    return next(c for c in mesh_cases(part, dev) if c["name"] == name)["spec"]
+
+
+def rank_times(fn, group, reps):
+    """This rank's wall ms per ``fn()`` call (median of ``reps``, each call
+    between a barrier and a sync), K2's CUPTI ms per call (mean over
+    ``reps`` calls under the profiler; None when it kept no record), the
+    number of K2 records, and the three host operations of most self time
+    under the profiler, with their ms per call.  Every rank makes the same
+    calls: each is a collective."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(reps):
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == DeviceType.CUDA and "stream_scan_kernel" in e.key]
+    kept = sum(e.count for e in events)
+    k2 = sum(e.self_device_time_total for e in events) / 1e3 / kept if kept else None
+    host = sorted(averages, key=lambda e: e.self_cpu_time_total, reverse=True)[:3]
+    top = ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / reps:.2f}" for e in host)
+    return statistics.median(walls), k2, kept, top
+
+
+def collective_ms(group, n_levels, reps):
+    """This rank's wall ms (median of ``reps``, between a barrier and a
+    sync) of the mesh route's two collectives alone, on tensors of the
+    shapes an A1 call at the smoke grid gives them: x summed (1, W, B, T)
+    int32 and the three level terms gathered (3, 1, W, B, lanes) float32."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import torch_provision as engine
+
+    size = dist.get_world_size(group)
+    lanes = engine._group_layout(n_levels, None, size)[2] // size
+    x = torch.ones((1, len(WINDOWS), N_TRACES, N_SLOTS), dtype=torch.int32, device="cuda")
+    terms = torch.ones((3, 1, len(WINDOWS), N_TRACES, lanes), device="cuda")
+    walls = []
+    for _ in range(reps + 1):                # the first call is a warm-up
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._sum_ranks(x, group)
+        engine._gather_levels(terms, group, size)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:])
+
+
+def mesh_rank(mesh, part):
+    """One rank of phase 17 (a :func:`repro_torch.distributed.world.run_world`
+    target): part ``part``'s cases on ``mesh`` with this rank's launches per
+    call; in (a) ``FleetProvisioner(mesh=)``'s ``plan_sweep``, in (b) the
+    planted faults; then (e)'s times."""
+    import dataclasses
+    import unittest.mock
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import PAPER_COSTS, provision, provision_stream
+    from repro_torch.kernels import provision_scan as kernels
+    from repro_torch.serving import FleetProvisioner
+
+    dev = torch.device("cuda")
+    out = {"cases": run_specs(mesh, mesh_cases(part, dev)), "rank": dist.get_rank()}
+    if part == "a":
+        ab = mesh_cases("a", dev)[0]["spec"].workload.demand
+        planner = FleetProvisioner(PAPER_COSTS, policy="A1", max_replicas=N_LEVELS, mesh=mesh,
+                                   device=dev)
+        k2 = kernels.stream_launches
+        out["plan_sweep"] = planner.plan_sweep(torch.clamp(ab, max=N_LEVELS), WINDOWS)
+        out["plan_sweep_launches"] = kernels.stream_launches - k2
+    else:
+        unmasked_from = kernels.provision_scan_stream
+
+        def unmasked(*args, routes, n_levels, **kw):
+            # planted: pad lanes routed past the fleet and counted (no lane mask)
+            routes = torch.where(routes >= n_levels, n_levels, routes)
+            return unmasked_from(*args, routes=routes, n_levels=2**31 - 1, **kw)
+
+        gather_from = dist.all_gather
+
+        def reversed_gather(parts, *args, **kw):
+            # planted: the ranks' level blocks gathered in reverse order
+            work = gather_from(parts, *args, **kw)
+            parts.reverse()
+            return work
+
+        faults = {}
+        with unittest.mock.patch.object(kernels, "provision_scan_stream", unmasked):
+            spec = next(c for c in mesh_cases("b", dev) if c["name"] == "N4099/A1")["spec"]
+            faults["pad lanes unmasked"] = provision_stream(dataclasses.replace(spec, mesh=mesh))
+        with unittest.mock.patch.object(dist, "all_gather", reversed_gather):
+            spec = next(c for c in mesh_cases("b", dev) if c["name"] == "typed/A1")["spec"]
+            faults["blocks gathered in reverse"] = provision_stream(
+                dataclasses.replace(spec, mesh=mesh))
+        out["faults"] = {k: {f: getattr(v, f) for f in MESH_LEAVES} for k, v in faults.items()}
+    spec = dataclasses.replace(mesh_timed_spec(part, dev), mesh=mesh)
+    out["wall_ms"], out["k2_ms"], out["k2_kept"], out["host_top"] = rank_times(
+        lambda: provision(spec), mesh.get_group("data"), MESH_REPS)
+    out["comm_ms"] = collective_ms(mesh.get_group("data"), spec.n_levels, MESH_REPS)
+    return out
+
+
+def mesh_phase(smi):
+    """Phase 17: the multi-device route.  (a) phase 4's fleet in a world of
+    one over NCCL, (b) a fleet of ``MESH_LEVELS`` (untyped and typed) in a
+    world of ``MESH_WORLD`` processes on the one card over gloo, each case
+    through ``provision(mesh=)`` or ``provision_stream(mesh=)``: every
+    rank's every leaf equal to the single-device kernel route's and the
+    plain route's, one K2 launch and no K1 launch per rank and call; (c) the
+    eval CLI's mesh smoke and ``FleetProvisioner(mesh=).plan_sweep``; (d)
+    the planted faults rejected; (e) times; (f) with several cards, (b)
+    over NCCL with a card for each rank.  Returns K2's launches on the
+    mesh route (every rank's)."""
+    import torch
+
+    from repro_torch import PAPER_COSTS, provision, provision_stream
+    from repro_torch.distributed.world import run_world
+    from repro_torch.eval.__main__ import mesh_smoke
+    from repro_torch.serving import FleetProvisioner
+
+    provision_module = importlib.import_module("repro_torch.core.provision")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    def leaves(res):
+        return {f: getattr(res, f) for f in MESH_LEAVES}
+
+    def differs(got, want):
+        """The first leaf (or decision counter) where ``got`` differs from ``want``, or None."""
+        for f in MESH_LEAVES:
+            g, w = got[f], want[f]
+            if (g is None) != (w is None) or (w is not None and not torch.equal(g.cpu(), w.cpu())):
+                return f
+        gc, wc = got.get("decision_counts"), want.get("decision_counts")
+        if (gc is None) != (wc is None):
+            return "decision_counts"
+        for k in (wc or {}):
+            if not torch.equal(gc[k].cpu(), wc[k].cpu()):
+                return f"decision_counts[{k}]"
+        return None
+
+    # the single-device kernel route and the plain route of every case (one
+    # plain run serves a case and its stream twin: they share the spec)
+    single, plain = {}, {}
+    for part in "ab":
+        for case, twin in zip(mesh_cases(part, dev), mesh_cases(part, dev)):
+            name, record = case["name"], case.get("record_decisions", False)
+            if case.get("stream"):
+                res = provision_stream(case["spec"], record_decisions=record)
+            else:
+                res = provision(case["spec"], record_decisions=record)
+            single[name] = dict(leaves(res), decision_counts=res.decision_counts)
+            base = name.replace("/stream", "")
+            if base not in plain:
+                ref = provision_module._provision(twin["spec"], record_decisions=record,
+                                                  kernel=False)
+                plain[base] = dict(leaves(ref), decision_counts=ref.decision_counts)
+            plain[name] = plain[base]
+            where = differs(single[name], plain[name])
+            check(where is None, f"mesh: {name}: the single-device kernel route differs from "
+                  f"the plain route at {where}")
+    torch.cuda.synchronize()
+    t_refs = time.perf_counter() - t_phase
+
+    def single_ms(part):
+        spec = mesh_timed_spec(part, dev)
+        provision(spec)
+        walls = []
+        for _ in range(MESH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            provision(spec)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    single_wall = {part: single_ms(part) for part in "ab"}
+
+    # (label, cases, world, backend); (f) only where there are several cards
+    runs = [("a", "a", 1, "nccl"), ("b", "b", MESH_WORLD, "gloo")]
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        runs.append(("f", "b", cards, "nccl"))
+    worlds, fleet = {}, {}
+    for label, part, world, backend in runs:
+        t0 = time.perf_counter()
+        worlds[label] = run_world("chip_smoke:mesh_rank", world, device="cuda", backend=backend,
+                                  payload=part, timeout=240)
+        fleet[label] = part
+        where = "one card" if backend == "gloo" or world == 1 else "a card each"
+        print(f"mesh: ({label}) a world of {world} over {backend} on {where}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = 0
+    for part, ranks in worlds.items():
+        for out in ranks:
+            for name, got in out["cases"].items():
+                where = differs(got, single[name])
+                check(where is None, f"mesh: ({part}) rank {out['rank']} {name}: {where} "
+                      "differs from the single-device kernel route")
+                check(differs(got, plain[name]) is None,
+                      f"mesh: ({part}) rank {out['rank']} {name}: differs from the plain route")
+                check(got["decisions"] is None, f"mesh: {name}: per-slot decisions on the mesh route")
+                check(got["launches"] == {"K1": 0, "K2": 1},
+                      f"mesh: ({part}) rank {out['rank']} {name}: launches {got['launches']}, "
+                      "expected one K2 launch and no K1 launch")
+                launches += got["launches"]["K2"]
+            for other in ranks:
+                for name, got in other["cases"].items():
+                    check(differs(got, out["cases"][name]) is None,
+                          f"mesh: ({part}) ranks {out['rank']} and {other['rank']} differ on {name}")
+        print(f"mesh: ({part}) {len(ranks[0]['cases'])} cases on each of {len(ranks)} rank(s): "
+              "x, level_cost, cost, energy, toggle_cost, group_cost and decision_counts equal "
+              "the single-device kernel route and the plain route; one K2 launch and no K1 "
+              "launch per rank and call", flush=True)
+
+    # (c) FleetProvisioner(mesh=) and the eval CLI's mesh smoke
+    a_out = worlds["a"][0]
+    ab = mesh_cases("a", dev)[0]["spec"].workload.demand
+    want = FleetProvisioner(PAPER_COSTS, policy="A1", max_replicas=N_LEVELS,
+                            device=dev).plan_sweep(torch.clamp(ab, max=N_LEVELS), WINDOWS)
+    check((a_out["plan_sweep"] == want).all() and a_out["plan_sweep_launches"] == 1,
+          "mesh: FleetProvisioner(mesh=).plan_sweep differs from the planner without a mesh "
+          f"(or launched K2 {a_out['plan_sweep_launches']} times, expected 1)")
+    launches += a_out["plan_sweep_launches"]
+    smoke = mesh_smoke("cuda")
+    launches += smoke["launches"]
+    print(f"mesh: (c) FleetProvisioner(mesh=).plan_sweep == the planner without a mesh "
+          f"({tuple(want.shape)}); the eval's mesh smoke: cells equal, "
+          f"{smoke['launches']} K2 launch for its one block", flush=True)
+
+    # (d) the planted faults must be rejected by the checks above
+    for label in (k for k in worlds if fleet[k] == "b"):
+        for out in worlds[label]:
+            for fault, got in out["faults"].items():
+                want = single["N4099/A1/stream" if "pad" in fault else "typed/A1/stream"]
+                check(differs(dict(got, decision_counts=None), dict(want, decision_counts=None))
+                      is not None,
+                      f"mesh: ({label}) planted fault ({fault}) not rejected on rank {out['rank']}")
+        print(f"mesh: (d) planted faults rejected on every rank of ({label}): "
+              + ", ".join(worlds[label][0]["faults"]), flush=True)
+
+    # (e) times, printed, not held
+    for part, ranks in worlds.items():
+        k2 = ", ".join("not measured" if o["k2_ms"] is None else
+                       "%.4f (%d records)" % (o["k2_ms"], o["k2_kept"]) for o in ranks)
+        walls = ", ".join("%.2f" % o["wall_ms"] for o in ranks)
+        comms = ", ".join("%.2f" % o["comm_ms"] for o in ranks)
+        print(f"mesh: (e) {smi}: A1 at the ({fleet[part]}) fleet: the mesh route in ({part}), "
+              f"a world of {len(ranks)}, {statistics.median(o['wall_ms'] for o in ranks):.2f} ms "
+              f"wall (ranks {walls}), the single-device route {single_wall[fleet[part]]:.2f} ms; K2 "
+              f"CUPTI ms per call by rank: {k2}; the two collectives alone, ms by rank: {comms}; "
+              f"rank 0's host operations of most self ms per call: {ranks[0]['host_top']}",
+              flush=True)
+    print(f"mesh: phase 17 took {time.perf_counter() - t_phase:.1f} s (the single-device "
+          f"references {t_refs:.1f} s)", flush=True)
+    return launches
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -3387,6 +3795,9 @@ def main() -> int:
     # 16. the vlm family and the encoder-decoder (after phase 15, before the attention phases)
     vlm_encdec = vlm_encdec_phase(smi)
 
+    # 17. the multi-device route (after phase 16, before the attention phases)
+    mesh_launches = mesh_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
@@ -3416,7 +3827,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
-        "launches": main_k2 + stream_main_launches + eval_launches + stepper_launches,
+        "launches": (main_k2 + stream_main_launches + eval_launches + stepper_launches
+                     + mesh_launches),
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
         "plain_ms": k2_plain,

@@ -10,8 +10,9 @@ jax treedef, leaves are numbered in the fixed order of
 a list's or tuple's in index order) and the manifest names each leaf's path
 (``"0/blocks/3/attn/wq"``); :func:`restore` fills the structure of the tree
 it is given in that order, each leaf on the device of the matching leaf.
-Restoring onto another mesh (the reference's elastic path) waits for the
-multi-device route (ROADMAP.md, Queue 1 item G).
+Restoring onto another mesh (the reference's elastic path) waits for
+``distributed/elastic.py``, which needs the sharding rules of the sharded
+step builders (ROADMAP.md, Queue 1 item F).
 
 Atomicity: everything is written into ``step_<k>.tmp`` and renamed — a crash
 mid-write never corrupts the latest complete checkpoint.  ``Checkpointer``

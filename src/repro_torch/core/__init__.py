@@ -17,9 +17,8 @@ Public API, as ``repro.core`` has it:
 The brick, fluid, offline and DP modules are numpy copies of the
 reference's, the oracles the card's results are held to.  The loose-kwargs
 ``provision_schedule``/``provision_sweep[_costs]``/``provision_cost``
-functions are deprecated wrappers around ``provision``;
-``provision_schedule_sharded`` raises until the multi-device route is
-ported (ROADMAP.md).
+functions are deprecated wrappers around ``provision``, and
+``provision_schedule_sharded`` one around its ``mesh=`` route.
 """
 from ..deferral import DeferralSpec
 from .costs import PAPER_COSTS, CostModel, ServerGroup, schedule_cost

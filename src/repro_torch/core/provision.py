@@ -1,9 +1,8 @@
 """One declarative provisioning API: ``provision(ProvisionSpec(...))``.
 
 The PyTorch port of ``repro.core.provision``: ``provision()``,
-``provision_stream()`` and their spec (the multi-device ``mesh=`` route
-comes in a later slice).  The spec is three frozen dataclasses plus
-options:
+``provision_stream()`` and their spec.  The spec is three frozen
+dataclasses plus options:
 
   * :class:`~repro_torch.core.costs.CostModel` — ``P``/``beta_on``/
     ``beta_off`` as scalars or ``(n_levels,)`` arrays; Δ is derived per
@@ -24,6 +23,18 @@ policy's slot scan is one launch of kernel K2 (of K1 under
 :func:`provision_stream` returns the same result through K2 at any tile
 size, for production-length traces.  Without CUDA and without
 ``device="cpu"`` both raise — they never fall back.
+
+``ProvisionSpec(mesh=...)`` is the multi-device route: the level axis is
+sharded over the ranks of a ``torch.distributed.device_mesh.DeviceMesh``
+axis, as the paper's servers decide locally.  Every rank calls
+``provision()`` (or ``provision_stream()``) with the same spec, scans its
+block of levels (one K2 launch per rank on CUDA, the plain scan on the
+CPU), and gets the whole result back, equal bit for bit to the
+single-device route's::
+
+    dist.init_process_group("nccl")          # or "gloo"
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    res = provision(dataclasses.replace(spec, mesh=mesh))
 
 Shape convention: the result keeps a leading windows axis iff the spec used
 ``windows=``, a batch axis iff demand was ``(B, T)``, and an outermost
@@ -161,7 +172,11 @@ class ProvisionSpec:
     ``n_levels``: fleet size; defaults to the cost model's per-level length,
     else ``max(demand) + 1``.  ``device``: where the engine runs —
     ``"cuda"`` (the default: kernels K1 and K2) or ``"cpu"`` (the plain
-    scans).
+    scans).  ``mesh``/``mesh_axis``: shard the level axis over that axis of
+    a ``DeviceMesh`` whose device type is ``device``'s (online policies
+    only; ``offline`` has no slot scan).  Each rank's block runs through K2
+    on CUDA and the plain scan on the CPU; the result is bit-exact against
+    the single-device route's.
     """
 
     costs: CostModel
@@ -169,6 +184,8 @@ class ProvisionSpec:
     policy: PolicySpec
     n_levels: int | None = None
     device: str | torch.device = "cuda"
+    mesh: Any = None
+    mesh_axis: str = "data"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -187,7 +204,8 @@ class ProvisionResult:
     four aggregate per-level counters (..., N) int32 keyed by
     ``repro_torch.obs.provenance.COUNT_ORDER`` names (K1's counters on
     CUDA, the codes' sums on the CPU).
-    :func:`provision_stream` fills ``decision_counts`` only.
+    :func:`provision_stream` and the ``mesh=`` route fill
+    ``decision_counts`` only.
 
     Deferral-enabled workloads (``Workload(deferral=...)``) additionally
     fill the queue metrics, measured on the true arrivals (int32):
@@ -347,6 +365,10 @@ def provision(spec: ProvisionSpec, *, record_decisions: bool = False) -> Provisi
     the grid is then one launch of K1, which writes the on-matrix and the
     codes.  Rejected for ``offline``, which is a closed form with no slot
     scan to record.
+
+    With ``spec.mesh`` each rank's block of levels is one launch of K2 on
+    CUDA (also under ``record_decisions``, which then fills
+    ``decision_counts`` only), and ``offline`` is rejected.
     """
     device = _resolve_device(spec.device)
     return _provision(spec, record_decisions=record_decisions,
@@ -357,7 +379,8 @@ def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> 
     """:func:`provision` with the scan route chosen by the caller: the
     kernels (``kernel=True``, CUDA only: K2, or K1 under record) or the plain
     scan on ``spec.device`` — the latter on a CUDA spec is how the kernel
-    route is checked on the card."""
+    route is checked on the card.  A spec with a mesh takes the mesh route,
+    whatever ``kernel`` says."""
     pol = spec.policy.validate()
     if record_decisions and pol.name == "offline":
         raise ValueError(
@@ -368,14 +391,23 @@ def _provision(spec: ProvisionSpec, *, record_decisions: bool, kernel: bool) -> 
     device = _resolve_device(spec.device)
     pr = _prepare(spec, pol, device)
     tel = get_telemetry()
-    with tel.span("provision", policy=pol.name, route=device.type,
+    with tel.span("provision", policy=pol.name, route=_route(spec, device),
                   n_levels=pr["n_levels"], record=record_decisions):
-        out = _engine._run(
-            pr["ab"], pr["predb"], pr["windows"], pr["delta_lv"], pr["P_lv"],
-            pr["bon_lv"], pr["boff_lv"], pr["uniforms"],
-            n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
-            record=record_decisions, kernel=kernel,
-        )
+        if spec.mesh is not None:
+            from ..kernels.provision_scan import DEFAULT_T_CHUNK
+
+            out = _engine._sharded_run(
+                spec.mesh, spec.mesh_axis, *_engine_args(pr),
+                n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
+                t_chunk=DEFAULT_T_CHUNK, group_sizes=spec.costs.group_sizes,
+                record=record_decisions,
+            )
+        else:
+            out = _engine._run(
+                *_engine_args(pr),
+                n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
+                record=record_decisions, kernel=kernel,
+            )
         out = _squeeze(out, pr)
     return _result(spec, out, record_decisions, tel, pr)
 
@@ -399,7 +431,8 @@ def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
     whole trace, nothing to stream), and ``record_decisions=True`` fills
     ``decision_counts`` only — per-slot ``decisions`` are the O(T · N)
     buffer streaming exists to avoid.  ``Workload(deferral=...)`` fills the
-    same queue metrics as :func:`provision` does.
+    same queue metrics as :func:`provision` does.  With ``spec.mesh`` each
+    rank's block of levels is one launch of K2 on CUDA.
     """
     from ..kernels.provision_scan import DEFAULT_T_CHUNK
 
@@ -415,16 +448,34 @@ def provision_stream(spec: ProvisionSpec, *, t_chunk: int | None = None,
     t_chunk = int(min(max(int(DEFAULT_T_CHUNK if t_chunk is None else t_chunk), 1),
                       max(T, 1)))
     tel = get_telemetry()
-    with tel.span("provision_stream", policy=pol.name, route=device.type,
+    with tel.span("provision_stream", policy=pol.name, route=_route(spec, device),
                   n_levels=pr["n_levels"], t_chunk=t_chunk, record=record_decisions):
-        out = _engine._run_stream(
-            pr["ab"], pr["predb"], pr["windows"], pr["delta_lv"], pr["P_lv"],
-            pr["bon_lv"], pr["boff_lv"], pr["uniforms"],
-            n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
-            t_chunk=t_chunk, record=record_decisions,
-        )
+        if spec.mesh is not None:
+            out = _engine._sharded_run(
+                spec.mesh, spec.mesh_axis, *_engine_args(pr),
+                n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
+                t_chunk=t_chunk, group_sizes=spec.costs.group_sizes,
+                record=record_decisions,
+            )
+        else:
+            out = _engine._run_stream(
+                *_engine_args(pr),
+                n_levels=pr["n_levels"], max_h=pr["max_h"], policy=pol.name,
+                t_chunk=t_chunk, record=record_decisions,
+            )
         out = _squeeze(out, pr)
     return _result(spec, out, record_decisions, tel, pr)
+
+
+def _route(spec: ProvisionSpec, device: torch.device) -> str:
+    """The telemetry span's route label: ``"mesh"``, else the device type."""
+    return "mesh" if spec.mesh is not None else device.type
+
+
+def _engine_args(pr: dict) -> tuple:
+    """The engine bodies' positional arguments from :func:`_prepare`'s dict."""
+    return (pr["ab"], pr["predb"], pr["windows"], pr["delta_lv"], pr["P_lv"],
+            pr["bon_lv"], pr["boff_lv"], pr["uniforms"])
 
 
 def _squeeze(out: dict, pr: dict) -> dict:

@@ -1,6 +1,6 @@
 """The paper's provisioning algorithms as a batched PyTorch engine.
 
-The PyTorch port of the single-device half of ``repro.core.jax_provision``.
+The PyTorch port of ``repro.core.jax_provision``.
 The fluid-model level decomposition makes every algorithm an independent
 per-level computation, so the whole fleet is one scan over slots with a
 ``(cells, levels)`` state.  A *cell* is one (noise-std, window, trace)
@@ -20,6 +20,10 @@ the reference's sharded grid does, and runs it in one scan:
 
 :func:`_run_stream` is also the engine of ``provision_stream()``: the same
 grid through K2 or its plain version :func:`_stream_scan`.
+:func:`_sharded_run` is the multi-device route of both: the level axis
+sharded over the ranks of a ``DeviceMesh`` axis, each rank scanning its
+block of levels through :func:`_run_stream` (K2 on the card), x(t) summed
+and the per-level terms gathered across the ranks.
 
 Policies: ``A1`` (deterministic, ratio ``2 - α``), ``A2`` (randomized,
 ``(e-α)/(e-1)``), ``A3`` (randomized, ``e/(e-1+α)``), ``offline``
@@ -41,6 +45,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..obs import provenance as _prov
 
@@ -514,7 +519,7 @@ def _run(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
 
 
 def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, uniforms, *,
-                n_levels, max_h, policy, t_chunk, record=False):
+                n_levels, max_h, policy, t_chunk, record=False, routes=None):
     """Streaming twin of :func:`_run`, behind
     :func:`repro_torch.core.provision.provision_stream`.
 
@@ -529,6 +534,11 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
     here from the end carry.  Returns what :func:`_run` returns, bit for bit, with
     ``decision_counts`` (S, W, B, 4, N) under ``record`` on both devices.
     ``offline`` is rejected: it is a closed form over the whole trace.
+
+    ``routes``: the lanes' routing ids, one per entry of ``delta`` and the
+    cost fields (default 0..n_levels-1).  A lane dispatches against its id,
+    and a lane whose id is not below ``n_levels`` is a pad lane that counts
+    nowhere; :func:`_sharded_run` passes a rank's block this way.
     """
     if policy == "offline":
         raise ValueError(
@@ -539,18 +549,22 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
 
     T = ab.shape[1]
     W = len(windows)
+    lanes = n_levels if routes is None else routes.shape[0]
     inputs, (S, Wc, B) = _grid_inputs(
         ab, predb, windows, delta, uniforms,
-        n_levels=n_levels, max_h=max_h, policy=policy, uniform_waits=True,
+        n_levels=lanes, max_h=max_h, policy=policy, uniform_waits=True,
     )
     del inputs["delta"]
+    if routes is not None:
+        inputs["routes"] = routes
     x, accs, carry = provision_scan_stream(
         **inputs, t_chunk=t_chunk, n_levels=n_levels, record=record)
-    lead = (S, Wc, B, n_levels)
-    # close the trace: a level still on at T that the last slot's demand
-    # does not need turns off (every lane is a real level in this layout)
-    busy_end = ab[:, T - 1, None] > inputs["routes"]             # (B, N)
-    final_off = (carry["on"].reshape(lead) & ~busy_end).to(torch.int32)
+    lead = (S, Wc, B, lanes)
+    # close the trace: a real level still on at T that the last slot's
+    # demand does not need turns off
+    routes = inputs["routes"]
+    busy_end = ab[:, T - 1, None] > routes                       # (B, N)
+    final_off = (carry["on"].reshape(lead) & (routes < n_levels) & ~busy_end).to(torch.int32)
     out = {
         "energy": P_lv * accs["run"].reshape(lead),
         "on_cost": beta_on_lv * accs["up"].reshape(lead),
@@ -566,14 +580,155 @@ def _run_stream(ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv, unifor
 
 
 # ---------------------------------------------------------------------------
+# Fleet-scale engine body: shard the level axis over a device mesh
+# ---------------------------------------------------------------------------
+
+#: routing id for pad lanes in the sharded level layout: compares false
+#: against any int32 demand, so a pad lane can never turn on
+ROUTE_SENTINEL = 2**30
+
+
+def _group_layout(n_levels, group_sizes, size):
+    """Static (route, sel, n_layout) storage layout for the sharded level axis.
+
+    ``route[j]`` is the *routing id* of storage lane ``j`` — the global
+    level the busy compare ``a(t) > route[j]`` dispatches against — or
+    ``ROUTE_SENTINEL`` for pad lanes.  ``sel[l]`` is the storage lane of
+    real level ``l`` (compacts gathered per-lane outputs back to level
+    order).  Ungrouped fleets lay levels out contiguously.  Typed fleets pad
+    each group to an 8-lane multiple — capped at 128 lanes — as the
+    reference does for its kernel's blocks.  The tail is padded to a
+    multiple of ``size`` (the number of ranks) either way.
+    """
+    if group_sizes is None:
+        sizes = padded = [int(n_levels)]
+    else:
+        sizes = [int(s) for s in group_sizes]
+        align = min(128, -(-max(sizes) // 8) * 8)
+        padded = [-(-s // align) * align for s in sizes]
+    n_layout = -(-sum(padded) // size) * size
+    route = np.full(n_layout, ROUTE_SENTINEL, np.int32)
+    sel = np.empty(n_levels, np.int64)
+    off_route = off_lane = 0
+    for s, p in zip(sizes, padded):
+        route[off_lane:off_lane + s] = np.arange(off_route, off_route + s)
+        sel[off_route:off_route + s] = np.arange(off_lane, off_lane + s)
+        off_route += s
+        off_lane += p
+    return route, sel, n_layout
+
+
+def _mesh_axis(mesh, axis, device):
+    """The process group, size and rank of ``mesh``'s axis ``axis``.  The
+    mesh must live on ``device``'s type: the route never moves a spec to
+    another device."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r}; its axes are {tuple(names)}")
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"the mesh is on {mesh.device_type!r} but the spec runs on "
+            f"{device.type!r}: build the mesh on the spec's device type"
+        )
+    group = mesh.get_group(axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _on_wire(t, group):
+    """``t`` where ``group``'s backend takes it: gloo moves CUDA tensors
+    through the host, NCCL takes them where they are."""
+    return t.cpu() if t.is_cuda and dist.get_backend(group) == "gloo" else t
+
+
+def _sum_ranks(t, group):
+    """``t`` summed over the ranks of ``group`` (``all_reduce``), on t's device."""
+    wire = _on_wire(t.contiguous(), group)
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+    return wire.to(t.device)
+
+
+def _gather_levels(t, group, size):
+    """The ranks' level blocks of ``t`` (last axis), gathered in rank order."""
+    wire = _on_wire(t.contiguous(), group)
+    parts = [torch.empty_like(wire) for _ in range(size)]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=-1).to(t.device)
+
+
+def _sharded_run(mesh, axis, ab, predb, windows, delta, P_lv, beta_on_lv, beta_off_lv,
+                 uniforms, *, n_levels, max_h, policy, t_chunk, group_sizes=None, record=False):
+    """Level-sharded engine over the full (S, W, B) grid, behind
+    ``provision(ProvisionSpec(mesh=...))`` and ``provision_stream``'s.
+
+    The arguments are :func:`_run_stream`'s, plus ``mesh``, a
+    ``torch.distributed.device_mesh.DeviceMesh`` whose axis ``axis``
+    shards the levels, and the typed fleet's ``group_sizes``.  Every rank
+    calls it with the same arguments and gets the same dict back: ``x``
+    (S, W, B, T) int32 and the per-level terms (S, W, B, N) float32, equal
+    to :func:`_run`'s bit for bit.
+
+    The grid, its waits and its common random numbers are :func:`_run`'s;
+    the level axis is laid out by :func:`_group_layout` and this rank takes
+    its block of lanes, each dispatching against its routing id.  The
+    uniforms were drawn at ``n_levels`` (never at the layout's width), so a
+    (trace, draws) pair gives one schedule at every world size; a rank
+    takes its lanes' columns of them.  The block runs through
+    :func:`_run_stream` in ``t_chunk``-slot tiles — one launch of K2 on
+    CUDA, its plain version on the CPU.  Then x(t) is summed over the
+    ranks, and the per-level terms are gathered in rank order and compacted
+    back to level order.
+
+    ``record=True`` adds ``decision_counts`` (S, W, B, 4, N) only: the
+    fleet route records aggregate counters, as the reference's does, and
+    leaves the per-slot ``decisions`` out.  K1, which writes those (and
+    which the reference runs on this route), is not on the port's: K2
+    counts the decisions itself, as on the single-device streaming route.
+    ``offline`` is rejected: it has no slot scan.
+    """
+    _check_policy(policy)
+    if policy == "offline":
+        raise ValueError(
+            "sharded path supports online policies (offline has no slot scan); "
+            f"valid policies are {tuple(p for p in POLICIES if p != 'offline')}"
+        )
+    dev = ab.device
+    group, size, rank = _mesh_axis(mesh, axis, dev)
+    route_np, sel_np, n_layout = _group_layout(n_levels, group_sizes, size)
+    per = n_layout // size
+    route = torch.from_numpy(route_np[rank * per:(rank + 1) * per]).to(dev)
+    real = route < n_levels
+    src = torch.where(real, route, 0).long()
+
+    def lanes(v, fill):
+        """This rank's lanes of a (..., N) row; pad lanes take ``fill``."""
+        return torch.where(real, v[..., src], fill)
+
+    if uniforms is not None:
+        uniforms = tuple(u[..., src] for u in uniforms)
+    out = _run_stream(
+        ab, predb, windows, lanes(delta, 1.0),  # a pad lane never turns on: its Δ is moot
+        *(lanes(v, 0.0) for v in (P_lv, beta_on_lv, beta_off_lv)), uniforms,
+        n_levels=n_levels, max_h=max_h, policy=policy, t_chunk=t_chunk, record=record,
+        routes=route,
+    )
+    sel = torch.from_numpy(sel_np).to(dev)
+    terms = torch.stack([out["energy"], out["on_cost"], out["off_cost"]])
+    energy, on_cost, off_cost = _gather_levels(terms, group, size)[..., sel]
+    done = {"energy": energy, "on_cost": on_cost, "off_cost": off_cost,
+            "x": _sum_ranks(out["x"], group)}
+    if record:
+        done["decision_counts"] = _gather_levels(out["decision_counts"], group, size)[..., sel]
+    return done
+
+
+# ---------------------------------------------------------------------------
 # Deprecated loose-kwargs API (forwards to the spec engine)
 # ---------------------------------------------------------------------------
 #
 # The reference's wrappers take a ``key=`` for A2/A3; these take what
 # ``PolicySpec`` takes in its place, a ``generator=`` or injected
 # ``uniforms=(u0, u)``, and the spec's ``device`` ("cuda" unless given
-# "cpu").  ``provision_schedule_sharded`` is the multi-device route, which
-# is not ported (ROADMAP.md, Queue 1 item G).
+# "cpu").  ``provision_schedule_sharded`` takes a ``DeviceMesh``.
 
 def _warn_deprecated(old: str, new: str) -> None:
     warnings.warn(
@@ -673,9 +828,22 @@ def provision_cost(a, on_matrix, P: float, beta_on: float, beta_off: float):
     return on_matrix_cost(a, on_matrix, CostModel(P=P, beta_on=beta_on, beta_off=beta_off))
 
 
-def provision_schedule_sharded(*args, **kwargs):
-    """Not ported: the levels sharded over a device mesh are the multi-device
-    route, which waits for ROADMAP.md Queue 1 item G."""
-    raise NotImplementedError(
-        "provision_schedule_sharded: the multi-device route is not ported yet "
-        "(ROADMAP.md, Queue 1 item G); provision_schedule runs on one device")
+def provision_schedule_sharded(mesh, a, *, n_levels: int, delta: int, window: int = 0,
+                               axis: str = "data", policy: str = "A1", generator=None,
+                               uniforms=None, predicted=None, device="cuda"):
+    """Deprecated: use ``provision(ProvisionSpec(..., mesh=mesh))``.
+
+    Same as :func:`provision_schedule`, levels sharded over ``mesh``'s axis
+    ``axis`` (a ``DeviceMesh`` on ``device``'s type; every rank calls it
+    with the same arguments and gets the whole x).
+    """
+    from .provision import PolicySpec, ProvisionSpec, Workload, provision
+
+    _warn_deprecated("provision_schedule_sharded(...)", "mesh= on the spec")
+    spec = ProvisionSpec(
+        costs=_dynamics_costs(delta),
+        workload=Workload(demand=a, predicted=predicted),
+        policy=PolicySpec(name=policy, window=window, generator=generator, uniforms=uniforms),
+        n_levels=n_levels, device=device, mesh=mesh, mesh_axis=axis,
+    )
+    return provision(spec).x

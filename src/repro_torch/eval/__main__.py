@@ -21,6 +21,11 @@ rigid; and, as the reference's recompile gates, if the grid builds more
 kernel libraries than it needs (one: K1 and K2's) or a warmed re-run of it
 builds any.
 
+``--smoke`` first runs the reference CLI's mesh smoke (:func:`mesh_smoke`):
+a small grid through ``EvalGrid(mesh=...)`` in a world of one process
+(NCCL on ``--device cuda``, gloo on ``--device cpu``) must give the plain
+evaluate's cells, with exactly one K2 launch per block on the card.
+
 Both legs also record the v5 ``streaming`` section
 (:func:`streaming_latency`): ``FleetProvisioner.advance()`` driven at
 T_chunk ∈ {1, 64, 1024} on the CLI's device, its plan-latency p50/p99 from
@@ -39,9 +44,11 @@ import numpy as np
 import torch
 
 from ..core import PAPER_COSTS, ServerGroup
+from ..distributed.world import run_world
 from ..kernels._build import load_provision_scan
 from ..lint import tracer_sanitizer
-from ..obs import profile_to
+from ..obs import profile_to, telemetry_session
+from ..scenarios import Scenario
 from ..serving import FleetProvisioner, PlanMetrics
 from .harness import EvalGrid, evaluate
 from .report import EvalReport, StreamingRow
@@ -82,6 +89,53 @@ FULL_GRID = EvalGrid(
     typed_groups=TYPED_GROUPS,
     deferral_slacks=DEFERRAL_SLACKS,
 )
+
+
+#: the reference CLI's mesh smoke grid (``benchmarks/cr_eval.py``'s ``mesh_smoke``)
+MESH_SMOKE_GRID = EvalGrid(
+    policies=("A1",),
+    scenarios=(Scenario("sinusoidal", target_pmr=4.0, mean_jobs=16.0),),
+    noise_stds=(0.0, 0.2),
+    windows=(0, 2),
+    n_traces=2,
+    n_slots=144,
+)
+
+
+def mesh_rank(mesh, grid: EvalGrid) -> dict:
+    """One rank of the mesh smoke (a :func:`run_world` target): ``grid``
+    evaluated on ``mesh``, with this rank's K2 launches (the
+    ``kernels/provision_scan_stream_launches`` counter)."""
+    with telemetry_session() as tel:
+        report = evaluate(dataclasses.replace(grid, mesh=mesh))
+    return {"cells": report.cells, "mesh": report.grid["mesh"],
+            "launches": int(tel.counter_value("kernels/provision_scan_stream_launches"))}
+
+
+def mesh_smoke(device: str, grid: EvalGrid = MESH_SMOKE_GRID) -> dict:
+    """The reference CLI's mesh smoke on the port: ``grid`` evaluated in a
+    world of one process over ``EvalGrid(mesh=...)`` (NCCL on CUDA, gloo on
+    the CPU) must reproduce the plain evaluate's cells exactly, and, where
+    the reference gates one sharded compile for the block, launch K2 exactly
+    once per (policy, scenario) block on the card (none on the CPU, where
+    no kernel runs).  Returns the rank's result."""
+    grid = dataclasses.replace(grid, device=device)
+    plain = evaluate(grid)
+    meshed = run_world("repro_torch.eval.__main__:mesh_rank", 1, device=device,
+                       payload=grid)[0]
+    if meshed["cells"] != plain.cells:
+        raise AssertionError(
+            "mesh-route eval cells diverge from the single-device route: the "
+            "mesh route is supposed to be bit-exact")
+    blocks = len(grid.policies) * len(grid.scenarios)
+    want = blocks if torch.device(device).type == "cuda" else 0
+    if meshed["launches"] != want:
+        raise AssertionError(
+            f"mesh smoke: {meshed['launches']} K2 launches for {blocks} block(s), "
+            f"expected {want}")
+    print(f"# mesh smoke: {len(plain.cells)} cells bit-exact through the mesh route "
+          f"({meshed['mesh']}), {meshed['launches']} K2 launch(es)", file=sys.stderr)
+    return meshed
 
 
 def check_gates(report: EvalReport) -> None:
@@ -231,6 +285,8 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     grid = dataclasses.replace(SMOKE_GRID if args.smoke else FULL_GRID, device=args.device)
     with profile_to(args.profile):
+        if args.smoke:
+            mesh_smoke(args.device)
         rows = streaming_latency(args.smoke, args.device)
         report = run(grid, args.out, streaming=rows)
     for line in report.summary_lines():

@@ -21,6 +21,8 @@ The grid runs on ``EvalGrid.device`` (the card by default): one
 ``(S, W, B)`` block through the ``PredictionNoise.std_frac`` sweep axis and
 ``PolicySpec.windows`` — on CUDA one launch of kernel K2 — and so does
 each typed and deferral cell; the offline baselines are the closed form.
+``EvalGrid.mesh`` runs every online block and cell on the mesh route (one
+K2 launch per rank on CUDA); the offline baselines stay on one device.
 Common random numbers throughout: trace ``i`` is identical in every cell,
 the noise sweep shares its normal draws across std levels, and the α-sweep
 shares its wait uniforms across windows.  The draws come from
@@ -96,6 +98,11 @@ class EvalGrid:
 
     ``device``: where every ``provision()`` call and every draw runs —
     ``"cuda"`` (kernel K2) or ``"cpu"`` (the plain scan).
+
+    ``mesh``/``mesh_axis``: run every online block, typed cell and deferral
+    cell through the mesh route (the level axis sharded over that axis of a
+    ``DeviceMesh`` on ``device``'s type; every rank evaluates the same grid
+    and gets the same report); the offline baselines stay on one device.
     """
 
     policies: tuple[str, ...] = ("A1", "A2", "A3")
@@ -114,6 +121,8 @@ class EvalGrid:
     deferral_rule: str = "EDF"
     deferral_policies: tuple[str, ...] = ("A1",)
     device: str = "cuda"
+    mesh: object = None
+    mesh_axis: str = "data"
 
     def validate(self) -> "EvalGrid":
         if self.costs.is_heterogeneous:
@@ -141,6 +150,12 @@ class EvalGrid:
         if any(s < 0 for s in self.noise_stds) or not self.noise_stds:
             raise ValueError(
                 f"noise_stds must be non-negative, got {self.noise_stds}"
+            )
+        if self.mesh is not None and "offline" in self.policies:
+            raise ValueError(
+                "mesh= runs cells through the sharded fleet path, which has "
+                "no offline slot scan; drop 'offline' from policies (the "
+                "offline baseline is computed regardless)"
             )
         if self.deferral_slacks is not None:
             if not self.deferral_slacks or any(
@@ -303,6 +318,8 @@ def _block_spec(grid: EvalGrid, draws, device: torch.device, pi: int,
                        tuple(demand.shape) + (n_levels,), windows=list(grid.windows)),
         n_levels=n_levels,
         device=device,
+        mesh=grid.mesh,
+        mesh_axis=grid.mesh_axis,
     )
 
 
@@ -321,6 +338,8 @@ def _typed_spec(grid: EvalGrid, draws, device: torch.device, pi: int,
         policy=_policy(grid, draws, device, TYPED_STREAM, pi, grid.typed_policies[pi],
                        tuple(demand.shape) + (costs.n_levels,)),
         device=device,
+        mesh=grid.mesh,
+        mesh_axis=grid.mesh_axis,
     )
 
 
@@ -337,6 +356,8 @@ def _deferral_spec(grid: EvalGrid, draws, device: torch.device, pi: int,
                        tuple(demand.shape) + (n_levels,)),
         n_levels=n_levels,
         device=device,
+        mesh=grid.mesh,
+        mesh_axis=grid.mesh_axis,
     )
 
 
@@ -358,7 +379,7 @@ def _evaluate_typed(grid: EvalGrid, labels: list[str], demands: list, draws,
         opt_group, _, _ = _timed(
             "eval/offline_baseline",
             lambda: provision(dataclasses.replace(
-                specs[0], policy=PolicySpec("offline"))).group_cost,   # (B, d)
+                specs[0], policy=PolicySpec("offline"), mesh=None)).group_cost,   # (B, d)
             device, scenario=label, block="typed",
         )
         opt_group = _numpy(opt_group)
@@ -568,7 +589,8 @@ def evaluate(grid: EvalGrid, *, draws: Draws | None = None) -> EvalReport:
             "seed": grid.seed,
             "tol": grid.tol,
             "noise_slack": grid.noise_slack,
-            "mesh": None,
+            "mesh": None if grid.mesh is None else dict(
+                zip(grid.mesh.mesh_dim_names, grid.mesh.shape)),
             "device": device.type,
             "cr_quantiles": list(CR_QUANTILES),
             "typed_groups": (

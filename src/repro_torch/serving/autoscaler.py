@@ -250,8 +250,14 @@ class FleetProvisioner:
     policy, a callable ``(t0, n) -> (u0, u)`` of two (n, max_replicas)
     float32 tables for global slots ``t0 .. t0 + n - 1``; by default they are
     drawn from ``generator`` slot by slot (:func:`repro_torch.serving.
-    stepper.slot_uniforms`).  ``mesh=``, the reference's multi-device route,
-    is not ported yet and raises.
+    stepper.slot_uniforms`).
+
+    ``mesh=`` (a ``DeviceMesh`` on ``device``'s type) shards the replica
+    axis over its axis ``mesh_axis``: ``plan``, ``plan_sweep`` and
+    ``sweep_costs`` run the mesh route of ``provision()``, one K2 launch
+    per rank on the card, bit-exact against the planner without a mesh;
+    every rank builds the same planner and gets the whole plan.
+    ``advance()`` stays on the single-device stepper, as in the reference.
     """
 
     def __init__(
@@ -262,15 +268,11 @@ class FleetProvisioner:
         max_replicas: int | None = None,
         generator: torch.Generator | None = None,
         mesh=None,
+        mesh_axis: str = "data",
         deferral=None,
         device="cuda",
         slot_uniforms=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device route is not ported yet (ROADMAP.md, "
-                "Queue 1 item 9)"
-            )
         self.costs = costs
         if isinstance(policy, PolicySpec):
             if window != 0 or generator is not None:
@@ -299,6 +301,8 @@ class FleetProvisioner:
             )
         self.max_replicas = int(max_replicas)
         self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         if deferral is not None:
             if deferral.cap is None:
                 deferral = dataclasses.replace(deferral, cap=self.max_replicas)
@@ -328,6 +332,8 @@ class FleetProvisioner:
             policy=policy,
             n_levels=self.max_replicas,
             device=self.device,
+            mesh=self.mesh,
+            mesh_axis=self.mesh_axis,
         )
 
     def plan(self, demand, predicted=None) -> ProvisionResult:

@@ -340,9 +340,29 @@ def test_provision_cost_wrapper_matches_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_provision_schedule_sharded_waits_for_the_multi_device_route():
-    with pytest.raises(NotImplementedError, match="item G"):
-        port.provision_schedule_sharded(None, np.zeros(4, np.int32), n_levels=2, delta=6)
+def test_provision_schedule_sharded_waits_for_the_multi_device_route(monkeypatch):
+    """The multi-device route is ported: the wrapper warns as the
+    reference's does and hands ``mesh`` and ``axis`` to the spec it runs
+    (``tests/test_torch_mesh.py`` runs it on worlds of gloo ranks and holds
+    its x to the reference's)."""
+    import importlib
+    import types
+
+    seen = {}
+
+    def provision(spec):
+        seen["spec"] = spec
+        return types.SimpleNamespace(x="x")
+
+    monkeypatch.setattr(importlib.import_module("repro_torch.core.provision"), "provision",
+                        provision)
+    mesh = object()
+    with pytest.warns(DeprecationWarning, match="^deprecated: provision_schedule_sharded"):
+        got = port.provision_schedule_sharded(mesh, np.zeros(4, np.int32), n_levels=2,
+                                              delta=6, window=1, axis="levels", device="cpu")
+    spec = seen["spec"]
+    assert got == "x" and spec.mesh is mesh and spec.mesh_axis == "levels"
+    assert (spec.n_levels, spec.policy.window, float(spec.costs.delta)) == (2, 1, 6.0)
 
 
 def test_wrappers_run_on_the_card_unless_given_cpu():

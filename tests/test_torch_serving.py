@@ -249,8 +249,12 @@ def test_planner_rejections_match_the_reference():
         ref.FleetProvisioner(REF_COSTS, policy="A2")
     with pytest.raises(ValueError, match="randomized"):
         port.FleetProvisioner(PAPER_COSTS, policy="A2", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port.FleetProvisioner(PAPER_COSTS, mesh=object(), device="cpu")
+    # mesh= is no longer refused: the planner hands it to every spec it plans
+    # (tests/test_torch_mesh.py runs such a planner on worlds of gloo ranks)
+    mesh = object()
+    spec = port.FleetProvisioner(PAPER_COSTS, mesh=mesh, mesh_axis="levels",
+                                 device="cpu")._spec(np.zeros(4, np.int32))
+    assert spec.mesh is mesh and spec.mesh_axis == "levels"
     with pytest.raises(ValueError, match="inside the PolicySpec"):
         port.FleetProvisioner(PAPER_COSTS, policy=PolicySpec("A1"), window=2, device="cpu")
 
