@@ -11,8 +11,10 @@ The main paths are ``provision(ProvisionSpec(...))``,
 tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
 full width), training (``Trainer``, the same model at full width), the
 hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
-llama4-scout-17b-a16e, xlstm-1.3b) and the vlm and encoder-decoder ones
-(paligemma-3b, seamless-m4t-large-v2) of ``repro_torch``; the first
+llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
+(paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route
+and elastic restore (``reshard_restore``, llama3.2-1b at full width
+across four ranks) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -261,6 +263,29 @@ Phases, one line or more each:
    with several cards: (b)'s cases and planted faults in a world of one
    process per card over NCCL, each rank on its own card, checked as (b)
    (there (b)'s gloo ranks take a card each too).
+18. sharding (run after phase 17, before 9 and 10) — the sharding rules and
+   elastic restore: (a) for all ten archs at full width, ``param_specs``
+   on ``abstract_params`` (meta tensors) on the 16x16 mesh (train,
+   serving, ``fsdp_only``) and the 2x16x16 one (train, serving), planned
+   from the mesh's shape alone: every sharded dim divides by its axes,
+   each leaf's per-device bytes times its number of distinct shards sum
+   to the whole parameter bytes, and the per-device GB are printed (a
+   plan, not a time); (b) llama3.2-1b at full width in float32 from
+   ``SEED`` (1,235,814,400 parameters, 4.94 GB) drawn on the card and
+   saved unsharded with the port's ``save`` under
+   ``build/chip_smoke_elastic/`` (removed after), then in one world of
+   four processes on the one card over gloo ``reshard_restore`` onto a
+   (2, 2) ``("data", "model")`` mesh (twice: the second warm) and onto
+   (4, 1): on every rank each leaf's placements must be the model's
+   training layout (``ELASTIC_LAYOUT``) and ``to_local()`` equal, bit for
+   bit, to the block of the saved array at the rank's mesh coordinate,
+   cut with ``torch.chunk`` (no rule code); each rank's resident bytes
+   and each restore's wall time are printed; two planted faults on layer
+   0's own checkpoint (wq's two sharded dims swapped in its placements; a
+   rank given the next rank's blocks) must fail that check; (c) only
+   with four cards or more: (b) over NCCL with a card per rank, plus a
+   save of the (2, 2)-sharded tree (each leaf gathered) restored onto (4,
+   1) and checked on every rank against the first checkpoint.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -3191,6 +3216,268 @@ def mesh_phase(smi):
     return launches
 
 
+ELASTIC_ARCH = "llama3.2-1b"     # phase 18 (b): restored whole at full width, float32
+ELASTIC_WORLD = 4                # (b): four processes on the one card, over gloo
+ELASTIC_AXES = ("data", "model")
+ELASTIC_MESHES = ((2, 2), (4, 1))   # (b): the meshes it is restored onto, in this order
+ELASTIC_STEP = 7
+# (a): the production meshes, planned from their shape alone, and the specs on each
+RULE_MESHES = {"16x16": ({"data": 16, "model": 16}, ("train", "serving", "fsdp_only")),
+               "2x16x16": ({"pod": 2, "data": 16, "model": 16}, ("train", "serving"))}
+RULE_MODES = {"train": {}, "serving": {"serving": True}, "fsdp_only": {"fsdp_only": True}}
+# (b): llama3.2-1b's training layout on a ("data", "model") mesh by leaf (the
+# reference's rules for this model written out: each matrix's every dim
+# divides by 4), held against what ``reshard_restore`` places on every rank
+ELASTIC_LAYOUT = {
+    "embed": ("model", "data"), "final_ln": (), "ln1": (), "ln2": (),
+    "attn/wq": ("data", "model", None), "attn/wk": ("data", "model", None),
+    "attn/wv": ("data", "model", None), "attn/wo": ("model", None, "data"),
+    "mlp/wi": ("data", "model"), "mlp/wg": ("data", "model"), "mlp/wo": ("model", "data"),
+}
+
+
+def rules_part(smi):
+    """Phase 18 (a): the sharding rules at full width on the production
+    meshes, from the shapes alone: every sharded dim divides by its axes,
+    and each leaf's per-device bytes times its number of distinct shards sum
+    to the whole parameter bytes.  Prints the per-device GB (planning
+    figures, not times)."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.distributed.sharding import param_specs, to_placements
+    from repro_torch.models import abstract_params
+    from repro_torch.utils.tree import tree_leaves
+
+    for arch in list_archs():
+        tree = abstract_params(get_config(arch))
+        params = tree_leaves(tree)
+        check(all(x.is_meta for x in params), f"sharding: {arch}: abstract_params allocated")
+        whole = sum(x.numel() * x.element_size() for x in params)
+        per_device = {}
+        for mesh_name, (sizes, modes) in RULE_MESHES.items():
+            for mode in modes:
+                specs = tree_leaves(param_specs(tree, sizes, **RULE_MODES[mode]))
+                resident = shards_bytes = 0
+                for x, spec in zip(params, specs):
+                    to_placements(spec, sizes)
+                    local, shards = list(x.shape), 1
+                    for d, part in enumerate(spec):
+                        axes = () if part is None else part if isinstance(part, tuple) else (part,)
+                        n = math.prod(sizes[a] for a in axes)
+                        check(x.shape[d] % n == 0, f"sharding: {arch} {mesh_name} {mode}: "
+                              f"dim {d} of {tuple(x.shape)} does not divide by {axes}")
+                        local[d] //= n
+                        shards *= n
+                    nbytes = math.prod(local) * x.element_size()
+                    resident += nbytes
+                    shards_bytes += nbytes * shards
+                check(shards_bytes == whole, f"sharding: {arch} {mesh_name} {mode}: the shards "
+                      f"hold {shards_bytes} bytes of {whole}")
+                per_device[f"{mesh_name} {mode}"] = resident / 1e9
+        print(f"sharding: (a) {arch}: {whole / 1e9:.3f} GB of float32 parameters, "
+              f"{len(params)} leaves; per device (GB, a plan): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_device.items()), flush=True)
+
+
+def elastic_held(tree, directory, mesh, step=ELASTIC_STEP):
+    """The leaves of ``tree`` where this rank's block differs from the saved
+    array's: the placements must be ``ELASTIC_LAYOUT``'s on ``mesh`` and
+    ``to_local()`` equal, bit for bit, to the block at this rank's mesh
+    coordinate, cut from the file with ``torch.chunk`` (no rule code)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    folder = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(folder, "manifest.json")) as f:
+        saved = json.load(f)["paths"]
+    names, coord = mesh.mesh_dim_names, mesh.get_coordinate()
+    bad = []
+    for i, (path, leaf) in enumerate(zip(tree_paths(tree), tree_leaves(tree))):
+        spec = ELASTIC_LAYOUT["/".join(p for p in path.split("/")[-2:] if not p.isdigit())]
+        want = tuple(Shard(spec.index(n)) if n in spec else Replicate() for n in names)
+        block = torch.from_numpy(np.load(os.path.join(folder, f"arr_{i}.npy"), mmap_mode="c"))
+        for m, (axis, c) in enumerate(zip(names, coord)):
+            if axis in spec:
+                block = torch.chunk(block, mesh.size(m), dim=spec.index(axis))[c]
+        local = leaf.to_local()
+        if (saved[i] != path or tuple(leaf.placements) != want or local.shape != block.shape
+                or not torch.equal(local.view(torch.int32),
+                                   block.to(local.device).view(torch.int32))):
+            bad.append(path)
+    return bad
+
+
+def elastic_rank(mesh, payload):
+    """One rank of phase 18 (b) or (c) (a ``run_world`` target on a (2, 2)
+    mesh): ``reshard_restore`` of the saved model onto each of
+    ``ELASTIC_MESHES``, timed and checked; in (b) the two planted faults;
+    in (c) a save of the (2, 2)-sharded tree, restored onto (4, 1)."""
+    import unittest.mock
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.tensor  # noqa: F401  (loaded before the timed restores)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import reshard_restore
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models import abstract_params
+    from repro_torch.utils.tree import tree_leaves
+
+    out = {"rank": dist.get_rank(), "start_s": time.time() - payload["t0"], "restores": {},
+           "faults": {}}
+    like = abstract_params(get_config(ELASTIC_ARCH))
+    meshes = {ELASTIC_MESHES[0]: mesh,
+              ELASTIC_MESHES[1]: init_device_mesh("cuda", ELASTIC_MESHES[1],
+                                                  mesh_dim_names=ELASTIC_AXES)}
+    torch.zeros(1, device="cuda")                   # the card's context, before the timed restores
+    torch.cuda.synchronize()
+    whole = os.path.join(payload["dir"], "whole")
+
+    def timed_restore(m):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = reshard_restore(whole, ELASTIC_STEP, like, m)
+        torch.cuda.synchronize()
+        return tree, time.perf_counter() - t0
+
+    for shape, m in meshes.items():
+        tree, wall = timed_restore(m)
+        if shape == ELASTIC_MESHES[0]:            # once more, warm: the first pays for first use
+            del tree
+            tree, out["again_s"] = timed_restore(m)
+        t1 = time.perf_counter()
+        out["restores"][shape] = {
+            "wall_s": wall, "bad": elastic_held(tree, whole, m),
+            "check_s": time.perf_counter() - t1,
+            "resident": sum(x.to_local().numel() * x.to_local().element_size()
+                            for x in tree_leaves(tree)),
+            "coord": tuple(m.get_coordinate())}
+        if shape == ELASTIC_MESHES[0]:
+            placed = tree
+        del tree
+    if payload["save_to"] is None:
+        # the planted faults, on layer 0's checkpoint (the same rules and checks)
+        layer_dir, layer = os.path.join(payload["dir"], "layer"), like["blocks"][0]
+        # planted: wq's two sharded dims swapped in its placements
+        shardings = param_shardings(layer, mesh)
+        shardings["attn"]["wq"] = (mesh, tuple(reversed(shardings["attn"]["wq"].placements)))
+        swapped = restore(layer_dir, ELASTIC_STEP, layer, shardings=shardings)
+        out["faults"]["wq dims swapped"] = elastic_held(swapped, layer_dir, mesh)
+        # planted: this rank given the next rank's blocks
+        after = (dist.get_rank() + 1) % ELASTIC_WORLD
+        other = [after // ELASTIC_MESHES[0][1], after % ELASTIC_MESHES[0][1]]
+        with unittest.mock.patch.object(mesh, "get_coordinate", return_value=other):
+            moved = reshard_restore(layer_dir, ELASTIC_STEP, layer, mesh)
+        out["faults"]["another rank's block"] = elastic_held(moved, layer_dir, mesh)
+        # the unplanted layer restore passes the same check
+        out["faults"]["none"] = elastic_held(reshard_restore(layer_dir, ELASTIC_STEP, layer, mesh),
+                                             layer_dir, mesh)
+    else:
+        # (c): save the (2, 2)-sharded tree (each leaf gathered over NCCL),
+        # restore it onto (4, 1) and hold it to the first checkpoint
+        save(payload["save_to"], ELASTIC_STEP, placed)
+        again = reshard_restore(payload["save_to"], ELASTIC_STEP, like,
+                                meshes[ELASTIC_MESHES[1]])
+        out["resaved_bad"] = elastic_held(again, whole, meshes[ELASTIC_MESHES[1]])
+    return out
+
+
+def elastic_phase(smi):
+    """Phase 18: the sharding rules and elastic restore.  (a) the rules on
+    the production meshes for all ten archs; (b) llama3.2-1b at full width
+    saved once unsharded and restored by ``reshard_restore`` onto (2, 2)
+    and (4, 1) in a world of ``ELASTIC_WORLD`` processes on the one card
+    over gloo, every rank holding exactly its blocks, two planted faults
+    rejected; (c) with four cards or more, the same over NCCL with a card
+    per rank, plus a save of the sharded tree restored onto (4, 1)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.world import run_world
+    from repro_torch.models import init_params, param_count
+
+    t_phase = time.perf_counter()
+    rules_part(smi)
+    t_rules = time.perf_counter() - t_phase
+    dev = torch.device("cuda")
+    work = os.path.join(ROOT, "build", "chip_smoke_elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        cfg = get_config(ELASTIC_ARCH)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        save(os.path.join(work, "whole"), ELASTIC_STEP, params)
+        save(os.path.join(work, "layer"), ELASTIC_STEP, params["blocks"][0])
+        whole = 4 * param_count(cfg)
+        del params
+        torch.cuda.empty_cache()
+        print(f"sharding: (b) {ELASTIC_ARCH} full width, {param_count(cfg):,} parameters, "
+              f"{whole / 1e9:.3f} GB in float32, drawn on the card and saved unsharded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        runs = [("b", "gloo", None)]
+        if torch.cuda.device_count() >= ELASTIC_WORLD:
+            runs.append(("c", "nccl", os.path.join(work, "resaved")))
+        for label, backend, save_to in runs:
+            t0 = time.perf_counter()
+            ranks = run_world("chip_smoke:elastic_rank", ELASTIC_WORLD, device="cuda",
+                              backend=backend, timeout=240, mesh_shape=ELASTIC_MESHES[0],
+                              mesh_dim_names=ELASTIC_AXES,
+                              payload={"dir": work, "save_to": save_to, "t0": time.time()})
+            world_s = time.perf_counter() - t0
+            for shape in ELASTIC_MESHES:
+                for out in ranks:
+                    got = out["restores"][shape]
+                    check(not got["bad"], f"sharding: ({label}) rank {out['rank']} on {shape}: "
+                          f"blocks differ from the saved arrays at {got['bad'][:3]}")
+                check(sum(o["restores"][shape]["resident"] for o in ranks)
+                      >= whole, f"sharding: ({label}) {shape}: the ranks hold less than the model")
+                print(f"sharding: ({label}) {smi}: reshard_restore onto {shape} "
+                      f"{ELASTIC_AXES} over {backend}, {len(ranks)} ranks: every leaf's "
+                      "placements and block equal to the saved array's at the rank's "
+                      "coordinate, bit for bit; resident GB by rank "
+                      + ", ".join(f"{o['restores'][shape]['resident'] / 1e9:.4f}" for o in ranks)
+                      + f" of {whole / 1e9:.4f}; wall s by rank "
+                      + ", ".join(f"{o['restores'][shape]['wall_s']:.3f}" for o in ranks)
+                      + ("" if shape != ELASTIC_MESHES[0] else " (again, warm: "
+                         + ", ".join(f"{o['again_s']:.3f}" for o in ranks) + ")")
+                      + "; the check's s by rank "
+                      + ", ".join(f"{o['restores'][shape]['check_s']:.3f}" for o in ranks),
+                      flush=True)
+            if save_to is None:
+                faults = [f for f in ranks[0]["faults"] if f != "none"]
+                check(not any(o["faults"]["none"] for o in ranks),
+                      f"sharding: ({label}) layer 0's restore differs from its checkpoint")
+                for fault in faults:
+                    check(any(o["faults"][fault] for o in ranks),
+                          f"sharding: ({label}) planted fault ({fault}) not rejected")
+                print(f"sharding: ({label}) planted faults rejected: " + ", ".join(
+                    f"{fault} (on {sum(bool(o['faults'][fault]) for o in ranks)} ranks)"
+                    for fault in faults), flush=True)
+            else:
+                for out in ranks:
+                    check(not out["resaved_bad"], f"sharding: ({label}) rank {out['rank']}: "
+                          f"the resaved tree differs at {out['resaved_bad'][:3]}")
+                print(f"sharding: ({label}) the (2, 2)-sharded tree saved (gathered over "
+                      f"{backend}) and restored onto {ELASTIC_MESHES[1]}: equal on every rank",
+                      flush=True)
+            print(f"sharding: ({label}) the world of {len(ranks)} over {backend} took "
+                  f"{world_s:.1f} s, its ranks started in "
+                  + ", ".join(f"{o['start_s']:.1f}" for o in ranks) + " s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"sharding: phase 18 took {time.perf_counter() - t_phase:.1f} s (the rules "
+          f"{t_rules:.1f} s)", flush=True)
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -3797,6 +4084,9 @@ def main() -> int:
 
     # 17. the multi-device route (after phase 16, before the attention phases)
     mesh_launches = mesh_phase(smi)
+
+    # 18. the sharding rules and elastic restore (after phase 17, before the attention phases)
+    elastic_phase(smi)
 
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)

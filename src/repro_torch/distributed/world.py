@@ -2,9 +2,11 @@
 
 :func:`run_world` starts ``world_size`` processes with
 ``torch.multiprocessing.start_processes``.  Each joins one process group on
-a ``FileStore`` in a work directory, builds the one-axis ``DeviceMesh``
-``("data",)`` on the requested device type, calls a target function
-``fn(mesh, payload)`` and saves what it returns there.  The caller gets
+a ``FileStore`` in a work directory, builds a ``DeviceMesh`` on the
+requested device type (one axis ``("data",)`` unless given another shape
+and axis names), calls a target function ``fn(mesh, payload)`` and saves
+what it returns there; the function may build further meshes over the
+same world with ``init_device_mesh``.  The caller gets
 every rank's return value, in rank order; no process group is ever created
 in the calling process.  A rank that fails stops the whole world, and its
 traceback is raised::
@@ -22,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import importlib
+import math
 import pathlib
 import tempfile
 import time
@@ -34,20 +37,28 @@ GROUP_TIMEOUT_S = 120
 
 
 def run_world(target: str, world_size: int, *, device: str = "cuda", backend: str | None = None,
-              payload=None, timeout: float = GROUP_TIMEOUT_S, workdir=None) -> list:
+              payload=None, timeout: float = GROUP_TIMEOUT_S, workdir=None,
+              mesh_shape: tuple[int, ...] | None = None,
+              mesh_dim_names: tuple[str, ...] = ("data",)) -> list:
     """Run ``target`` (``"module:function"``) on ``world_size`` local ranks.
 
     Each rank imports ``module`` (the ranks see the caller's ``sys.path``)
-    and calls ``function(mesh, payload)`` with its one-axis ``DeviceMesh``
-    (axis ``"data"``, device type ``device``).  ``payload`` is anything
-    ``torch.save`` takes; its tensors are loaded onto the rank's device.
-    A rank's return value comes back through ``torch.save``, loaded onto
-    the CPU.  ``workdir``: an empty directory for the store, the payload
+    and calls ``function(mesh, payload)`` with its ``DeviceMesh`` of shape
+    ``mesh_shape`` (default ``(world_size,)``) and axes ``mesh_dim_names``
+    (default ``("data",)``), device type ``device``; ``ValueError`` if the
+    shape does not hold ``world_size`` ranks or the names do not match it.
+    ``payload`` is anything ``torch.save`` takes; its tensors are loaded
+    onto the rank's device.  A rank's return value comes back through
+    ``torch.save``, loaded onto the CPU.  ``workdir``: an empty directory for the store, the payload
     and the results (default: a temporary directory, removed afterwards).
     Raises ``torch.multiprocessing.ProcessException`` with the failing
     rank's traceback if a rank fails, and ``TimeoutError`` after
     ``timeout`` seconds; either way every rank is stopped first.
     """
+    mesh_shape = tuple(mesh_shape or (world_size,))
+    if math.prod(mesh_shape) != world_size or len(mesh_dim_names) != len(mesh_shape):
+        raise ValueError(f"a mesh of shape {mesh_shape} and axes {tuple(mesh_dim_names)} "
+                         f"for a world of {world_size}")
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     with contextlib.ExitStack() as stack:
@@ -56,7 +67,8 @@ def run_world(target: str, world_size: int, *, device: str = "cuda", backend: st
         torch.save(payload, tmp / "payload.pt")
         ctx = mp.start_processes(
             _rank_main, nprocs=world_size, join=False, start_method="spawn",
-            args=(target, world_size, str(tmp), backend, device, min(timeout, GROUP_TIMEOUT_S)),
+            args=(target, world_size, str(tmp), backend, device, min(timeout, GROUP_TIMEOUT_S),
+                  mesh_shape, tuple(mesh_dim_names)),
         )
         deadline = time.monotonic() + timeout
         try:
@@ -72,7 +84,8 @@ def run_world(target: str, world_size: int, *, device: str = "cuda", backend: st
                 for r in range(world_size)]
 
 
-def _rank_main(rank, target, world, workdir, backend, device, timeout) -> None:
+def _rank_main(rank, target, world, workdir, backend, device, timeout, mesh_shape,
+               mesh_dim_names) -> None:
     """One rank of :func:`run_world`."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -90,7 +103,7 @@ def _rank_main(rank, target, world, workdir, backend, device, timeout) -> None:
         world_size=world, timeout=datetime.timedelta(seconds=timeout),
     )
     try:
-        mesh = init_device_mesh(device, (world,), mesh_dim_names=("data",))
+        mesh = init_device_mesh(device, mesh_shape, mesh_dim_names=mesh_dim_names)
         torch.save(fn(mesh, payload), tmp / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

@@ -2,11 +2,14 @@
 and ssm families and the encoder-decoder, behind the serving engine and the
 trainer."""
 from .model_zoo import (
+    abstract_cache,
+    abstract_params,
     active_param_count,
     decode_fn,
     embedding_param_count,
     init_cache,
     init_params,
+    input_specs,
     logits_fn,
     loss_fn,
     param_count,
@@ -14,11 +17,14 @@ from .model_zoo import (
 )
 
 __all__ = [
+    "abstract_cache",
+    "abstract_params",
     "active_param_count",
     "decode_fn",
     "embedding_param_count",
     "init_cache",
     "init_params",
+    "input_specs",
     "logits_fn",
     "loss_fn",
     "param_count",

@@ -31,7 +31,10 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype) -> to
 
 def _normal(generator: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
     """Normals at ``std``, drawn in float32 on the generator's device, then
-    cast and moved, as the reference scales before it casts."""
+    cast and moved, as the reference scales before it casts.  On the meta
+    device nothing is drawn (``generator`` may be None): the shape alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, device=generator.device) * std
     return x.to(device=device, dtype=dtype)
 

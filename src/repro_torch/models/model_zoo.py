@@ -7,6 +7,10 @@
   prefill_fn(params, cfg, batch, cache) -> (logits, cache)
   decode_fn(params, cfg, token, cur_len, cache) -> (logits, cache)
   init_cache(cfg, batch, s_max, src_len, device) -> cache
+  abstract_params(cfg) / abstract_cache(cfg, shape) -> the same on the meta
+                                        device (shapes and dtypes, nothing
+                                        allocated)
+  input_specs(cfg, shape)               -> one cell's inputs, on meta
   param_count(cfg)                      -> parameters, without allocating
   embedding_param_count(cfg)            -> of which in the token tables
   active_param_count(cfg)               -> per token (MoE: top_k of n_experts)
@@ -21,24 +25,37 @@ with grad enabled on parameters that require grad raises on the card
 unless given ``kernel=False`` (the trainer's step).  The vlm and audio
 families take the modality stub's embeddings as ``batch["frontend"]``;
 ``cfg.is_encdec`` (seamless-m4t) routes every entry point to
-:mod:`.encdec`.  ``abstract_*`` and ``input_specs`` wait for the dry-run
-launcher (ROADMAP.md, Queue 1 item F).
+:mod:`.encdec`.  ``device="meta"`` builds the parameters or the cache as
+meta tensors, the counterpart of the reference's ``jax.eval_shape``: the
+sharding rules and the dry-run plan from their shapes alone.
 """
 from __future__ import annotations
 
 from typing import Any
 
-from ..configs.base import ModelConfig
+import torch
+
+from ..configs.base import ModelConfig, ShapeCell
 from ..core.provision import _resolve_device
 from . import encdec, transformer
 from .ssm import ssm_dims
 from .xlstm import xlstm_dims
 
+META = torch.device("meta")
+
+
+def _model_device(device, owner: str) -> torch.device:
+    """``device`` for a model build: the meta device, or one that
+    ``_resolve_device`` accepts."""
+    device = torch.device(device)
+    return device if device.type == "meta" else _resolve_device(device, owner)
+
 
 def init_params(cfg: ModelConfig, generator, device="cuda") -> Any:
     """Random weights from ``generator`` (a ``torch.Generator``; one on the
-    card draws a full-width model in well under a second)."""
-    device = _resolve_device(device, "init_params")
+    card draws a full-width model in well under a second).  On the meta
+    device ``generator`` may be None: nothing is drawn."""
+    device = _model_device(device, "init_params")
     if cfg.is_encdec:
         return encdec.init_encdec_params(generator, cfg, device)
     return transformer.init_lm_params(generator, cfg, device)
@@ -62,7 +79,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, src_len: int = 0, devic
     """The decode cache of ``s_max`` slots; the encoder-decoder's also holds
     the cross K/V of ``src_len`` source frames (4096 when 0, as in the
     reference)."""
-    device = _resolve_device(device, "init_cache")
+    device = _model_device(device, "init_cache")
     if cfg.is_encdec:
         return encdec.init_encdec_cache(cfg, batch, s_max, src_len or 4096, device)
     return transformer.init_lm_cache(cfg, batch, s_max, device)
@@ -78,6 +95,60 @@ def decode_fn(params, cfg: ModelConfig, token, cur_len, cache, kernel: bool = Tr
     if cfg.is_encdec:
         return encdec.encdec_decode_step(params, cfg, token, cur_len, cache, kernel=kernel)
     return transformer.lm_decode_step(params, cfg, token, cur_len, cache, kernel=kernel)
+
+
+def abstract_params(cfg: ModelConfig) -> Any:
+    """The parameter tree as meta tensors: shapes and dtypes, no storage
+    (the dry-run path)."""
+    return init_params(cfg, None, META)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta stand-ins, shardable, no device allocation)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeCell) -> dict:
+    """Abstract inputs for one (arch x shape) cell, as meta tensors.
+
+    train:   {"tokens": (B, S)} (+ frontend embeddings for vlm/audio)
+    prefill: same as train
+    decode:  {"token": (B,), "cur_len": scalar}; the cache comes separately.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=META)
+
+    if shape.kind in ("train", "prefill"):
+        specs: dict = {}
+        if cfg.frontend == "vision_stub":
+            nf = cfg.n_frontend_tokens
+            specs["tokens"] = spec((B, S - nf), i32)
+            specs["frontend"] = spec((B, nf, cfg.d_model), bf16)
+        elif cfg.frontend == "audio_stub":
+            # enc-dec: source frames + target tokens, each of length S
+            specs["tokens"] = spec((B, S), i32)
+            specs["frontend"] = spec((B, encdec_src_len(cfg, shape), cfg.d_model), bf16)
+        else:
+            specs["tokens"] = spec((B, S), i32)
+        return specs
+    # decode
+    return {"token": spec((B,), i32), "cur_len": spec((), i32)}
+
+
+def encdec_src_len(cfg: ModelConfig, shape: ShapeCell) -> int:
+    """Source frames for enc-dec cells: match S for train/prefill; decode
+    uses a fixed 4096-frame memory (the 32k/500k axis is the decoder cache)."""
+    if shape.kind in ("train", "prefill"):
+        return shape.seq_len
+    return 4096
+
+
+def abstract_cache(cfg: ModelConfig, shape: ShapeCell) -> Any:
+    """The decode cache of one cell as meta tensors."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len,
+                      src_len=encdec_src_len(cfg, shape), device=META)
 
 
 def _layer_param_count(cfg: ModelConfig) -> int:

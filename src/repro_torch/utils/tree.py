@@ -1,5 +1,5 @@
 """Walks over nested containers of tensors: the part of ``jax.tree`` that the
-training slice needs (optimizer state, gradients, checkpoints).
+port needs (optimizer state, gradients, checkpoints, sharding rules).
 
 A tree is a dict, list, tuple or NamedTuple of trees, ``None`` (no leaves),
 or a leaf.  Leaves come in one fixed order, the one ``jax.tree.leaves``
@@ -55,6 +55,35 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
             return type(tree)(*kids)
         return type(tree)(kids)
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` on each leaf of ``tree``, in a tree of its
+    structure; ``path`` holds the keys down to the leaf: a dict's keys, a
+    NamedTuple's field names, a list's or tuple's indices."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], (*path, k)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        fields = getattr(tree, "_fields", None)
+        keys = range(len(tree)) if fields is None else fields
+        kids = [tree_map_with_path(fn, kid, (*path, k)) for k, kid in zip(keys, tree)]
+        return type(tree)(kids) if fields is None else type(tree)(*kids)
+    return fn(path, tree)
+
+
+def tree_leaves_up_to(like: Any, tree: Any) -> list:
+    """The subtrees of ``tree`` at the places of ``like``'s leaves, in leaf
+    order (``tree`` has ``like``'s structure down to them; jax's
+    ``flatten_up_to``)."""
+    if like is None:
+        return []
+    kids = _children(like)
+    if kids is None:
+        return [tree]
+    return [sub for kid, other in zip(kids, _children(tree), strict=True)
+            for sub in tree_leaves_up_to(kid, other)]
 
 
 def tree_unflatten(like: Any, leaves: list) -> Any:

@@ -41,7 +41,9 @@ def test_port_modules_found():
               "repro_torch.configs.hymba_1_5b", "repro_torch.configs.qwen3_moe_30b_a3b",
               "repro_torch.configs.llama4_scout_17b_a16e", "repro_torch.configs.xlstm_1_3b",
               "repro_torch.models.encdec", "repro_torch.configs.paligemma_3b",
-              "repro_torch.configs.seamless_m4t_large_v2"):
+              "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.distributed.world",
+              "repro_torch.distributed.sharding", "repro_torch.distributed.ctx",
+              "repro_torch.distributed.elastic"):
         assert m in MODULES
 
 

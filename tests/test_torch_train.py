@@ -534,8 +534,12 @@ def test_launcher_needs_cuda_unless_given_cpu():
 def test_mesh_stub():
     assert port_mesh.make_host_mesh(1, "cpu") == torch.device("cpu")
     assert port_mesh.make_host_mesh(16, "cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item F"):
-        port_mesh.make_production_mesh(multi_pod=True)
+    # the production mesh needs a running group of 256 (512) ranks; this
+    # process runs none (the fake backend's: tests/test_torch_elastic.py)
+    with pytest.raises(ValueError, match="512 ranks; none is running"):
+        port_mesh.make_production_mesh(multi_pod=True, device="cpu")
+    with pytest.raises(ValueError, match="256 ranks; none is running"):
+        port_mesh.make_production_mesh()
 
 
 def test_trainer_config_fields_match_reference():
