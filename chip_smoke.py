@@ -12,9 +12,10 @@ tokens (``InferenceEngine.generate`` and ``run_cluster``, llama3.2-1b at
 full width), training (``Trainer``, the same model at full width), the
 hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
 llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
-(paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route
-and elastic restore (``reshard_restore``, llama3.2-1b at full width
-across four ranks) of ``repro_torch``; the first
+(paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route,
+elastic restore (``reshard_restore``, llama3.2-1b at full width across
+four ranks) and the sharded steps (``launch.steps``, the same model on a
+(2, 2) mesh) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -286,6 +287,36 @@ Phases, one line or more each:
    with four cards or more: (b) over NCCL with a card per rank, plus a
    save of the (2, 2)-sharded tree (each leaf gathered) restored onto (4,
    1) and checked on every rank against the first checkpoint.
+19. steps (run after phase 18, before 9 and 10) — the step builders
+   (``repro_torch.launch.steps``) and the dry-run: (b) llama3.2-1b at full
+   width and depth in float32 from ``SEED``, saved under
+   ``build/chip_smoke_steps/`` (removed after) with the single-device
+   float32 and bf16 plain routes over phase 13's stream and two float32
+   train steps computed first and freed; then a world of four processes
+   on the one card over gloo, mesh (2, 2) ``("data", "model")``, each
+   rank's blocks restored from the checkpoint (no collective): the
+   prefill and 8 decode steps on the float32 kernel route held to the
+   single-device plain route (every row within 1e-4 of its largest value,
+   greedy tokens equal), the bf16 kernel route no farther from the float32
+   model than 1.25 times the single-device bf16 plain route, exactly 16 K3
+   launches per prefill and 32 K4 per decode step on every rank (module
+   counters), two planted faults rejected on every rank (one rank's wq
+   block from its neighbour; K4 given the next rank's kv heads), two
+   float32 train steps whose losses are within 1e-4 relative of one
+   device's and whose parameters after step 1 are within 1e-4 of each
+   leaf's largest value of the single-device update (the elements whose
+   clipped gradient is nonzero and below 100 AdamW eps counted, not held),
+   and wall ms per rank between a barrier and a sync; (c) the same three
+   steps traced on a fake world of four at (2, 2) in a subprocess: every
+   rank's resident bytes equal the trace's argument bytes and the float32
+   plain route's collectives equal the trace's in count and bytes by
+   kind (the kernel route's printed beside them); (d) only with four cards
+   or more: (b) over NCCL, a card per rank; (a) the dry-run of
+   llama3.2-1b's three cells on 16x16 (train_4k also on 2x16x16) and
+   command-r-plus-104b x decode_32k on the card's host (a fake group of
+   256 or 512 ranks in this process, meta tensors): per-device bytes,
+   FLOPs, collectives by kind, the roofline's three terms with the H100
+   constants, the trace's wall s.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -323,8 +354,8 @@ Phases, one line or more each:
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
-paths' of phases 13, 15 and 16, K3's the no-grad losses of phases 14 and
-16); the
+paths' of phases 13, 15 and 16 and rank 0's bf16 main path of phase 19,
+K3's the no-grad losses of phases 14 and 16); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -353,9 +384,10 @@ CUT = 601                        # where the chained case splits the trace
 LONG_WINDOWS = [70, 99]          # a peek of 100 slots, past the loop's 64-slot table
 LONG_SLOTS, LIMIT_SLOTS = 300, 80  # slots of the long-peek and the longest-peek cases
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 and fp16 tensor cores
+# H100 SXM data sheet: HBM3, float32 outside the tensor cores, dense bf16 and fp16 tensor cores
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS_F32 as FP32_OPS_PER_S  # noqa: E402
 OPS_PER_UPDATE = 8               # compares and selects of one (cell, slot, level) update
 KERNEL_REPS, PLAIN_REPS, PROVISION_REPS = 20, 3, 3
 PROFILE_ATTEMPTS = 3
@@ -3478,6 +3510,554 @@ def elastic_phase(smi):
           f"{t_rules:.1f} s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the step builders, the dry-run and the sharded steps
+# ---------------------------------------------------------------------------
+
+STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width and depth, random from SEED
+STEPS_WORLD, STEPS_MESH, STEPS_AXES = 4, (2, 2), ("data", "model")
+STEPS_NEW = 9                    # (b): the prefill's token and 8 decode steps (phase 13's stream)
+STEPS_TRAIN_B, STEPS_TRAIN_S = 4, 128
+STEPS_TRAIN_TOL = 1e-4           # (b): the loss and every parameter after step 1, relative
+STEPS_NOISE_EPS = 100            # (b): clipped gradients below this many AdamW eps are not held
+STEPS_CKPT = 3
+# (a): the dry-run's cells on the card's host, (arch, shape, multi-pod)
+DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", False), ("llama3.2-1b", "prefill_32k", False),
+                ("llama3.2-1b", "train_4k", False), ("llama3.2-1b", "train_4k", True),
+                ("command-r-plus-104b", "decode_32k", False))
+
+# (c): the three steps traced on a fake world of four at (2, 2) on the card's
+# host (a "cuda" mesh, as the real world's), in a subprocess
+STEPS_TRACE = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.launch.dryrun import StepCounters, argument_bytes, collective_counts, fake_world
+from repro_torch.launch import steps
+cfg = get_config(ARCH).replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32,
+                               remat="none")
+out = {}
+with fake_world(WORLD):
+    mesh = init_device_mesh("cuda", MESH, mesh_dim_names=AXES)
+    serve = ShapeCell("serve", SLOTS, B, "prefill")
+    prompt = torch.empty((B, PROMPT), dtype=torch.int32, device="meta")
+    bundles = {
+        "prefill": steps.build_prefill_step(cfg, mesh, serve, kernel=False),
+        "decode": steps.build_decode_step(cfg, mesh, dataclasses.replace(serve, kind="decode"),
+                                          kernel=False),
+        "train": steps.build_train_step(cfg, mesh, ShapeCell("train", TRAIN_S, TRAIN_B, "train")),
+    }
+    b = bundles["prefill"]
+    bundles["prefill"] = dataclasses.replace(
+        b, abstract_args=(b.abstract_args[0], {"tokens": prompt}, b.abstract_args[2]))
+    for name, b in bundles.items():
+        c = StepCounters()
+        steps.lower_step(b, mesh, cur_len=PROMPT, observe=lambda args: (c.exclude(args), c)[1])
+        out[name] = {"argument": argument_bytes(b), "collectives": collective_counts(c.records)}
+print(json.dumps(out))
+"""
+
+
+def dryrun_part(smi):
+    """Phase 19 (a): the dry-run's cells traced on the card's host (a fake
+    group of 256 or 512 ranks in this process, meta tensors): per cell the
+    per-device argument and temp GB, the FLOPs, the collective bytes by
+    kind, the three roofline terms with the H100 constants, the wall s."""
+    import pathlib
+    import tempfile
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import analyse
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            rep = run_cell(arch, shape, multi_pod, pathlib.Path(out_dir))
+            wall = time.perf_counter() - t0
+            a, mem = analyse(rep), rep["bytes_per_device"]
+            check(rep["hlo_flops_per_device"] > 0 and mem["argument"] > 0,
+                  f"dryrun: {arch} x {shape}: an empty trace")
+            print(f"dryrun: (a) {arch} x {shape} x {rep['mesh']}: argument "
+                  f"{mem['argument'] / 1e9:.4f} GB, temp {mem['temp'] / 1e9:.4f} GB, output "
+                  f"{mem['output'] / 1e9:.4f} GB per device; {rep['hlo_flops_per_device']:.4e} "
+                  f"FLOPs per device; collectives per device "
+                  + (", ".join(f"{k} {v / 1e9:.4f} GB" for k, v in
+                               sorted(rep["collective_bytes_per_device"].items())) or "none")
+                  + f"; roofline (H100 constants): compute {a['compute_s']:.5f} s, memory "
+                  f"{a['memory_s']:.5f} s, collective {a['collective_s']:.5f} s, {a['dominant']}"
+                  f"-bound, useful {a['useful_frac']:.2f}; traced in {wall:.1f} s on the host",
+                  flush=True)
+
+
+def steps_cfg(dtype):
+    """Phase 19's llama3.2-1b: float32 compute (and cache) or the served
+    bf16; no remat (no backward pass pays for one)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(STEPS_ARCH).replace(remat="none")
+    if dtype == "float32":
+        cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
+    return cfg
+
+
+def steps_stream():
+    """Phase 13's token stream: B prompts of SERVE_PROMPT tokens from SEED."""
+    import numpy as np
+
+    vocab = steps_cfg("float32").vocab_size
+    return np.random.default_rng(SEED).integers(0, vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                                dtype=np.int32)
+
+
+def steps_train_batch():
+    import numpy as np
+
+    vocab = steps_cfg("float32").vocab_size
+    return np.random.default_rng(SEED + 1).integers(0, vocab, (STEPS_TRAIN_B, STEPS_TRAIN_S),
+                                                    dtype=np.int32)
+
+
+def steps_reference(work, dev):
+    """Phase 19's single-device results, computed before the world starts
+    and freed: the float32 plain route's picks and logits over the stream
+    (``SERVE_SEQ`` slots), the bf16 plain route's distance to them, two
+    float32 train steps' losses, and the parameters after step 1 saved
+    under ``work``."""
+    import torch
+
+    from repro_torch.checkpoint import save
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_update, global_norm, init_adamw
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.engine import serving_params
+    from repro_torch.utils.tree import tree_leaves
+
+    f32, bf16 = steps_cfg("float32"), steps_cfg("bfloat16")
+    params = init_params(f32, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    save(os.path.join(work, "weights"), STEPS_CKPT, params)
+    prompt = steps_stream()
+    picks, exact = InferenceEngine(f32, params, max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
+                                   device=dev, kernel=False)._generate(
+        prompt, STEPS_NEW, keep_logits=True)
+    _, plain = InferenceEngine(bf16, serving_params(params, bf16, dev), max_batch=SERVE_BATCH,
+                               max_seq=SERVE_SEQ, device=dev, kernel=False)._generate(
+        prompt, STEPS_NEW, forced=picks, keep_logits=True)
+    plain_to_f32 = max(float(row_err(x, ref).max()) for x, ref in zip(plain, exact))
+    out = {"picks": picks, "exact": [x.cpu() for x in exact], "plain_to_f32": plain_to_f32}
+    del plain, exact
+    batch = {"tokens": torch.as_tensor(steps_train_batch(), device=dev)}
+    state, losses = init_adamw(params), []
+    leaves = tree_leaves(params)
+    for step in range(2):
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = loss_fn(params, f32, batch, kernel=False)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        adamw_update(list(grads), state, params, AdamWConfig())
+        losses.append(float(loss))
+        if step == 0:
+            save(os.path.join(work, "step1"), STEPS_CKPT, params)
+            save(os.path.join(work, "grads1"), STEPS_CKPT, list(grads))
+            out_clip = min(1.0, AdamWConfig().clip_norm / float(global_norm(list(grads))))
+        del grads, loss
+    out["losses"], out["clip"] = losses, out_clip
+    del params, state, batch, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resident(args) -> int:
+    from repro_torch.distributed.ctx import is_dtensor
+    from repro_torch.utils.tree import tree_leaves
+
+    total = 0
+    for x in tree_leaves(args):
+        local = x.to_local() if is_dtensor(x) else x
+        total += local.numel() * local.element_size()
+    return total
+
+
+def steps_rank(mesh, payload):
+    """One rank of phase 19 (b) (a ``run_world`` target on a (2, 2) mesh):
+    the weights restored onto this rank's blocks, the serving steps on the
+    stream (float32 kernel and plain routes, bf16 kernel route: the main
+    path, counted and timed), two float32 train steps, the planted faults;
+    what the checks need comes back (rank 0 also the gathered logits)."""
+    import contextlib
+    import dataclasses
+    import statistics as stats
+    import unittest.mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed.elastic import reshard_restore
+    from repro_torch.distributed.world import host_collectives
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import StepCounters, collective_counts
+    from repro_torch.models import abstract_params, attention, init_cache
+    from repro_torch.optim import init_adamw
+    from repro_torch.serving.engine import serving_params
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = {"rank": rank, "start_s": time.time() - payload["t0"], "times": {}, "faults": {},
+           "collectives": {}, "resident": {}, "launches": {}}
+    work = payload["dir"]
+    picks = torch.as_tensor(payload["picks"], device=dev)
+    prompt = torch.as_tensor(steps_stream(), device=dev)
+    f32, bf16 = steps_cfg("float32"), steps_cfg("bfloat16")
+    cell = ShapeCell("serve", SERVE_SEQ, SERVE_BATCH, "prefill")
+    like = abstract_params(f32)
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def whole(x):
+        with host_collectives(mesh):
+            return x.full_tensor()
+
+    def serve(cfg, weights, kernel, n_new=STEPS_NEW, counters=None, timed=False):
+        """Prefill, then ``n_new - 1`` decode steps fed the reference's
+        picks; the gathered logits of each (on every rank)."""
+        prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
+        decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
+                                         kernel=kernel)
+        params, batch, cache = steps.place(
+            (weights, {"tokens": prompt}, init_cache(cfg, SERVE_BATCH, SERVE_SEQ, device=dev)),
+            prefill.in_shardings)
+        if counters is not None:
+            out["resident"]["prefill"] = _resident((params, batch, cache))
+        sync()
+        t0 = time.perf_counter()
+        with counters["prefill"] if counters else contextlib.nullcontext():
+            logits, cache = prefill.fn(params, batch, cache)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        seen, step_ms = [whole(logits)], []
+        for i in range(n_new - 1):
+            token, cur_len = steps.place(
+                (picks[:, i], torch.tensor(SERVE_PROMPT + i, dtype=torch.int32, device=dev)),
+                decode.in_shardings[1:3])
+            if counters is not None and i == 0:
+                out["resident"]["decode"] = _resident((params, token, cur_len, cache))
+            sync()
+            t0 = time.perf_counter()
+            with counters["decode"] if counters and i == 0 else contextlib.nullcontext():
+                logits, cache = decode.fn(params, token, cur_len, cache)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            seen.append(whole(logits))
+        if timed:
+            out["times"].update(prefill_ms=prefill_ms, decode_p50_ms=stats.median(step_ms),
+                                decode_p99_ms=sorted(step_ms)[min(len(step_ms) - 1, int(
+                                    0.99 * len(step_ms)))])
+        return seen
+
+    # the weights, restored onto this rank's blocks of the serving layout
+    # (the checkpointer's sharded restore, no collective)
+    t0 = time.perf_counter()
+    probe = steps.build_prefill_step(f32, mesh, cell)
+    weights = restore(os.path.join(work, "weights"), STEPS_CKPT, like,
+                      shardings=probe.in_shardings[0])
+    out["times"]["restore_s"] = time.perf_counter() - t0
+
+    # float32, kernel route, with its collectives and resident bytes
+    kernel_counts = {"prefill": StepCounters(), "decode": StepCounters()}
+    k32 = serve(f32, weights, True, counters=kernel_counts)
+    out["collectives"]["kernel"] = {k: collective_counts(c.records)
+                                    for k, c in kernel_counts.items()}
+    # float32, plain route: the collectives (c) holds to the trace
+    plain_counts = {"prefill": StepCounters(), "decode": StepCounters()}
+    p32 = serve(f32, weights, False, n_new=2, counters=plain_counts)
+    out["collectives"]["plain"] = {k: collective_counts(c.records) for k, c in plain_counts.items()}
+    # bf16, kernel route: the main path, counted and timed
+    shared = serving_params(weights, bf16, dev)
+    flash.flash_launches = decode_mod.decode_launches = 0
+    kb = serve(bf16, shared, True, timed=True)
+    out["launches"] = {"K3": flash.flash_launches, "K4": decode_mod.decode_launches}
+    del shared
+    if rank == 0:
+        out["logits"] = {"k32": [x.cpu() for x in k32], "p32": [x.cpu() for x in p32],
+                         "kb": [x.cpu() for x in kb]}
+
+    # planted: this rank's block of layer 0's wq swapped with its neighbour's on "model"
+    wq = weights["blocks"][0]["attn"]["wq"]
+    model_dim = mesh.mesh_dim_names.index("model")
+    n, c = mesh.size(model_dim), mesh.get_coordinate()[model_dim]
+    full_wq = whole(wq)
+    spec = wq.placements[model_dim]
+    swapped = dict(weights)
+    swapped["blocks"] = list(weights["blocks"])
+    swapped["blocks"][0] = {**weights["blocks"][0],
+                            "attn": {**weights["blocks"][0]["attn"],
+                                     "wq": type(wq).from_local(
+                                         full_wq.chunk(n, dim=spec.dim)[(c + 1) % n].contiguous(),
+                                         mesh, wq.placements, run_check=False)}}
+    bad = serve(f32, swapped, True, n_new=1)
+    out["faults"]["wq block swapped"] = float(row_err(bad[0], k32[0]).max())
+    del swapped, full_wq, bad
+    # planted: K4 given the next model rank's kv heads
+    original = attention._kernel_kv
+
+    def shifted(kc, vc, placements):
+        every = tuple(Replicate() if p.is_shard(2) else p for p in placements)
+        lk, lv = original(kc, vc, every)
+        return (lk.chunk(n, dim=2)[(c + 1) % n].contiguous(),
+                lv.chunk(n, dim=2)[(c + 1) % n].contiguous())
+
+    with unittest.mock.patch.object(attention, "_kernel_kv", shifted):
+        bad = serve(f32, weights, True, n_new=2)
+    out["faults"]["K4 given another rank's kv heads"] = float(row_err(bad[1], k32[1]).max())
+    del weights, bad, k32, p32, kb
+    torch.cuda.empty_cache()
+
+    # two float32 train steps from the same weights, in the training layout
+    train = steps.build_train_step(f32, mesh, ShapeCell("train", STEPS_TRAIN_S, STEPS_TRAIN_B,
+                                                        "train"))
+    params = reshard_restore(os.path.join(work, "weights"), STEPS_CKPT, like, mesh)
+    batch = {"tokens": torch.as_tensor(steps_train_batch(), device=dev)}
+    params, state, batch = steps.place((params, init_adamw(params), batch), train.in_shardings)
+    out["resident"]["train"] = _resident((params, state, batch))
+    losses, step_ms, counts = [], [], StepCounters()
+    for step in range(2):
+        sync()
+        t0 = time.perf_counter()
+        with counts if step == 0 else contextlib.nullcontext():
+            params, state, metrics = train.fn(params, state, batch)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"].to_local()))
+        if step == 0:          # every leaf gathered; rank 0 holds it to the saved update
+            gathered = [whole(leaf) for leaf in tree_leaves(params)]
+            if rank == 0:
+                out["train_param_err"] = steps_params_held(gathered, tree_paths(params), work, dev,
+                                                           payload["clip"])
+            del gathered
+    out["collectives"]["train"] = collective_counts(counts.records)
+    out["losses"] = losses
+    out["times"]["train_ms"] = step_ms
+    return out
+
+
+def steps_params_held(got, paths, work, dev, clip):
+    """Phase 19 (b): each parameter after the sharded step 1 against the
+    single-device update, within STEPS_TRAIN_TOL of the leaf's largest
+    value, except the elements whose clipped single-device gradient (``clip``
+    times it, AdamW's clipping) is nonzero and below STEPS_NOISE_EPS times
+    AdamW's epsilon: the first step's update lr * g / (|g| + eps) maps a difference
+    in such a g — the rounding of sums the ranks split, about 1e-5 of a
+    leaf's typical gradient — to up to lr / eps times it, so those are
+    counted and their worst difference printed, not held.  Returns (the
+    worst held error, exempt elements, their worst error, all elements)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim import AdamWConfig
+
+    eps = STEPS_NOISE_EPS * AdamWConfig().eps / clip
+    folders = [os.path.join(work, name, f"step_{STEPS_CKPT:08d}") for name in ("step1", "grads1")]
+    worst = free_worst = 0.0
+    exempt = total = 0
+    for i, (path, g) in enumerate(zip(paths, got)):
+        want, grad = (torch.from_numpy(np.load(os.path.join(f, f"arr_{i}.npy"), mmap_mode="c"))
+                      .to(dev) for f in folders)
+        scale = max(float(want.abs().max()), 1e-30)
+        err = (g - want).abs() / scale
+        tiny = (grad.abs() < eps) & (grad != 0)
+        held = float(err[~tiny].max()) if bool((~tiny).any()) else 0.0
+        if held > STEPS_TRAIN_TOL:
+            at = int(torch.where(tiny, torch.zeros_like(err), err).argmax())
+            flat = [x.reshape(-1)[at].item() for x in (g, want, grad)]
+            check(False, f"steps: {path} after step 1 differs from the single-device update by "
+                  f"{held:.3e} of its largest value {scale:.3e} in "
+                  f"{int(((err > STEPS_TRAIN_TOL) & ~tiny).sum())} of {err.numel()} elements; "
+                  f"worst: sharded {flat[0]:.6e}, single device {flat[1]:.6e}, its gradient "
+                  f"{flat[2]:.3e}; gradients |g| median {float(grad.abs().median()):.3e}")
+        worst = max(worst, held)
+        exempt += int(tiny.sum())
+        total += tiny.numel()
+        if bool(tiny.any()):
+            free_worst = max(free_worst, float(err[tiny].max()))
+    return worst, exempt, free_worst, total
+
+
+def steps_phase(smi):
+    """Phase 19: the step builders.  (a) the dry-run's cells on the card's
+    host; (b) llama3.2-1b's prefill, decode and train steps sharded over
+    (2, 2) in four processes on the one card over gloo, every rank's
+    weights restored onto its blocks, held to the single-device routes,
+    K3 and K4 on each rank's heads, two planted faults, wall times; (c) the
+    same steps traced on a fake world of four: the resident bytes and the
+    plain route's collectives equal the trace's; (d) with four cards, (b)
+    over NCCL.  Returns the K3 and K4 launches of the main path (rank 0's,
+    the bf16 kernel route)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.distributed.world import run_world
+    from repro_torch.models import param_count
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = os.path.join(ROOT, "build", "chip_smoke_steps")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {"K3": 0, "K4": 0}
+    try:
+        t0 = time.perf_counter()
+        ref = steps_reference(work, dev)
+        n_params = param_count(steps_cfg("float32"))
+        print(f"steps: (b) {STEPS_ARCH} full width and depth, {n_params:,} "
+              f"parameters, random from seed {SEED}, saved; the single-device routes and two "
+              f"train steps in {time.perf_counter() - t0:.1f} s (losses "
+              + ", ".join(f"{x:.6f}" for x in ref["losses"]) + ")", flush=True)
+        # (c)'s trace, in a subprocess while nothing else runs
+        t0 = time.perf_counter()
+        script = (f"ARCH, WORLD, MESH, AXES = {STEPS_ARCH!r}, {STEPS_WORLD}, {STEPS_MESH!r}, "
+                  f"{STEPS_AXES!r}\nB, PROMPT, SLOTS = {SERVE_BATCH}, {SERVE_PROMPT}, {SERVE_SEQ}\n"
+                  f"TRAIN_B, TRAIN_S = {STEPS_TRAIN_B}, {STEPS_TRAIN_S}\n" + STEPS_TRACE)
+        proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                              cwd=ROOT, timeout=600)
+        check(proc.returncode == 0, f"steps: (c) the trace failed: {proc.stderr[-3000:]}")
+        traced = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"steps: (c) the three steps traced on a fake world of {STEPS_WORLD} at "
+              f"{STEPS_MESH} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        runs = [("b", "gloo")]
+        if torch.cuda.device_count() >= STEPS_WORLD:
+            runs.append(("d", "nccl"))
+        for label, backend in runs:
+            t0 = time.perf_counter()
+            ranks = run_world("chip_smoke:steps_rank", STEPS_WORLD, device="cuda",
+                              backend=backend, timeout=900, mesh_shape=STEPS_MESH,
+                              mesh_dim_names=STEPS_AXES,
+                              payload={"dir": work, "picks": ref["picks"], "clip": ref["clip"],
+                                       "t0": time.time()})
+            world_s = time.perf_counter() - t0
+            steps_held(label, backend, ranks, ref, traced, smi)
+            if label == "b":
+                launches = ranks[0]["launches"]
+            print(f"steps: ({label}) the world of {STEPS_WORLD} over {backend} took "
+                  f"{world_s:.1f} s, its ranks started in "
+                  + ", ".join(f"{o['start_s']:.1f}" for o in ranks) + " s; restore s by rank "
+                  + ", ".join(f"{o['times']['restore_s']:.2f}" for o in ranks), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    dryrun_part(smi)
+    print(f"steps: phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def steps_held(label, backend, ranks, ref, traced, smi):
+    """Phase 19's checks on one world's results (see :func:`steps_phase`)."""
+    import torch
+
+    cfg = steps_cfg("float32")
+    shape = (SERVE_BATCH, cfg.vocab_size)
+    exact, picks = ref["exact"], ref["picks"]
+    got = ranks[0]["logits"]
+    tol = LOGIT_TOL["float32"]
+    k32_picks = torch.stack([x.argmax(-1) for x in got["k32"]], 1).numpy()
+    err, agreed, decided = logits_held(got["k32"], k32_picks, exact, picks, tol, tol, shape,
+                                       f"steps: ({label}) float32 kernel route on {STEPS_MESH}")
+    p32_picks = torch.stack([x.argmax(-1) for x in got["p32"]], 1).numpy()
+    perr, _, _ = logits_held(got["p32"], p32_picks, exact[:2], picks[:, :2], tol, tol, shape,
+                             f"steps: ({label}) float32 plain route on {STEPS_MESH}")
+    kb_to_f32 = max(float(row_err(x, w).max()) for x, w in zip(got["kb"], exact))
+    check(kb_to_f32 <= BF16_SLACK * ref["plain_to_f32"],
+          f"steps: ({label}) bf16 kernel route on {STEPS_MESH} {kb_to_f32:.3e} from the float32 "
+          f"model, the single-device plain route {ref['plain_to_f32']:.3e}")
+    print(f"steps: ({label}) {STEPS_ARCH} on {STEPS_MESH} {STEPS_AXES} over {backend}, "
+          f"{len(ranks)} ranks, B={SERVE_BATCH} prompt={SERVE_PROMPT} slots={SERVE_SEQ}: float32 "
+          f"kernel route == the single-device plain route, prefill + {STEPS_NEW - 1} decode "
+          f"steps, max_row_rel_err={err:.3e} (tol {tol}), greedy tokens agree in {agreed} of "
+          f"{SERVE_BATCH * STEPS_NEW}, all {decided} decided; float32 plain route (prefill + 1 "
+          f"step) {perr:.3e}; bf16 kernel route {kb_to_f32:.3e} from the float32 model, the "
+          f"single-device bf16 plain route {ref['plain_to_f32']:.3e} (held: <= {BF16_SLACK} x) "
+          f"[{smi}]", flush=True)
+    per_prefill, per_step = 16, 32
+    for o in ranks:
+        check(o["launches"] == {"K3": per_prefill, "K4": per_step * (STEPS_NEW - 1)},
+              f"steps: ({label}) rank {o['rank']} launched {o['launches']} on the bf16 kernel "
+              f"route, not {per_prefill} K3 and {per_step} K4 per decode step")
+        for fault, e in o["faults"].items():
+            check(e > tol, f"steps: ({label}) rank {o['rank']}: planted fault ({fault}) not "
+                  f"rejected ({e:.3e})")
+    print(f"steps: ({label}) every rank launched K3 {per_prefill} times per prefill and K4 "
+          f"{per_step} times per decode step on the bf16 kernel route; planted faults rejected "
+          f"on every rank: " + ", ".join(
+              f"{f} ({min(o['faults'][f] for o in ranks):.2e} to "
+              f"{max(o['faults'][f] for o in ranks):.2e})" for f in ranks[0]["faults"]),
+          flush=True)
+    # training
+    for o in ranks:
+        for step, (a, b) in enumerate(zip(o["losses"], ref["losses"])):
+            check(abs(a - b) <= STEPS_TRAIN_TOL * abs(b), f"steps: ({label}) rank {o['rank']} "
+                  f"train step {step + 1} loss {a:.6f}, single device {b:.6f}")
+    o0 = ranks[0]
+    held, exempt, free_worst, total = o0["train_param_err"]
+    print(f"steps: ({label}) two float32 train steps, B={STEPS_TRAIN_B} S={STEPS_TRAIN_S}: losses "
+          + ", ".join(f"{x:.6f}" for x in o0["losses"]) + " on every rank (single device "
+          + ", ".join(f"{x:.6f}" for x in ref["losses"]) + f"; tol {STEPS_TRAIN_TOL} relative); "
+          f"every parameter's full_tensor() after step 1 within {held:.3e} of its leaf's largest "
+          f"value of the single-device update (tol {STEPS_TRAIN_TOL}), except {exempt} of "
+          f"{total} elements whose clipped single-device gradient is nonzero and below "
+          f"{STEPS_NOISE_EPS} x "
+          f"AdamW's eps (worst {free_worst:.3e}, not held; clip scale {ref['clip']:.4f}) "
+          f"[{smi}]", flush=True)
+    # (c): the trace's prediction against this world
+    for o in ranks:
+        for step in ("prefill", "decode", "train"):
+            check(o["resident"][step] == traced[step]["argument"],
+                  f"steps: ({label}) rank {o['rank']} {step}: {o['resident'][step]} resident "
+                  f"bytes, the trace's argument {traced[step]['argument']}")
+        real = {"prefill": o["collectives"]["plain"]["prefill"],
+                "decode": o["collectives"]["plain"]["decode"], "train": o["collectives"]["train"]}
+        for step, kinds in real.items():
+            want = {k: tuple(v) for k, v in traced[step]["collectives"].items()}
+            have = {k: tuple(v) for k, v in kinds.items()}
+            check(have == want, f"steps: ({label}) rank {o['rank']} {step}: the plain route's "
+                  f"collectives {have}, the trace's {want}")
+
+    def fmt(kinds):
+        return ", ".join(f"{k} {n} x {b / 1e6:.3f} MB" for k, (n, b) in sorted(kinds.items())) \
+            or "none"
+
+    print(f"steps: (c) every rank's resident bytes == the trace's argument bytes (prefill "
+          f"{traced['prefill']['argument'] / 1e9:.4f} GB, decode "
+          f"{traced['decode']['argument'] / 1e9:.4f} GB, train "
+          f"{traced['train']['argument'] / 1e9:.4f} GB); the plain route's collectives == the "
+          f"trace's: prefill {fmt(traced['prefill']['collectives'])}; decode step "
+          f"{fmt(traced['decode']['collectives'])}; train step "
+          f"{fmt(traced['train']['collectives'])}; the kernel route's: prefill "
+          f"{fmt(o0['collectives']['kernel']['prefill'])}; decode step "
+          f"{fmt(o0['collectives']['kernel']['decode'])}", flush=True)
+    times = [o["times"] for o in ranks]
+    print(f"steps: ({label}) {smi}: wall ms by rank (host clock between a barrier and a sync), "
+          f"bf16 kernel route: prefill " + ", ".join(f"{t['prefill_ms']:.1f}" for t in times)
+          + "; decode step p50 " + ", ".join(f"{t['decode_p50_ms']:.1f}" for t in times)
+          + ", p99 " + ", ".join(f"{t['decode_p99_ms']:.1f}" for t in times)
+          + f" ({STEPS_NEW - 1} steps); float32 train step " + "; ".join(
+              ", ".join(f"{x:.1f}" for x in t["train_ms"]) for t in times), flush=True)
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -4088,12 +4668,16 @@ def main() -> int:
     # 18. the sharding rules and elastic restore (after phase 17, before the attention phases)
     elastic_phase(smi)
 
+    # 19. the step builders, the dry-run and the sharded steps (after phase 18)
+    steps_launches = steps_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
         entry["launches"] += train_k3 if kernel == "K3" else 0
         entry["launches"] += families["launches"][kernel] + vlm_encdec["launches"][kernel]
+        entry["launches"] += steps_launches[kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
                                    families["errs"][kernel], vlm_encdec["errs"][kernel])
 

@@ -92,11 +92,14 @@ P = PartitionSpec
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a tensor lives: a ``DeviceMesh`` and one DTensor placement per
-    mesh dim (the counterpart of jax's ``NamedSharding``).  Unpacks as
-    ``mesh, placements``."""
+    mesh dim (the counterpart of jax's ``NamedSharding``), and where it was
+    made from one, its :class:`PartitionSpec` (``spec``, as jax's
+    ``NamedSharding.spec``; not compared).  Unpacks as ``mesh,
+    placements``."""
 
     mesh: Any
     placements: tuple
+    spec: Any = dataclasses.field(default=None, compare=False)
 
     def __iter__(self):
         return iter((self.mesh, self.placements))
@@ -382,4 +385,4 @@ def cache_specs(cache_shape: Any, mesh, prefer_seq: bool = False) -> Any:
 
 def to_shardings(spec_tree: Any, mesh) -> Any:
     """A tree of :class:`PartitionSpec` as a tree of :class:`Sharding`."""
-    return tree_map(lambda s: Sharding(mesh, to_placements(s, mesh)), spec_tree)
+    return tree_map(lambda s: Sharding(mesh, to_placements(s, mesh), s), spec_tree)

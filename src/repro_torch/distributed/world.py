@@ -16,8 +16,9 @@ traceback is raised::
 The backend defaults to NCCL on CUDA and gloo on the CPU; several ranks that
 share one card pass ``backend="gloo"``, whose collectives take their CUDA
 operands through the host (:mod:`repro_torch.core.torch_provision` moves
-them explicitly).  On CUDA rank ``r`` works on card ``r`` modulo the number
-of cards.
+them explicitly; :func:`host_collectives` does it for the collectives that
+``DTensor`` issues, which gloo cannot take on CUDA tensors).  On CUDA rank
+``r`` works on card ``r`` modulo the number of cards.
 """
 from __future__ import annotations
 
@@ -107,3 +108,60 @@ def _rank_main(rank, target, world, workdir, backend, device, timeout, mesh_shap
         torch.save(fn(mesh, payload), tmp / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def host_collectives(mesh):
+    """A context under which the collectives that ``DTensor`` issues on
+    ``mesh`` (``_c10d_functional`` operations, in the forward and the
+    backward pass) take CUDA operands through the host: each operand is
+    copied to the CPU, the collective runs there and is waited on, and the
+    result is copied back to the operand's card.  That is gloo's only way
+    with CUDA operands (it fails on them otherwise); on any other mesh (the
+    CPU's, or NCCL's) the context does nothing."""
+    import torch.distributed as dist
+
+    if mesh.device_type != "cuda" or dist.get_backend() != "gloo":
+        return contextlib.nullcontext()
+    return _host_collectives_mode()
+
+
+def _host_collectives_mode():
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten, tree_map_only
+
+    ops = torch.ops._c10d_functional
+    wait = ops.wait_tensor.default
+
+    def all_to_all(x, out_splits, in_splits, group_name):
+        """gloo's all-to-all, as DTensor does it on a CPU mesh: an all-gather
+        of every rank's input, then this rank's piece of each (even
+        splits)."""
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        group = _resolve_process_group(group_name)
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        if len(set(out_splits or [])) > 1 or len(set(in_splits or [])) > 1:
+            raise NotImplementedError("an uneven all-to-all on CUDA over gloo")
+        whole = wait(ops.all_gather_into_tensor.default(x, n, group_name))
+        return torch.cat([p.chunk(n)[me] for p in whole.chunk(n)])
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(getattr(t, "__name__", "") == "DTensor" for t in types):
+                return NotImplemented           # let DTensor issue its collectives here
+            cuda = [t for t in tree_flatten((args, kwargs))[0]
+                    if isinstance(t, torch.Tensor) and t.is_cuda]
+            if getattr(func, "namespace", "") != "_c10d_functional" or func is wait or not cuda:
+                return func(*args, **kwargs)
+            if func._schema.is_mutable:
+                raise NotImplementedError(f"{func}: an in-place collective on CUDA over gloo")
+            host_args, host_kwargs = tree_map_only(torch.Tensor, lambda t: t.cpu(), (args, kwargs))
+            if func is ops.all_to_all_single.default:
+                out = all_to_all(*host_args, **host_kwargs)
+            else:
+                out = func(*host_args, **host_kwargs)
+            return tree_map_only(torch.Tensor, lambda t: wait(t).to(cuda[0].device), out)
+
+    return Mode()

@@ -1,7 +1,8 @@
 """Serving launcher: session stream -> paper autoscaler (+ real generation).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-        --policy A1 --alpha 0.5 [--real-tokens] [--device cuda|cpu]
+        --policy A1 --alpha 0.5 [--real-tokens] [--device cuda|cpu] \
+        [--dry-run --shape decode_32k [--multi-pod]]
 
 The port of ``repro.launch.serve``, with the reference's flags plus
 ``--device``.  On the card (the default) ``--real-tokens`` gives every
@@ -11,9 +12,12 @@ from seed 0 shared by all replicas, running kernels K3 and K4 (xLSTM runs
 neither; paligemma-3b's 256 image tokens overflow the 96-slot engines,
 as in the reference, ROADMAP.md § 3.10); ``--device cpu`` runs the arch's
 reduced config on the plain route, as the reference's launcher does.  Without CUDA and
-without ``--device cpu`` it exits 2.  ``--dry-run`` and ``--multi-pod``
-need the dry-run launcher, not ported yet (ROADMAP.md, Queue 1 item F):
-they exit 2 and say so.
+without ``--device cpu`` it exits 2.  ``--dry-run`` traces the full config's
+serving step for ``--shape`` (default ``decode_32k``) on the production
+mesh with nothing allocated (:func:`repro_torch.launch.dryrun.run_cell`:
+a ``"fake"`` group of 256 ranks, or 512 with ``--multi-pod``, in this
+process, on the CPU) and prints the reference's ``compiled <arch> x
+<shape>: flops/dev=...`` line.
 """
 from __future__ import annotations
 
@@ -39,10 +43,15 @@ def main(argv=None) -> int:
                          "reduced config)")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        print("repro_torch.launch.serve: --dry-run and --multi-pod need the dry-run "
-              "launcher (launch/dryrun.py), which is not ported yet", file=sys.stderr)
-        return 2
+    if args.dry_run:
+        from pathlib import Path
+
+        from .dryrun import run_cell
+
+        rep = run_cell(args.arch, args.shape, args.multi_pod, Path("reports/dryrun"))
+        print(f"compiled {args.arch} x {args.shape}: "
+              f"flops/dev={rep['hlo_flops_per_device']:.3e}")
+        return 0
 
     import torch
 

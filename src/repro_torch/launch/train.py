@@ -10,9 +10,14 @@ reference's launcher does) with the full fault-tolerant loop — checkpoints,
 auto-resume, optional int8 gradient compression — on the card, unless
 ``--device cpu`` is given; without CUDA and without that flag it exits 2.
 ``--full`` trains the published config instead (``remat="full"``), the one
-way to reach full width through the entry point.  ``--dry-run`` and
-``--multi-pod`` need the dry-run launcher and the multi-device route, not
-ported yet (ROADMAP.md, Queue 1 item F): they exit 2 and say so.
+way to reach full width through the entry point.  ``--dry-run`` traces the
+FULL config's train step (``--shape``, default ``train_4k``) on the
+production mesh instead, with nothing allocated
+(:func:`repro_torch.launch.dryrun.run_cell`: a ``"fake"`` group of 256
+ranks, or 512 with ``--multi-pod``, in this process, on the CPU), and
+prints the reference's ``compiled <arch> x <shape>: flops/dev=...`` line.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b --dry-run
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
                                                        "repro_torch_train"))
     ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--dry-run", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--full", action="store_true",
@@ -39,11 +45,15 @@ def main(argv=None) -> int:
                     help="where to train (default: the card)")
     args = ap.parse_args(argv)
 
-    if args.dry_run or args.multi_pod:
-        print("repro_torch.launch.train: --dry-run and --multi-pod need the dry-run "
-              "launcher and the multi-device route, which are not ported yet",
-              file=sys.stderr)
-        return 2
+    if args.dry_run:
+        from pathlib import Path
+
+        from .dryrun import run_cell
+
+        rep = run_cell(args.arch, args.shape, args.multi_pod, Path("reports/dryrun"))
+        print(f"compiled {args.arch} x {args.shape}: "
+              f"flops/dev={rep['hlo_flops_per_device']:.3e}")
+        return 0
 
     import torch
 

@@ -57,9 +57,40 @@ cur_len``, and K4 reads the first ``min(cur_len + 1, cache_len)`` slots
 (:func:`decode_attention` proves that this is the mask) without reading
 anything to the host.
 
-The KV cache is updated in place.  The reference's sharding constraints
-(``constrain_attention*`` of ``distributed/ctx.py``) are no-ops outside a
-mesh, and the port has no mesh, so it drops them.
+The KV cache is updated in place (``store_rows``/``fill_rows`` of
+:mod:`repro_torch.distributed.ctx`, which on a ``DTensor`` cache write each
+rank's own block, whatever dim ``cache_specs`` shards).
+
+**On a mesh.**  Under a step builder's sharding context the tensors are
+``DTensor`` s, and the reference's constraint sites pin their layouts:
+``constrain_attention`` on the plain route's q and expanded K/V (heads over
+``"model"``, or the queries' sequence where the heads do not divide it) and
+``constrain_attention_decode`` on a decode step's, and the plain route
+computes on each rank's blocks in those layouts (a sequence-sharded
+query block under the causal mask at its offset; a sequence-sharded cache
+through its softmax's statistics, reduced across the ranks).  On plain
+tensors the constraints are no-ops, so every single-device path is as it
+was.  On the kernel route
+a ``DTensor`` reaches K3 and K4 as each rank's local tensors
+(``to_local``), and the output is wrapped back (``from_local``):
+
+* K3: K/V stay unexpanded (the GQA group local) where both head counts
+  divide the ``"model"`` axis, else they are expanded first, as the
+  reference's constraint does; then ``constrain_attention`` pins the layout
+  and K3 runs on the rank's batch rows and heads.  Where it picks the
+  sequence layout (heads indivisible by the axis: hymba's 25, llama4's 40,
+  paligemma's 8 heads on 16), K3, which takes no query offset, gets the
+  queries of every position: q is redistributed to replicated over the
+  sequence before K3 and the output is constrained back to the sequence
+  layout after.
+* K4: ``constrain_attention_decode``'s layout splits the cache's slots
+  across ranks, and K4, which returns no softmax statistics, cannot merge
+  partial results; so the cache is redistributed to the batch rows and, where
+  both head counts divide the ``"model"`` axis, the heads, with every slot
+  whole (an all-to-all of the layer's cache per step), and K4 runs on the
+  rank's heads.
+
+A kernel that fails under a mesh raises; there is no quiet plain route.
 """
 from __future__ import annotations
 
@@ -68,6 +99,20 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.ctx import (
+    constrain,
+    constrain_attention,
+    constrain_attention_decode,
+    fill_rows,
+    from_block,
+    is_dtensor,
+    local_block,
+    local_offset,
+    mesh_matmul,
+    model_axis_size,
+    model_split,
+    store_rows,
+)
 from ..kernels import ops
 from .layers import apply_rope, init_dense
 
@@ -105,10 +150,30 @@ def _sdpa(q, k, v, mask, compute_dtype):
 
 
 def _expand_kv(x, n_heads: int):
-    """(B, S, KVH, hd) -> (B, S, H, hd) by repeating each KV head."""
+    """(B, S, KVH, hd) -> (B, S, H, hd) by repeating each KV head.  A
+    ``DTensor`` is expanded on each rank's block with its KV heads whole;
+    where ``"model"`` leaves it whole and splits the H heads, each rank keeps
+    the heads it will attend with (the layout ``constrain_attention`` pins),
+    so that no gather is needed, nor one of the gradient in the backward
+    pass."""
     kvh = x.shape[2]
     if kvh == n_heads:
         return x
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = x.device_mesh
+        whole = [Replicate() if p.is_shard(2) else p for p in x.placements]
+        out = list(whole)
+        if model_split(n_heads):
+            i = mesh.mesh_dim_names.index("model")
+            if whole[i].is_replicate():
+                out[i] = Shard(2)
+        local = torch.repeat_interleave(local_block(x, whole, out), n_heads // kvh, dim=2)
+        for i, p in enumerate(out):
+            if p.is_shard(2):
+                local = local.chunk(mesh.size(i), dim=2)[mesh.get_coordinate()[i]]
+        return from_block(local, mesh, out, (*x.shape[:2], n_heads, x.shape[3]))
     return torch.repeat_interleave(x, n_heads // kvh, dim=2)
 
 
@@ -124,15 +189,24 @@ def _causal_mask(q_len: int, kv_len: int, window: int = 0, q_offset: int = 0,
 
 
 def _project(x, w, cd):
-    """``einsum("bsd,dhk->bshk")`` as one matrix product."""
+    """``einsum("bsd,dhk->bshk")`` as one matrix product; on ``DTensor`` s,
+    with whole heads over ``"model"`` where they divide it
+    (:func:`~repro_torch.distributed.ctx.mesh_matmul`)."""
     d, h, hd = w.shape
-    return torch.matmul(x, w.to(cd).reshape(d, h * hd)).unflatten(-1, (h, hd))
+    w = w.to(cd).reshape(d, h * hd)
+    if is_dtensor(x):
+        return mesh_matmul(x, w, "cols" if model_split(h) else None).unflatten(-1, (h, hd))
+    return torch.matmul(x, w).unflatten(-1, (h, hd))
 
 
 def _out(o, w, cd):
-    """``einsum("bshk,hkd->bsd")`` as one matrix product."""
+    """``einsum("bshk,hkd->bsd")`` as one matrix product; on ``DTensor`` s,
+    over each rank's heads, the partial sums reduced over ``"model"``."""
     h, hd, d = w.shape
-    return torch.matmul(o.flatten(-2), w.to(cd).reshape(h * hd, d))
+    w = w.to(cd).reshape(h * hd, d)
+    if is_dtensor(o):
+        return mesh_matmul(o.flatten(-2), w, "rows" if model_split(h) else None)
+    return torch.matmul(o.flatten(-2), w)
 
 
 def _qkv(x, p, cd):
@@ -178,6 +252,100 @@ def _banded(cfg: ModelConfig, s: int, window: int) -> bool:
     return cfg.local_attention and window > 0 and s % window == 0 and s >= 2 * window
 
 
+def _heads_placements(placements, mesh, heads: int, counts):
+    """Placements for a kernel on each rank's batch rows and heads: a mesh
+    dim that shards the batch (dim 0) in ``placements`` keeps it, the
+    ``"model"`` axis shards dim ``heads`` where it divides every head count
+    in ``counts`` (and the context splits heads at all), and every other
+    dim is whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    tp = model_axis_size()
+    by_heads = tp > 1 and all(n % tp == 0 for n in counts)
+    return tuple(p if p.is_shard(0) else Shard(heads) if by_heads and name == "model"
+                 else Replicate() for p, name in zip(placements, mesh.mesh_dim_names))
+
+
+def _flash(q, k, v, cfg: ModelConfig, **kw):
+    """K3 on q (B, S, H, hd) and unexpanded k, v; on ``DTensor`` s, on each
+    rank's local heads, as the module's docstring sets out."""
+    if not is_dtensor(q):
+        return ops.flash_attention(q, k, v, **kw)
+    tp = model_axis_size()
+    if q.shape[2] % tp or k.shape[2] % tp:
+        k, v = _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+    q, k, v = constrain_attention(q, k, v)
+    by_sequence = any(p.is_shard(1) for p in q.placements)
+    mesh = q.device_mesh
+    placements = _heads_placements(q.placements, mesh, 2, (q.shape[2], k.shape[2]))
+    lq, lk, lv = (t.redistribute(mesh, placements).to_local() for t in (q, k, v))
+    out = from_block(ops.flash_attention(lq, lk, lv, **kw), mesh, placements, q.shape)
+    return constrain(out, "dp", "model", None, None) if by_sequence else out
+
+
+def _mesh_sdpa(q, ke, ve, cfg: ModelConfig, causal: bool, window: int):
+    """The plain route's attention of ``DTensor`` q (B, S, H, hd) over the
+    expanded ke, ve (B, S_kv, H, hd) as ``constrain_attention`` pinned
+    them: each rank computes its batch rows and heads, and in the sequence
+    layout its query rows at their offset over every key, with the
+    reference's masked einsums (or its banded form over whole sequences);
+    no collective but the redistributes to that layout."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    qp = tuple(p if any(p.is_shard(d) for d in (0, 1, 2)) else Replicate() for p in q.placements)
+    kp = tuple(Replicate() if p.is_shard(1) else p for p in qp)
+    q = q.redistribute(mesh, qp)
+    lq = q.to_local()
+    lk, lv = ke.redistribute(mesh, kp).to_local(), ve.redistribute(mesh, kp).to_local()
+    s, s_kv, cd = lq.shape[1], lk.shape[1], cfg.compute_dtype
+    if not causal:
+        out = _sdpa(lq, lk, lv, torch.ones((1, 1, s, s_kv), dtype=torch.bool, device=lq.device),
+                    cd)
+    elif s == q.shape[1] and _banded(cfg, s, window):
+        out = _local_attention(lq, lk, lv, window, cd)
+    else:
+        mask = _causal_mask(s, s_kv, window, q_offset=local_offset(q, 1), device=lq.device)
+        out = _sdpa(lq, lk, lv, mask[None, None], cd)
+    return from_block(out, q.device_mesh, qp, q.shape)
+
+
+def _mesh_decode_sdpa(q, ke, ve, mask, cd):
+    """The plain route's decode attention of ``DTensor`` q (B, 1, H, hd)
+    over the expanded cache ke, ve (B, S_cache, H, hd) as
+    ``constrain_attention_decode`` pinned them: where the cache's slots are
+    split across ranks, each rank takes the masked softmax's statistics and
+    the PV product over its own slots, and the (B, H, 1) maxima and sums
+    and the (B, 1, H, hd) partial outputs are reduced across the ranks that
+    split the slots; the function is the reference's."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+
+    mesh = ke.device_mesh
+    kp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in ke.placements)
+    qp = tuple(p if p.is_shard(0) else Replicate() for p in kp)
+    ke = ke.redistribute(mesh, kp)
+    lq, lk, lv = (q.redistribute(mesh, qp).to_local(), ke.to_local(),
+                  ve.redistribute(mesh, kp).to_local())
+    first = local_offset(ke, 1)
+    lmask = mask.full_tensor()[first:first + lk.shape[1]]
+    split = [i for i, p in enumerate(kp) if p.is_shard(1)]
+
+    def reduce(t, op):
+        for i in split:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    hd = lq.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", lq, lk).float() * (hd ** -0.5)
+    scores = torch.where(lmask[None, None, None, :], scores, torch.finfo(torch.float32).min)
+    m = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - m)
+    probs = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(cd)
+    out = reduce(torch.einsum("bhqk,bkhd->bqhd", probs, lv), "sum")
+    return from_block(out, q.device_mesh, qp, q.shape)
+
+
 def _causal_attention(q, k, v, cfg: ModelConfig, window: int, kernel: bool):
     """Causal self-attention of q (B, S, H, hd) over k, v (B, S, KVH, hd)
     within ``window`` (0 = none): K3 on the card, the reference's masked
@@ -186,8 +354,10 @@ def _causal_attention(q, k, v, cfg: ModelConfig, window: int, kernel: bool):
     if _kernel_route(q, kernel):
         # blocks of S: the reference's block sizes only constrain S, and K3
         # picks its own tiles
-        return ops.flash_attention(q, k, v, causal=True, window=window, block_q=s, block_k=s)
-    ke, ve = _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads)
+        return _flash(q, k, v, cfg, causal=True, window=window, block_q=s, block_k=s)
+    q, ke, ve = constrain_attention(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads))
+    if is_dtensor(q):
+        return _mesh_sdpa(q, ke, ve, cfg, True, window)
     if _banded(cfg, s, window):
         return _local_attention(q, ke, ve, window, cfg.compute_dtype)
     mask = _causal_mask(s, s, window, device=q.device)[None, None]
@@ -200,10 +370,12 @@ def _full_attention(q, k, v, cfg: ModelConfig, kernel: bool):
     einsums over an all-true mask elsewhere."""
     s, s_kv = q.shape[1], k.shape[1]
     if _kernel_route(q, kernel):
-        return ops.flash_attention(q, k, v, causal=False, block_q=s, block_k=s_kv)
+        return _flash(q, k, v, cfg, causal=False, block_q=s, block_k=s_kv)
     mask = torch.ones((1, 1, s, s_kv), dtype=torch.bool, device=q.device)
-    return _sdpa(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads), mask,
-                 cfg.compute_dtype)
+    q, ke, ve = constrain_attention(q, _expand_kv(k, cfg.n_heads), _expand_kv(v, cfg.n_heads))
+    if is_dtensor(q):
+        return _mesh_sdpa(q, ke, ve, cfg, False, 0)
+    return _sdpa(q, ke, ve, mask, cfg.compute_dtype)
 
 
 def attention_train(x, p, cfg: ModelConfig, positions, window: int = 0,
@@ -258,16 +430,17 @@ def prefill_attention(x, p, cfg: ModelConfig, positions, cache: KVCache, window:
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache_len < s:
-        cache.k.copy_(k[:, s - cache_len:])
-        cache.v.copy_(v[:, s - cache_len:])
-        cache.pos.copy_(torch.arange(s - cache_len, s, dtype=torch.int32, device=x.device))
+        store_rows(cache.k, 1, 0, k[:, s - cache_len:])
+        store_rows(cache.v, 1, 0, v[:, s - cache_len:])
+        store_rows(cache.pos, 0, 0,
+                   torch.arange(s - cache_len, s, dtype=torch.int32, device=x.device))
     else:
-        cache.k[:, :s] = k.to(cache.k.dtype)
-        cache.k[:, s:] = 0
-        cache.v[:, :s] = v.to(cache.v.dtype)
-        cache.v[:, s:] = 0
+        store_rows(cache.k, 1, 0, k)
+        fill_rows(cache.k, 1, s, cache_len, 0)
+        store_rows(cache.v, 1, 0, v)
+        fill_rows(cache.v, 1, s, cache_len, 0)
         slots = torch.arange(cache_len, dtype=torch.int32, device=x.device)
-        cache.pos.copy_(torch.where(slots < s, slots, -1))
+        store_rows(cache.pos, 0, 0, torch.where(slots < s, slots, -1))
     return _out(_causal_attention(q, k, v, cfg, window, kernel), p["wo"], cd), cache
 
 
@@ -323,18 +496,49 @@ def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int, windo
     q, k, v = _qkv(x, p, cd)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    cache.pos[slot] = cur_len
+    store_rows(cache.k, 1, slot, k)
+    store_rows(cache.v, 1, slot, v)
+    fill_rows(cache.pos, 0, slot, slot + 1, cur_len)
     kc, vc = cache.k.to(cd), cache.v.to(cd)
     if _kernel_route(x, kernel):
-        n = min(cur_len + 1, cache_len)
-        if window > 0:
-            kc, vc, n = _ring_slots(kc, vc, _decode_mask(cache.pos, cur_len, window))
-        lengths = torch.full((b,), n, dtype=torch.int32, device=x.device)
-        out = ops.decode_attention(q[:, 0], kc, vc, lengths, block_k=cache_len)[:, None]
+        mask = _decode_mask(cache.pos, cur_len, window) if window > 0 else None
+        out = _decode_kernel(q[:, 0], kc, vc, min(cur_len + 1, cache_len), mask)[:, None]
     else:
         mask = _decode_mask(cache.pos, cur_len, window)
-        out = _sdpa(q, _expand_kv(kc, cfg.n_heads), _expand_kv(vc, cfg.n_heads),
-                    mask[None, None, None, :], cd)
+        q, ke, ve = constrain_attention_decode(q, _expand_kv(kc, cfg.n_heads),
+                                               _expand_kv(vc, cfg.n_heads))
+        out = (_mesh_decode_sdpa(q, ke, ve, mask, cd) if is_dtensor(q)
+               else _sdpa(q, ke, ve, mask[None, None, None, :], cd))
     return _out(out, p["wo"], cd), cache
+
+
+def _kernel_kv(kc, vc, placements):
+    """This rank's blocks of the cache, laid out as ``placements``."""
+    mesh = kc.device_mesh
+    return kc.redistribute(mesh, placements).to_local(), vc.redistribute(mesh, placements).to_local()
+
+
+def _decode_kernel(q, kc, vc, n: int, mask):
+    """K4 for q (B, H, hd) over the cache kc, vc (B, S_cache, KVH, hd),
+    reading its first ``n`` slots, or where ``mask`` (a windowed layer's
+    valid slots) is given, those (:func:`_ring_slots`).  On ``DTensor`` s,
+    on each rank's batch rows and heads with every slot whole."""
+    b, cache_len = q.shape[0], kc.shape[1]
+    placements = None
+    if is_dtensor(q):
+        placements = _heads_placements(kc.placements, kc.device_mesh, 2,
+                                       (q.shape[1], kc.shape[2]))
+        q_placements = _heads_placements(kc.placements, kc.device_mesh, 1,
+                                         (q.shape[1], kc.shape[2]))
+        like = q
+        q = q.redistribute(q.device_mesh, q_placements).to_local()
+        kc, vc = _kernel_kv(kc, vc, placements)
+        mask = None if mask is None else mask.full_tensor()
+        b = q.shape[0]
+    if mask is not None:
+        kc, vc, n = _ring_slots(kc, vc, mask)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=q.device)
+    out = ops.decode_attention(q, kc, vc, lengths, block_k=cache_len)
+    if placements is None:
+        return out
+    return from_block(out, like.device_mesh, q_placements, like.shape)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.ctx import constrain_tokens_3d
 from . import xlstm as xl
 from .attention import (
     attention_train,
@@ -80,6 +81,7 @@ def _zero(x):
 
 def layer_train(p: dict, cfg: ModelConfig, x, positions, flag: bool = False,
                 kernel: bool = True):
+    x = constrain_tokens_3d(x)   # anchor per-layer activation sharding
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":
@@ -108,6 +110,7 @@ def init_layer_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> dict:
 
 def layer_prefill(p: dict, cfg: ModelConfig, x, positions, cache, flag: bool = False,
                   kernel: bool = True):
+    x = constrain_tokens_3d(x)   # anchor per-layer activation sharding
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":
@@ -124,6 +127,7 @@ def layer_prefill(p: dict, cfg: ModelConfig, x, positions, cache, flag: bool = F
 
 def layer_decode(p: dict, cfg: ModelConfig, x, cur_len, cache, flag: bool = False,
                  kernel: bool = True):
+    x = constrain_tokens_3d(x)   # anchor per-layer activation sharding
     fam = cfg.family
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if fam == "ssm":

@@ -31,9 +31,10 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..distributed.ctx import constrain_tokens_3d
 from .attention import (
     KVCache,
+    _decode_kernel,
     _expand_kv,
     _kernel_route,
     _out,
@@ -111,6 +112,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, kernel: bool = True):
     positions = _positions(x.shape[0], x.shape[1], x.device)
 
     def body(h, p):
+        h = constrain_tokens_3d(h)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         h = h + attention_train(hn, p["attn"], cfg, positions, bidirectional=True,
                                 kernel=kernel)
@@ -130,6 +132,7 @@ def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor, memory: torch.T
     positions = _positions(x.shape[0], x.shape[1], x.device)
 
     def body(h, p):
+        h = constrain_tokens_3d(h)
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
         h = h + attention_train(hn, p["attn"], cfg, positions, kernel=kernel)
         hn = rms_norm(h, p["lnx"], cfg.norm_eps)
@@ -190,6 +193,7 @@ def encdec_prefill(params, cfg: ModelConfig, batch: dict, cache: dict, kernel: b
     positions = _positions(x.shape[0], x.shape[1], x.device)
     xks, xvs = [], []
     for i, p in enumerate(params["decoder"]):
+        x = constrain_tokens_3d(x)
         hn = rms_norm(x, p["ln1"], cfg.norm_eps)
         att, _ = prefill_attention(hn, p["attn"], cfg, positions, _self_cache(cache, i),
                                    kernel=kernel)
@@ -213,6 +217,7 @@ def encdec_decode_step(params, cfg: ModelConfig, token: torch.Tensor, cur_len, c
     x = embed_tokens(token[:, None], params["embed"], cd)
     cur_len = int(cur_len)
     for i, p in enumerate(params["decoder"]):
+        x = constrain_tokens_3d(x)
         hn = rms_norm(x, p["ln1"], cfg.norm_eps)
         att, _ = decode_attention(hn, p["attn"], cfg, _self_cache(cache, i), cur_len,
                                   kernel=kernel)
@@ -234,9 +239,7 @@ def _cached_cross(x, xk, xv, p, cfg: ModelConfig, kernel: bool = True):
     q = _project(x, p["wq"], cd)
     xk, xv = xk.to(cd), xv.to(cd)
     if _kernel_route(x, kernel):
-        b, s_src = xk.shape[0], xk.shape[1]
-        lengths = torch.full((b,), s_src, dtype=torch.int32, device=x.device)
-        out = ops.decode_attention(q[:, 0], xk, xv, lengths, block_k=s_src)[:, None]
+        out = _decode_kernel(q[:, 0], xk, xv, xk.shape[1], None)[:, None]
     else:
         mask = torch.ones((1, 1, x.shape[1], xk.shape[1]), dtype=torch.bool, device=x.device)
         out = _sdpa(q, _expand_kv(xk, cfg.n_heads), _expand_kv(xv, cfg.n_heads), mask, cd)

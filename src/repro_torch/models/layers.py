@@ -6,12 +6,24 @@ tensors.  The reference's inits split a ``jax.random`` key; here every
 the generator's device, and puts the result on ``device``.  The two
 packages therefore draw different weights from one seed:
 :func:`repro_torch.convert.lm_params_from_numpy` carries the reference's
-across where both must compute the same thing.
+across where both must compute the same thing.  On ``DTensor`` s (a step
+builder's sharded step) the products run as Megatron lays them out
+(:func:`~repro_torch.distributed.ctx.mesh_matmul`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.ctx import (
+    from_block,
+    is_dtensor,
+    local_block,
+    local_offset,
+    mesh_embed,
+    mesh_matmul,
+    model_split,
+)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -26,6 +38,8 @@ def init_rms_norm(d: int, dtype, device) -> torch.Tensor:
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype) -> torch.Tensor:
+    if is_dtensor(table):
+        return mesh_embed(tokens, table, compute_dtype)
     return table[tokens].to(compute_dtype)
 
 
@@ -43,11 +57,27 @@ def init_embedding(generator, vocab: int, d: int, dtype, device) -> torch.Tensor
     return _normal(generator, (vocab, d), 0.02, dtype, device)
 
 
+def unembed_layout(table):
+    """A ``DTensor`` token table (V, D) as :func:`unembed`'s product takes
+    it: in float32, gathered over the data axes, its rows over ``"model"``
+    where they divide it (so that the chunks of a loss share one gather)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = table.device_mesh
+    split = model_split(table.shape[0])
+    return table.float().redistribute(mesh, [
+        Shard(0) if split and name == "model" else Replicate() for name in mesh.mesh_dim_names])
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     """Project to vocab logits; table is (V, D) (tied) — computed in fp32
     (never TF32: the caller keeps ``torch.backends.cuda.matmul.allow_tf32``
     off, its default)."""
-    logits = torch.matmul(x.float(), table.float().t())
+    if is_dtensor(x):
+        logits = mesh_matmul(x.float(), table.float().t(),
+                             "cols" if model_split(table.shape[0]) else None)
+    else:
+        logits = torch.matmul(x.float(), table.float().t())
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
@@ -65,6 +95,13 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Interleaved-pair rotary embedding, in float32.  x: (B, S, H, hd),
     positions (B, S).  The pair (2i, 2i+1) rotates by positions * freq_i."""
+    if is_dtensor(x):
+        # on each rank's block, at its rows' positions
+        local = local_block(x, x.placements, x.placements)
+        b0, s0 = local_offset(x, 0), local_offset(x, 1)
+        pos = positions.full_tensor() if is_dtensor(positions) else positions
+        pos = pos[b0:b0 + local.shape[0], s0:s0 + local.shape[1]]
+        return from_block(apply_rope(local, pos, theta), x.device_mesh, x.placements, x.shape)
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)                # (hd/2,)
     angles = positions[..., None].float() * freqs                # (B, S, hd/2)
@@ -96,9 +133,16 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, p: dict, act: str, compute_dtype) -> torch.Tensor:
+    """On ``DTensor`` s a Megatron MLP: the hidden features over
+    ``"model"`` where they divide it, the output's partial sums reduced."""
     wi = p["wi"].to(compute_dtype)
     wg = p["wg"].to(compute_dtype)
     wo = p["wo"].to(compute_dtype)
+    if is_dtensor(x):
+        split = model_split(wi.shape[1])
+        h = mesh_matmul(x, wi, "cols" if split else None)
+        g = activation(mesh_matmul(x, wg, "cols" if split else None), act)
+        return mesh_matmul(h * g, wo, "rows" if split else None)
     h = torch.matmul(x, wi)
     g = activation(torch.matmul(x, wg), act)
     return torch.matmul(h * g, wo)

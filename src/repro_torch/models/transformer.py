@@ -31,6 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.ctx import constrain_tokens_3d, is_dtensor, whole
 from .blocks import (
     init_layer,
     init_layer_cache,
@@ -41,6 +42,7 @@ from .blocks import (
 )
 from .layers import (
     embed_tokens,
+    unembed_layout,
     init_dense,
     init_embedding,
     init_rms_norm,
@@ -80,7 +82,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.frontend != "none":
         fe = torch.matmul(batch["frontend"].to(cd), params["frontend_proj"].to(cd))
         x = torch.cat([fe, x], dim=1)
-    return x
+    return constrain_tokens_3d(x)
 
 
 def _positions(batch: int, seq: int, device) -> torch.Tensor:
@@ -114,8 +116,17 @@ def lm_backbone(params, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
 def _chunk_ce(h: torch.Tensor, tgt: torch.Tensor, table: torch.Tensor,
               softcap: float) -> torch.Tensor:
     """Summed next-token cross-entropy of one chunk: h (B, c, D), targets
-    (B, c); the (B, c, V) float32 logits live only inside this call."""
+    (B, c); the (B, c, V) float32 logits live only inside this call.  On
+    ``DTensor`` s the logits stay split over the vocabulary (``"model"``)
+    and the log-sum-exp and the picked logit are reduced across it, as a
+    vocab-parallel loss does, instead of gathering every row."""
     logits = unembed(h, table, softcap)
+    if is_dtensor(logits):
+        m = whole(logits.detach().amax(dim=-1, keepdim=True))
+        lse = (m + torch.log(whole(torch.exp(logits - m).sum(dim=-1, keepdim=True))))[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        picked = whole(torch.where(vocab == tgt[..., None].long(), logits, 0.0).sum(dim=-1))
+        return torch.sum(lse - picked)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, tgt[..., None].long())[..., 0]
     return torch.sum(lse - picked)
@@ -136,6 +147,8 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
     # predictions for text tokens only: positions offset..offset+S_text-1
     h_text = h[:, S_total - S_text:, :]
     table = _unembed_table(params, cfg)
+    if is_dtensor(table):       # laid out for the products once, not once per chunk
+        table = unembed_layout(table)
     n_pred = S_text - 1
     chunk = min(LOSS_CHUNK, max(n_pred, 1))
     n_chunks = -(-n_pred // chunk)                          # ceil

@@ -8,6 +8,12 @@ new trees, :func:`adamw_update` writes the parameters and the moments in
 place, under ``torch.no_grad()``: a full-width model's moments take four
 times its parameters' bytes, and a copy per step would double that.  Not
 ``torch.optim.AdamW``, whose clipping, schedule and decay differ.
+
+The trees may hold ``DTensor`` s (the sharded train step's): each gradient
+is first reduced to its parameter's placements (a partial sum over the data
+axis becomes a reduce-scatter), the global norm's sums of squares reduce
+across the ranks once per placement, every leaf's update runs on its local
+blocks, and nothing is read to the host.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.ctx import is_dtensor, whole
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -50,9 +57,10 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_adamw(params: Any) -> AdamWState:
+    """Zero moments in float32 like ``params`` (a ``DTensor`` parameter's
+    placed as it is, each rank allocating its own block) and a zero step."""
     def zeros():
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                        params)
+        return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
@@ -61,8 +69,31 @@ def init_adamw(params: Any) -> AdamWState:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(leaves[0]):
+        return _mesh_global_norm(leaves)
     return torch.sqrt(
-        sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)))
+        sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+
+
+def _mesh_global_norm(leaves) -> torch.Tensor:
+    """The global norm of ``DTensor`` leaves (none a partial sum): each
+    rank sums the squares of its blocks, leaves placed alike are added,
+    and each such sum is reduced over the mesh dims that shard it, once;
+    a replicated scalar."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, sums = leaves[0].device_mesh, {}
+    for g in leaves:
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError("global_norm of a partial sum: reduce it to its placements first")
+        key = tuple(Partial() if p.is_shard() else Replicate() for p in g.placements)
+        local = torch.sum(torch.square(g.to_local().to(torch.float32)))
+        sums[key] = sums[key] + local if key in sums else local
+    total = sum(whole(DTensor.from_local(x, mesh, key, run_check=False)).to_local()
+                for key, x in sums.items())
+    return DTensor.from_local(torch.sqrt(total), mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 @torch.no_grad()
@@ -72,22 +103,35 @@ def adamw_update(
     """One step.  Returns (params, new_state, metrics): ``params`` and the
     state's moment trees are the trees given, updated in place; the new
     state holds the incremented step."""
+    grads = [g.redistribute(p.device_mesh, p.placements)     # reduced onto the param's blocks
+             if is_dtensor(g) and tuple(g.placements) != tuple(p.placements) else g
+             for g, p in zip(tree_leaves(grads), tree_leaves(params), strict=True)]
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
     b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    # on DTensors every leaf's update is elementwise on its blocks: the
+    # scalars and the leaves as local tensors, written in place
+    k_scale, k_lr, k_b1c, k_b2c = (_local(x) for x in (scale, lr, b1c, b2c))
 
-    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v),
+    for g, m, v, p in zip(grads, tree_leaves(state.m), tree_leaves(state.v),
                           tree_leaves(params), strict=True):
-        g = g.to(torch.float32) * scale
+        g, m, v, p = (_local(x) for x in (g, m, v, p))
+        g = g.to(torch.float32) * k_scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        mhat = m / b1c
-        vhat = v / b2c
+        mhat = m / k_b1c
+        vhat = v / k_b2c
         p32 = p.to(torch.float32)
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
+        p.copy_(p32 - k_lr * delta)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step=step, m=state.m, v=state.v), metrics
+
+
+def _local(x):
+    """A ``DTensor``'s local block (a view: writes reach the ``DTensor``);
+    anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x

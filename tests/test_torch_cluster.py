@@ -206,10 +206,21 @@ def test_launcher_matches_reference(monkeypatch, capsys):
     assert "tokens=" in line and line.rstrip().endswith("(cpu)")
 
 
-def test_launcher_refusals(capsys):
-    assert port_serve.main(["--arch", "llama3.2-1b", "--dry-run"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
-    assert port_serve.main(["--arch", "llama3.2-1b", "--multi-pod"]) == 2
+def test_launcher_refusals(monkeypatch, capsys):
+    # --dry-run traces the cell through repro_torch.launch.dryrun.run_cell, which
+    # starts a process group (tests/test_torch_dryrun.py runs it in a subprocess);
+    # here a stand-in records the call, and no group is created in this process
+    calls = []
+
+    def run_cell(arch, shape, multi_pod, out_dir):
+        calls.append((arch, shape, multi_pod))
+        return {"hlo_flops_per_device": 1.5e9}
+
+    monkeypatch.setattr("repro_torch.launch.dryrun.run_cell", run_cell)
+    assert port_serve.main(["--arch", "llama3.2-1b", "--dry-run", "--multi-pod"]) == 0
+    assert calls == [("llama3.2-1b", "decode_32k", True)]
+    assert capsys.readouterr().out == "compiled llama3.2-1b x decode_32k: flops/dev=1.500e+09\n"
     if not torch.cuda.is_available():
+        assert port_serve.main(["--arch", "llama3.2-1b", "--multi-pod"]) == 2
         assert port_serve.main(["--arch", "llama3.2-1b"]) == 2
         assert "--device cpu" in capsys.readouterr().err

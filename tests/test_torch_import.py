@@ -43,7 +43,9 @@ def test_port_modules_found():
               "repro_torch.models.encdec", "repro_torch.configs.paligemma_3b",
               "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.distributed.world",
               "repro_torch.distributed.sharding", "repro_torch.distributed.ctx",
-              "repro_torch.distributed.elastic"):
+              "repro_torch.distributed.elastic", "repro_torch.launch.steps",
+              "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+              "repro_torch.launch.hillclimb"):
         assert m in MODULES
 
 

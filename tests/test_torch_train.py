@@ -509,9 +509,25 @@ def test_trainer_observes_steps_and_stops_on_preemption(tmp_path, tiny):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flag", ["--dry-run", "--multi-pod"])
-def test_launcher_dry_run_and_multi_pod_exit_2(flag, capsys):
-    assert port_train.main(["--arch", "llama3.2-1b", flag]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_launcher_dry_run_and_multi_pod_exit_2(flag, monkeypatch, capsys):
+    # --dry-run traces the train step through repro_torch.launch.dryrun.run_cell
+    # (exit 0; it starts a process group, so tests/test_torch_dryrun.py runs it in a
+    # subprocess and a stand-in records the call here); --multi-pod alone is the
+    # local launcher's flag-free run, which exits 2 only where CUDA is missing
+    calls = []
+
+    def run_cell(arch, shape, multi_pod, out_dir):
+        calls.append((arch, shape, multi_pod))
+        return {"hlo_flops_per_device": 2.0e12}
+
+    monkeypatch.setattr("repro_torch.launch.dryrun.run_cell", run_cell)
+    if flag == "--dry-run":
+        assert port_train.main(["--arch", "llama3.2-1b", flag]) == 0
+        assert calls == [("llama3.2-1b", "train_4k", False)]
+        assert capsys.readouterr().out == "compiled llama3.2-1b x train_4k: flops/dev=2.000e+12\n"
+    elif not torch.cuda.is_available():
+        assert port_train.main(["--arch", "llama3.2-1b", flag]) == 2
+        assert "--device cpu" in capsys.readouterr().err and not calls
 
 
 def test_launcher_trains_on_the_cpu(tmp_path, capsys):
