@@ -14,8 +14,8 @@ hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
 llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
 (paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route,
 elastic restore (``reshard_restore``, llama3.2-1b at full width across
-four ranks) and the sharded steps (``launch.steps``, the same model on a
-(2, 2) mesh) of ``repro_torch``; the first
+four ranks) and the sharded steps (``launch.steps``, the same model and
+hymba-1.5b on a (2, 2) mesh) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -201,9 +201,10 @@ Phases, one line or more each:
    share and launches), K3 at B 1, S 4096 with the window and K4 over the
    full 2048-slot ring on layer 0's projections, held to their plain
    versions and timed beside their bounds and SDPA; and (d) ``run_cluster``
-   with the launcher's defaults and hymba engines (max_seq 96), whose
-   report must equal the run without engines, 32 K3 launches per session
-   and 64 K4 per decode step.  (b) qwen3-moe-30b-a3b (4 of 48 layers) and
+   with the launcher's defaults and hymba engines (max_seq 96) at full
+   width, their depth cut to 4 of 32 layers, whose report must equal the
+   run without engines, 4 K3 launches per session and 8 K4 per decode
+   step.  (b) qwen3-moe-30b-a3b (4 of 48 layers) and
    llama4-scout-17b-a16e (2 of 48) at full width, B 4, prompt 192, 8 new
    tokens: float32 kernel route == plain route as in (a), the bf16 routes'
    distances and their routing flips (top-k sets that differ between the
@@ -306,15 +307,27 @@ Phases, one line or more each:
    device's and whose parameters after step 1 are within 1e-4 of each
    leaf's largest value of the single-device update (the elements whose
    clipped gradient is nonzero and below 100 AdamW eps counted, not held),
-   and wall ms per rank between a barrier and a sync; (c) the same three
-   steps traced on a fake world of four at (2, 2) in a subprocess: every
-   rank's resident bytes equal the trace's argument bytes and the float32
-   plain route's collectives equal the trace's in count and bytes by
-   kind (the kernel route's printed beside them); (d) only with four cards
-   or more: (b) over NCCL, a card per rank; (a) the dry-run of
-   llama3.2-1b's three cells on 16x16 (train_4k also on 2x16x16) and
-   command-r-plus-104b x decode_32k on the card's host (a fake group of
-   256 or 512 ranks in this process, meta tensors): per-device bytes,
+   and wall ms per rank between a barrier and a sync; (e) in the same
+   world after (b), hymba-1.5b at full width and depth (1,644,860,800
+   parameters) by the same rules on B 2, a prompt of 2304 tokens (past its
+   2048-token window and even: the ring wraps, the sequence splits) and 8
+   decode steps: its 25 query and 5 KV heads do not divide ``"model"``, so
+   attention takes the sequence layout with K3 under the window on each
+   rank's batch rows and K4 over the ring's valid slots gathered to the
+   front, its 50 SSM heads split over ``"model"``; exactly 32 K3 launches
+   per prefill and 64 K4 per decode step on every rank, two planted faults
+   rejected on every rank (K3 called without its window; K4 reading the
+   ring's first slots without the gather), one float32 train step (B 2, S
+   128) by (b)'s rules; (c) the same three steps of both models traced on
+   a fake world of four at (2, 2) in a subprocess: every rank's resident
+   bytes equal the trace's argument bytes and the float32 plain route's
+   collectives equal the trace's in count and bytes by kind (llama's kernel
+   route's printed beside them); (d) only with four cards or more: (b) and
+   (e) over NCCL, a card per rank; (a) the dry-run of llama3.2-1b's three
+   cells on 16x16 (train_4k also on 2x16x16), command-r-plus-104b x
+   decode_32k, hymba-1.5b x decode_32k, long_500k and train_4k and
+   xlstm-1.3b x decode_32k and long_500k on the card's host (a fake group
+   of 256 or 512 ranks in this process, meta tensors): per-device bytes,
    FLOPs, collectives by kind, the roofline's three terms with the H100
    constants, the trace's wall s.
 
@@ -354,7 +367,7 @@ Phases, one line or more each:
 
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
-paths' of phases 13, 15 and 16 and rank 0's bf16 main path of phase 19,
+paths' of phases 13, 15 and 16 and rank 0's bf16 main paths of phase 19,
 K3's the no-grad losses of phases 14 and 16); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
@@ -1887,6 +1900,7 @@ HYBRID_ARCH = "hymba-1.5b"       # phase 15 (a): the hybrid family whole
 # path in every layer); the ring wrapping at position 2048; a prompt past the
 # window and not a multiple of it (ROADMAP.md § 3.9)
 HYBRID_STREAMS = ((1, 4096, 16), (2, 2040, 16), (1, 2100, 8))
+HYBRID_CLUSTER_LAYERS = 4        # phase 15 (d): the cluster's hymba engines cut to this depth
 # phase 15 (b): the MoE archs at full width, depth cut to this many layers
 MOE_ARCHS = (("qwen3-moe-30b-a3b", 4), ("llama4-scout-17b-a16e", 2))
 MOE_BATCH, MOE_PROMPT, MOE_NEW = 4, 192, 8
@@ -2421,6 +2435,9 @@ def hybrid_part(smi, dev, rng, out):
 
     want = cluster(None)
     engines = []
+    # the engines at full width, their depth cut: the launch counts scale with it
+    cfg = cfg.replace(n_layers=HYBRID_CLUSTER_LAYERS)
+    shared = dict(shared, blocks=shared["blocks"][:HYBRID_CLUSTER_LAYERS])
 
     def factory():
         engines.append(InferenceEngine(cfg, shared, max_batch=1, max_seq=CLUSTER_SEQ,
@@ -2444,8 +2461,9 @@ def hybrid_part(smi, dev, rng, out):
           f"families: cluster K4 launches {k4}")
     out["launches"]["K3"] += k3
     out["launches"]["K4"] += k4
-    print(f"families: run_cluster A1 alpha=0.5 with {HYBRID_ARCH} engines (launcher defaults, "
-          f"{sessions} sessions, {len(engines)} engines of max_seq {CLUSTER_SEQ}): report == "
+    print(f"families: run_cluster A1 alpha=0.5 with {HYBRID_ARCH} engines ({cfg.n_layers} of its "
+          f"32 layers; launcher defaults, {sessions} sessions, {len(engines)} engines of max_seq "
+          f"{CLUSTER_SEQ}): report == "
           f"run without engines (cost={got.total_cost:.1f} static={got.static_cost:.0f} "
           f"reduction={got.reduction:.1%}); tokens_generated={got.tokens_generated} in "
           f"{cluster_s:.2f} s ({got.tokens_generated / cluster_s:.1f} tokens/s); K3 "
@@ -3515,16 +3533,29 @@ def elastic_phase(smi):
 # ---------------------------------------------------------------------------
 
 STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width and depth, random from SEED
+# (e): hymba-1.5b at full width and depth on the same mesh: its 25 query and 5
+# KV heads do not divide "model", so attention takes the sequence layout and K3
+# runs with the window on each rank's batch rows; its 50 SSM heads do
+STEPS_HYBRID = "hymba-1.5b"
 STEPS_WORLD, STEPS_MESH, STEPS_AXES = 4, (2, 2), ("data", "model")
-STEPS_NEW = 9                    # (b): the prefill's token and 8 decode steps (phase 13's stream)
-STEPS_TRAIN_B, STEPS_TRAIN_S = 4, 128
+STEPS_NEW = 9                    # (b), (e): the prefill's token and 8 decode steps
+# per model: the serving stream's (batch, prompt, cache slots) and the float32
+# training's (batch, sequence, steps); llama3.2-1b's stream is phase 13's,
+# hymba-1.5b's prompt is past its 2048-token window and even, so that its ring
+# wraps (K4 over the valid slots gathered to the front, ROADMAP.md § 3.9) and
+# the sequence splits over "model"
+STEPS_MODELS = {STEPS_ARCH: ((SERVE_BATCH, SERVE_PROMPT, SERVE_SEQ), (4, 128, 2)),
+                STEPS_HYBRID: ((2, 2304, 2304 + STEPS_NEW), (2, 128, 1))}
 STEPS_TRAIN_TOL = 1e-4           # (b): the loss and every parameter after step 1, relative
 STEPS_NOISE_EPS = 100            # (b): clipped gradients below this many AdamW eps are not held
 STEPS_CKPT = 3
 # (a): the dry-run's cells on the card's host, (arch, shape, multi-pod)
 DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", False), ("llama3.2-1b", "prefill_32k", False),
                 ("llama3.2-1b", "train_4k", False), ("llama3.2-1b", "train_4k", True),
-                ("command-r-plus-104b", "decode_32k", False))
+                ("command-r-plus-104b", "decode_32k", False),
+                ("hymba-1.5b", "decode_32k", False), ("hymba-1.5b", "long_500k", False),
+                ("hymba-1.5b", "train_4k", False), ("xlstm-1.3b", "decode_32k", False),
+                ("xlstm-1.3b", "long_500k", False))
 
 # (c): the three steps traced on a fake world of four at (2, 2) on the card's
 # host (a "cuda" mesh, as the real world's), in a subprocess
@@ -3536,26 +3567,30 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.launch.dryrun import StepCounters, argument_bytes, collective_counts, fake_world
 from repro_torch.launch import steps
-cfg = get_config(ARCH).replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32,
-                               remat="none")
 out = {}
 with fake_world(WORLD):
     mesh = init_device_mesh("cuda", MESH, mesh_dim_names=AXES)
-    serve = ShapeCell("serve", SLOTS, B, "prefill")
-    prompt = torch.empty((B, PROMPT), dtype=torch.int32, device="meta")
-    bundles = {
-        "prefill": steps.build_prefill_step(cfg, mesh, serve, kernel=False),
-        "decode": steps.build_decode_step(cfg, mesh, dataclasses.replace(serve, kind="decode"),
-                                          kernel=False),
-        "train": steps.build_train_step(cfg, mesh, ShapeCell("train", TRAIN_S, TRAIN_B, "train")),
-    }
-    b = bundles["prefill"]
-    bundles["prefill"] = dataclasses.replace(
-        b, abstract_args=(b.abstract_args[0], {"tokens": prompt}, b.abstract_args[2]))
-    for name, b in bundles.items():
-        c = StepCounters()
-        steps.lower_step(b, mesh, cur_len=PROMPT, observe=lambda args: (c.exclude(args), c)[1])
-        out[name] = {"argument": argument_bytes(b), "collectives": collective_counts(c.records)}
+    for arch, ((B, PROMPT, SLOTS), (TRAIN_B, TRAIN_S, _)) in MODELS.items():
+        cfg = get_config(arch).replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32,
+                                       remat="none")
+        serve = ShapeCell("serve", SLOTS, B, "prefill")
+        prompt = torch.empty((B, PROMPT), dtype=torch.int32, device="meta")
+        bundles = {
+            "prefill": steps.build_prefill_step(cfg, mesh, serve, kernel=False),
+            "decode": steps.build_decode_step(cfg, mesh, dataclasses.replace(serve, kind="decode"),
+                                              kernel=False),
+            "train": steps.build_train_step(cfg, mesh, ShapeCell("train", TRAIN_S, TRAIN_B,
+                                                                 "train")),
+        }
+        b = bundles["prefill"]
+        bundles["prefill"] = dataclasses.replace(
+            b, abstract_args=(b.abstract_args[0], {"tokens": prompt}, b.abstract_args[2]))
+        out[arch] = {}
+        for name, b in bundles.items():
+            c = StepCounters()
+            steps.lower_step(b, mesh, cur_len=PROMPT, observe=lambda args: (c.exclude(args), c)[1])
+            out[arch][name] = {"argument": argument_bytes(b),
+                               "collectives": collective_counts(c.records)}
 print(json.dumps(out))
 """
 
@@ -3591,42 +3626,43 @@ def dryrun_part(smi):
                   flush=True)
 
 
-def steps_cfg(dtype):
-    """Phase 19's llama3.2-1b: float32 compute (and cache) or the served
-    bf16; no remat (no backward pass pays for one)."""
+def steps_cfg(dtype, arch=STEPS_ARCH):
+    """Phase 19's model: float32 compute (and cache) or the served bf16; no
+    remat (no backward pass pays for one)."""
     import torch
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(STEPS_ARCH).replace(remat="none")
+    cfg = get_config(arch).replace(remat="none")
     if dtype == "float32":
         cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
     return cfg
 
 
-def steps_stream():
-    """Phase 13's token stream: B prompts of SERVE_PROMPT tokens from SEED."""
+def steps_stream(arch=STEPS_ARCH):
+    """The model's serving prompts from SEED (llama3.2-1b's: phase 13's
+    stream)."""
     import numpy as np
 
-    vocab = steps_cfg("float32").vocab_size
-    return np.random.default_rng(SEED).integers(0, vocab, (SERVE_BATCH, SERVE_PROMPT),
-                                                dtype=np.int32)
+    (b, s, _), _ = STEPS_MODELS[arch]
+    vocab = steps_cfg("float32", arch).vocab_size
+    return np.random.default_rng(SEED).integers(0, vocab, (b, s), dtype=np.int32)
 
 
-def steps_train_batch():
+def steps_train_batch(arch=STEPS_ARCH):
     import numpy as np
 
-    vocab = steps_cfg("float32").vocab_size
-    return np.random.default_rng(SEED + 1).integers(0, vocab, (STEPS_TRAIN_B, STEPS_TRAIN_S),
-                                                    dtype=np.int32)
+    _, (b, s, _) = STEPS_MODELS[arch]
+    vocab = steps_cfg("float32", arch).vocab_size
+    return np.random.default_rng(SEED + 1).integers(0, vocab, (b, s), dtype=np.int32)
 
 
-def steps_reference(work, dev):
-    """Phase 19's single-device results, computed before the world starts
-    and freed: the float32 plain route's picks and logits over the stream
-    (``SERVE_SEQ`` slots), the bf16 plain route's distance to them, two
-    float32 train steps' losses, and the parameters after step 1 saved
-    under ``work``."""
+def steps_reference(work, dev, arch=STEPS_ARCH):
+    """Phase 19's single-device results for ``arch``, computed before the
+    world starts and freed: the float32 plain route's picks and logits over
+    the stream, the bf16 plain route's distance to them, the float32 train
+    steps' losses, and the weights and the parameters and gradients after
+    step 1 saved under ``work/arch``."""
     import torch
 
     from repro_torch.checkpoint import save
@@ -3636,23 +3672,24 @@ def steps_reference(work, dev):
     from repro_torch.serving.engine import serving_params
     from repro_torch.utils.tree import tree_leaves
 
-    f32, bf16 = steps_cfg("float32"), steps_cfg("bfloat16")
+    folder = os.path.join(work, arch)
+    (b, _, slots), (_, _, n_train) = STEPS_MODELS[arch]
+    f32, bf16 = steps_cfg("float32", arch), steps_cfg("bfloat16", arch)
     params = init_params(f32, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    save(os.path.join(work, "weights"), STEPS_CKPT, params)
-    prompt = steps_stream()
-    picks, exact = InferenceEngine(f32, params, max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
-                                   device=dev, kernel=False)._generate(
-        prompt, STEPS_NEW, keep_logits=True)
-    _, plain = InferenceEngine(bf16, serving_params(params, bf16, dev), max_batch=SERVE_BATCH,
-                               max_seq=SERVE_SEQ, device=dev, kernel=False)._generate(
+    save(os.path.join(folder, "weights"), STEPS_CKPT, params)
+    prompt = steps_stream(arch)
+    picks, exact = InferenceEngine(f32, params, max_batch=b, max_seq=slots, device=dev,
+                                   kernel=False)._generate(prompt, STEPS_NEW, keep_logits=True)
+    _, plain = InferenceEngine(bf16, serving_params(params, bf16, dev), max_batch=b,
+                               max_seq=slots, device=dev, kernel=False)._generate(
         prompt, STEPS_NEW, forced=picks, keep_logits=True)
     plain_to_f32 = max(float(row_err(x, ref).max()) for x, ref in zip(plain, exact))
     out = {"picks": picks, "exact": [x.cpu() for x in exact], "plain_to_f32": plain_to_f32}
     del plain, exact
-    batch = {"tokens": torch.as_tensor(steps_train_batch(), device=dev)}
+    batch = {"tokens": torch.as_tensor(steps_train_batch(arch), device=dev)}
     state, losses = init_adamw(params), []
     leaves = tree_leaves(params)
-    for step in range(2):
+    for step in range(n_train):
         for p in leaves:
             p.requires_grad_(True)
         loss, _ = loss_fn(params, f32, batch, kernel=False)
@@ -3662,8 +3699,8 @@ def steps_reference(work, dev):
         adamw_update(list(grads), state, params, AdamWConfig())
         losses.append(float(loss))
         if step == 0:
-            save(os.path.join(work, "step1"), STEPS_CKPT, params)
-            save(os.path.join(work, "grads1"), STEPS_CKPT, list(grads))
+            save(os.path.join(folder, "step1"), STEPS_CKPT, params)
+            save(os.path.join(folder, "grads1"), STEPS_CKPT, list(grads))
             out_clip = min(1.0, AdamWConfig().clip_norm / float(global_norm(list(grads))))
         del grads, loss
     out["losses"], out["clip"] = losses, out_clip
@@ -3683,32 +3720,96 @@ def _resident(args) -> int:
     return total
 
 
+def steps_sync():
+    """Phase 19: wait for this rank's card, then for every rank."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def steps_whole(mesh, x):
+    """The ``DTensor`` ``x`` gathered whole on every rank (over gloo its
+    collectives through the host)."""
+    from repro_torch.distributed.world import host_collectives
+
+    with host_collectives(mesh):
+        return x.full_tensor()
+
+
+def sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out, counters=None,
+                  timed=False):
+    """Phase 19: the prefill of ``prompt`` and ``n_new - 1`` decode steps fed
+    ``picks`` through the step builders on ``mesh`` (``slots`` cache slots),
+    the weights placed as the prefill step's shardings; returns the gathered
+    logits of each (on every rank).  ``counters`` ({"prefill", "decode"}
+    :class:`StepCounters`) count the prefill and the first decode step,
+    whose resident bytes go to ``out["resident"]``; ``timed``: wall ms per
+    rank between a barrier and a sync in ``out["times"]``."""
+    import contextlib
+    import dataclasses
+    import statistics as stats
+
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.models import init_cache
+
+    dev = prompt.device
+    b, s = prompt.shape
+    cell = ShapeCell("serve", slots, b, "prefill")
+    prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
+    decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
+                                     kernel=kernel)
+    params, batch, cache = steps.place(
+        (weights, {"tokens": prompt}, init_cache(cfg, b, slots, device=dev)),
+        prefill.in_shardings)
+    if counters is not None:
+        out["resident"]["prefill"] = _resident((params, batch, cache))
+    steps_sync()
+    t0 = time.perf_counter()
+    with counters["prefill"] if counters else contextlib.nullcontext():
+        logits, cache = prefill.fn(params, batch, cache)
+    steps_sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    seen, step_ms = [steps_whole(mesh, logits)], []
+    for i in range(n_new - 1):
+        token, cur_len = steps.place(
+            (picks[:, i], torch.tensor(s + i, dtype=torch.int32, device=dev)),
+            decode.in_shardings[1:3])
+        if counters is not None and i == 0:
+            out["resident"]["decode"] = _resident((params, token, cur_len, cache))
+        steps_sync()
+        t0 = time.perf_counter()
+        with counters["decode"] if counters and i == 0 else contextlib.nullcontext():
+            logits, cache = decode.fn(params, token, cur_len, cache)
+        steps_sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        seen.append(steps_whole(mesh, logits))
+    if timed:
+        out["times"].update(prefill_ms=prefill_ms, decode_p50_ms=stats.median(step_ms),
+                            decode_p99_ms=sorted(step_ms)[min(len(step_ms) - 1, int(
+                                0.99 * len(step_ms)))])
+    return seen
+
+
 def steps_rank(mesh, payload):
     """One rank of phase 19 (b) (a ``run_world`` target on a (2, 2) mesh):
     the weights restored onto this rank's blocks, the serving steps on the
     stream (float32 kernel and plain routes, bf16 kernel route: the main
     path, counted and timed), two float32 train steps, the planted faults;
     what the checks need comes back (rank 0 also the gathered logits)."""
-    import contextlib
-    import dataclasses
-    import statistics as stats
     import unittest.mock
 
-    import numpy as np
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
 
-    from repro_torch.checkpoint import restore
-    from repro_torch.configs import ShapeCell
-    from repro_torch.distributed.elastic import reshard_restore
-    from repro_torch.distributed.world import host_collectives
-    from repro_torch.launch import steps
     from repro_torch.launch.dryrun import StepCounters, collective_counts
-    from repro_torch.models import abstract_params, attention, init_cache
-    from repro_torch.optim import init_adamw
+    from repro_torch.models import attention
     from repro_torch.serving.engine import serving_params
-    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths
 
     flash = importlib.import_module("repro_torch.kernels.flash_attention")
     decode_mod = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -3717,65 +3818,19 @@ def steps_rank(mesh, payload):
     rank = dist.get_rank()
     out = {"rank": rank, "start_s": time.time() - payload["t0"], "times": {}, "faults": {},
            "collectives": {}, "resident": {}, "launches": {}}
-    work = payload["dir"]
+    work = os.path.join(payload["dir"], STEPS_ARCH)
     picks = torch.as_tensor(payload["picks"], device=dev)
     prompt = torch.as_tensor(steps_stream(), device=dev)
     f32, bf16 = steps_cfg("float32"), steps_cfg("bfloat16")
-    cell = ShapeCell("serve", SERVE_SEQ, SERVE_BATCH, "prefill")
-    like = abstract_params(f32)
-
-    def sync():
-        torch.cuda.synchronize()
-        dist.barrier()
 
     def whole(x):
-        with host_collectives(mesh):
-            return x.full_tensor()
+        return steps_whole(mesh, x)
 
     def serve(cfg, weights, kernel, n_new=STEPS_NEW, counters=None, timed=False):
-        """Prefill, then ``n_new - 1`` decode steps fed the reference's
-        picks; the gathered logits of each (on every rank)."""
-        prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
-        decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
-                                         kernel=kernel)
-        params, batch, cache = steps.place(
-            (weights, {"tokens": prompt}, init_cache(cfg, SERVE_BATCH, SERVE_SEQ, device=dev)),
-            prefill.in_shardings)
-        if counters is not None:
-            out["resident"]["prefill"] = _resident((params, batch, cache))
-        sync()
-        t0 = time.perf_counter()
-        with counters["prefill"] if counters else contextlib.nullcontext():
-            logits, cache = prefill.fn(params, batch, cache)
-        sync()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        seen, step_ms = [whole(logits)], []
-        for i in range(n_new - 1):
-            token, cur_len = steps.place(
-                (picks[:, i], torch.tensor(SERVE_PROMPT + i, dtype=torch.int32, device=dev)),
-                decode.in_shardings[1:3])
-            if counters is not None and i == 0:
-                out["resident"]["decode"] = _resident((params, token, cur_len, cache))
-            sync()
-            t0 = time.perf_counter()
-            with counters["decode"] if counters and i == 0 else contextlib.nullcontext():
-                logits, cache = decode.fn(params, token, cur_len, cache)
-            sync()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            seen.append(whole(logits))
-        if timed:
-            out["times"].update(prefill_ms=prefill_ms, decode_p50_ms=stats.median(step_ms),
-                                decode_p99_ms=sorted(step_ms)[min(len(step_ms) - 1, int(
-                                    0.99 * len(step_ms)))])
-        return seen
+        return sharded_serve(mesh, cfg, weights, prompt, picks, SERVE_SEQ, kernel, n_new, out,
+                             counters, timed)
 
-    # the weights, restored onto this rank's blocks of the serving layout
-    # (the checkpointer's sharded restore, no collective)
-    t0 = time.perf_counter()
-    probe = steps.build_prefill_step(f32, mesh, cell)
-    weights = restore(os.path.join(work, "weights"), STEPS_CKPT, like,
-                      shardings=probe.in_shardings[0])
-    out["times"]["restore_s"] = time.perf_counter() - t0
+    weights = steps_weights(mesh, STEPS_ARCH, work, out)
 
     # float32, kernel route, with its collectives and resident bytes
     kernel_counts = {"prefill": StepCounters(), "decode": StepCounters()}
@@ -3827,35 +3882,156 @@ def steps_rank(mesh, payload):
     del weights, bad, k32, p32, kb
     torch.cuda.empty_cache()
 
-    # two float32 train steps from the same weights, in the training layout
-    train = steps.build_train_step(f32, mesh, ShapeCell("train", STEPS_TRAIN_S, STEPS_TRAIN_B,
-                                                        "train"))
-    params = reshard_restore(os.path.join(work, "weights"), STEPS_CKPT, like, mesh)
-    batch = {"tokens": torch.as_tensor(steps_train_batch(), device=dev)}
-    params, state, batch = steps.place((params, init_adamw(params), batch), train.in_shardings)
-    out["resident"]["train"] = _resident((params, state, batch))
-    losses, step_ms, counts = [], [], StepCounters()
-    for step in range(2):
-        sync()
-        t0 = time.perf_counter()
-        with counts if step == 0 else contextlib.nullcontext():
-            params, state, metrics = train.fn(params, state, batch)
-        sync()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"].to_local()))
-        if step == 0:          # every leaf gathered; rank 0 holds it to the saved update
-            gathered = [whole(leaf) for leaf in tree_leaves(params)]
-            if rank == 0:
-                out["train_param_err"] = steps_params_held(gathered, tree_paths(params), work, dev,
-                                                           payload["clip"])
-            del gathered
-    out["collectives"]["train"] = collective_counts(counts.records)
-    out["losses"] = losses
-    out["times"]["train_ms"] = step_ms
+    sharded_train(mesh, STEPS_ARCH, work, payload["clip"], out)
     return out
 
 
-def steps_params_held(got, paths, work, dev, clip):
+def steps_weights(mesh, arch, work, out):
+    """Phase 19: ``arch``'s float32 weights restored onto this rank's blocks
+    of the serving layout (the checkpointer's sharded restore, no
+    collective), timed."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.models import abstract_params
+
+    (b, _, slots), _ = STEPS_MODELS[arch]
+    f32 = steps_cfg("float32", arch)
+    t0 = time.perf_counter()
+    probe = steps.build_prefill_step(f32, mesh, ShapeCell("serve", slots, b, "prefill"))
+    weights = restore(os.path.join(work, "weights"), STEPS_CKPT, abstract_params(f32),
+                      shardings=probe.in_shardings[0])
+    out["times"]["restore_s"] = time.perf_counter() - t0
+    return weights
+
+
+def sharded_train(mesh, arch, work, clip, out):
+    """Phase 19: ``arch``'s float32 train steps (``STEPS_MODELS``) from its
+    saved weights in the training layout, timed, the first counted; the
+    losses, and on rank 0 the parameters after step 1 held to the saved
+    single-device update (:func:`steps_params_held`)."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.distributed.elastic import reshard_restore
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import StepCounters, collective_counts
+    from repro_torch.models import abstract_params
+    from repro_torch.optim import init_adamw
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, (b, s, n_steps) = STEPS_MODELS[arch]
+    f32 = steps_cfg("float32", arch)
+    train = steps.build_train_step(f32, mesh, ShapeCell("train", s, b, "train"))
+    params = reshard_restore(os.path.join(work, "weights"), STEPS_CKPT, abstract_params(f32), mesh)
+    batch = {"tokens": torch.as_tensor(steps_train_batch(arch), device=dev)}
+    params, state, batch = steps.place((params, init_adamw(params), batch), train.in_shardings)
+    out["resident"]["train"] = _resident((params, state, batch))
+    losses, step_ms, counts = [], [], StepCounters()
+    for step in range(n_steps):
+        steps_sync()
+        t0 = time.perf_counter()
+        with counts if step == 0 else contextlib.nullcontext():
+            params, state, metrics = train.fn(params, state, batch)
+        steps_sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"].to_local()))
+        if step == 0:          # each leaf gathered in turn; rank 0 holds it to the saved update
+            gathered = ((path, steps_whole(mesh, leaf))
+                        for path, leaf in zip(tree_paths(params), tree_leaves(params)))
+            if dist.get_rank() == 0:
+                out["train_param_err"] = steps_params_held(gathered, work, dev, clip)
+            else:
+                for _ in gathered:
+                    pass
+    out["collectives"]["train"] = collective_counts(counts.records)
+    out["losses"] = losses
+    out["times"]["train_ms"] = step_ms
+    del params, state, batch
+    torch.cuda.empty_cache()
+
+
+def hybrid_rank(mesh, payload):
+    """One rank of phase 19 (e): hymba-1.5b's weights restored onto this
+    rank's blocks, the serving steps on its stream (float32 kernel route,
+    float32 plain route with its collectives, bf16 kernel route: the main
+    path, counted and timed), the two planted faults, one float32 train
+    step."""
+    import unittest.mock
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import StepCounters, collective_counts
+    from repro_torch.models import attention
+    from repro_torch.serving.engine import serving_params
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode_mod = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = {"rank": rank, "times": {}, "faults": {}, "collectives": {}, "resident": {},
+           "launches": {}}
+    work = os.path.join(payload["dir"], STEPS_HYBRID)
+    picks = torch.as_tensor(payload["picks"], device=dev)
+    prompt = torch.as_tensor(steps_stream(STEPS_HYBRID), device=dev)
+    (_, _, slots), _ = STEPS_MODELS[STEPS_HYBRID]
+    f32, bf16 = steps_cfg("float32", STEPS_HYBRID), steps_cfg("bfloat16", STEPS_HYBRID)
+
+    def serve(cfg, weights, kernel, n_new=STEPS_NEW, counters=None, timed=False):
+        return sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out,
+                             counters, timed)
+
+    weights = steps_weights(mesh, STEPS_HYBRID, work, out)
+    k32 = serve(f32, weights, True)
+    plain_counts = {"prefill": StepCounters(), "decode": StepCounters()}
+    p32 = serve(f32, weights, False, n_new=2, counters=plain_counts)
+    out["collectives"]["plain"] = {k: collective_counts(c.records) for k, c in plain_counts.items()}
+    shared = serving_params(weights, bf16, dev)
+    flash.flash_launches = decode_mod.decode_launches = 0
+    kb = serve(bf16, shared, True, timed=True)
+    out["launches"] = {"K3": flash.flash_launches, "K4": decode_mod.decode_launches}
+    del shared
+    if rank == 0:
+        out["logits"] = {"k32": [x.cpu() for x in k32], "p32": [x.cpu() for x in p32],
+                         "kb": [x.cpu() for x in kb]}
+    # planted: K3 called on every rank without the layer's window
+    real_k3 = attention.ops.flash_attention
+
+    def windowless(q, k, v, **kw):
+        return real_k3(q, k, v, **dict(kw, window=0))
+
+    with unittest.mock.patch.object(attention.ops, "flash_attention", windowless):
+        bad = serve(f32, weights, True, n_new=1)
+    out["faults"]["K3 without its window"] = float(row_err(bad[0], k32[0]).max())
+    # planted: K4 reading the ring's first n slots, the valid ones not gathered
+    with unittest.mock.patch.object(attention, "_ring_slots",
+                                    lambda kc, vc, mask: (kc, vc, int(mask.sum()))):
+        bad = serve(f32, weights, True, n_new=2)
+    out["faults"]["K4 over the ring's first slots"] = float(row_err(bad[1], k32[1]).max())
+    del weights, bad, k32, p32, kb
+    torch.cuda.empty_cache()
+    sharded_train(mesh, STEPS_HYBRID, work, payload["clip"], out)
+    return out
+
+
+def steps_world(mesh, payload):
+    """Phase 19's ``run_world`` target: llama3.2-1b's part (b), then
+    hymba-1.5b's (e), on each rank."""
+    import torch
+
+    got = {STEPS_ARCH: steps_rank(mesh, dict(payload[STEPS_ARCH], dir=payload["dir"],
+                                             t0=payload["t0"]))}
+    torch.cuda.empty_cache()
+    got[STEPS_HYBRID] = hybrid_rank(mesh, dict(payload[STEPS_HYBRID], dir=payload["dir"]))
+    return got
+
+
+def steps_params_held(got, work, dev, clip):
     """Phase 19 (b): each parameter after the sharded step 1 against the
     single-device update, within STEPS_TRAIN_TOL of the leaf's largest
     value, except the elements whose clipped single-device gradient (``clip``
@@ -3863,8 +4039,10 @@ def steps_params_held(got, paths, work, dev, clip):
     AdamW's epsilon: the first step's update lr * g / (|g| + eps) maps a difference
     in such a g — the rounding of sums the ranks split, about 1e-5 of a
     leaf's typical gradient — to up to lr / eps times it, so those are
-    counted and their worst difference printed, not held.  Returns (the
-    worst held error, exempt elements, their worst error, all elements)."""
+    counted and their worst difference printed, not held.  ``got`` yields
+    (path, gathered leaf) pairs, taken one at a time, in the order of the
+    saved leaves.  Returns (the worst held error, exempt elements, their
+    worst error, all elements)."""
     import numpy as np
     import torch
 
@@ -3874,7 +4052,7 @@ def steps_params_held(got, paths, work, dev, clip):
     folders = [os.path.join(work, name, f"step_{STEPS_CKPT:08d}") for name in ("step1", "grads1")]
     worst = free_worst = 0.0
     exempt = total = 0
-    for i, (path, g) in enumerate(zip(paths, got)):
+    for i, (path, g) in enumerate(got):
         want, grad = (torch.from_numpy(np.load(os.path.join(f, f"arr_{i}.npy"), mmap_mode="c"))
                       .to(dev) for f in folders)
         scale = max(float(want.abs().max()), 1e-30)
@@ -3902,11 +4080,12 @@ def steps_phase(smi):
     host; (b) llama3.2-1b's prefill, decode and train steps sharded over
     (2, 2) in four processes on the one card over gloo, every rank's
     weights restored onto its blocks, held to the single-device routes,
-    K3 and K4 on each rank's heads, two planted faults, wall times; (c) the
-    same steps traced on a fake world of four: the resident bytes and the
-    plain route's collectives equal the trace's; (d) with four cards, (b)
-    over NCCL.  Returns the K3 and K4 launches of the main path (rank 0's,
-    the bf16 kernel route)."""
+    K3 and K4 on each rank's heads, two planted faults, wall times; (e)
+    hymba-1.5b's in the same world, K3 with its window and K4 over its ring
+    on each rank's batch rows; (c) the same steps traced on a fake world of
+    four: the resident bytes and the plain route's collectives equal the
+    trace's; (d) with four cards, (b) and (e) over NCCL.  Returns the K3 and
+    K4 launches of the main path (rank 0's, the bf16 kernel routes)."""
     import shutil
 
     import torch
@@ -3920,44 +4099,52 @@ def steps_phase(smi):
     work = os.path.join(ROOT, "build", "chip_smoke_steps")
     shutil.rmtree(work, ignore_errors=True)
     launches = {"K3": 0, "K4": 0}
+    refs = {}
     try:
-        t0 = time.perf_counter()
-        ref = steps_reference(work, dev)
-        n_params = param_count(steps_cfg("float32"))
-        print(f"steps: (b) {STEPS_ARCH} full width and depth, {n_params:,} "
-              f"parameters, random from seed {SEED}, saved; the single-device routes and two "
-              f"train steps in {time.perf_counter() - t0:.1f} s (losses "
-              + ", ".join(f"{x:.6f}" for x in ref["losses"]) + ")", flush=True)
+        for arch, label in ((STEPS_ARCH, "b"), (STEPS_HYBRID, "e")):
+            t0 = time.perf_counter()
+            refs[arch] = steps_reference(work, dev, arch)
+            n_train = STEPS_MODELS[arch][1][2]
+            print(f"steps: ({label}) {arch} full width and depth, "
+                  f"{param_count(steps_cfg('float32', arch)):,} parameters, random from seed "
+                  f"{SEED}, saved; the single-device routes and {n_train} train step(s) in "
+                  f"{time.perf_counter() - t0:.1f} s (losses "
+                  + ", ".join(f"{x:.6f}" for x in refs[arch]["losses"]) + ")", flush=True)
         # (c)'s trace, in a subprocess while nothing else runs
         t0 = time.perf_counter()
-        script = (f"ARCH, WORLD, MESH, AXES = {STEPS_ARCH!r}, {STEPS_WORLD}, {STEPS_MESH!r}, "
-                  f"{STEPS_AXES!r}\nB, PROMPT, SLOTS = {SERVE_BATCH}, {SERVE_PROMPT}, {SERVE_SEQ}\n"
-                  f"TRAIN_B, TRAIN_S = {STEPS_TRAIN_B}, {STEPS_TRAIN_S}\n" + STEPS_TRACE)
+        script = (f"WORLD, MESH, AXES = {STEPS_WORLD}, {STEPS_MESH!r}, {STEPS_AXES!r}\n"
+                  f"MODELS = {STEPS_MODELS!r}\n" + STEPS_TRACE)
         proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                               cwd=ROOT, timeout=600)
         check(proc.returncode == 0, f"steps: (c) the trace failed: {proc.stderr[-3000:]}")
         traced = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"steps: (c) the three steps traced on a fake world of {STEPS_WORLD} at "
-              f"{STEPS_MESH} in {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"steps: (c) the three steps of both models traced on a fake world of "
+              f"{STEPS_WORLD} at {STEPS_MESH} in {time.perf_counter() - t0:.1f} s", flush=True)
 
         runs = [("b", "gloo")]
         if torch.cuda.device_count() >= STEPS_WORLD:
             runs.append(("d", "nccl"))
         for label, backend in runs:
             t0 = time.perf_counter()
-            ranks = run_world("chip_smoke:steps_rank", STEPS_WORLD, device="cuda",
+            payload = {arch: {"picks": ref["picks"], "clip": ref["clip"]}
+                       for arch, ref in refs.items()}
+            ranks = run_world("chip_smoke:steps_world", STEPS_WORLD, device="cuda",
                               backend=backend, timeout=900, mesh_shape=STEPS_MESH,
                               mesh_dim_names=STEPS_AXES,
-                              payload={"dir": work, "picks": ref["picks"], "clip": ref["clip"],
-                                       "t0": time.time()})
+                              payload=dict(payload, dir=work, t0=time.time()))
             world_s = time.perf_counter() - t0
-            steps_held(label, backend, ranks, ref, traced, smi)
-            if label == "b":
-                launches = ranks[0]["launches"]
+            for arch, part in ((STEPS_ARCH, label), (STEPS_HYBRID, "e" if label == "b" else label)):
+                got = [o[arch] for o in ranks]
+                steps_held(part, backend, arch, got, refs[arch], traced[arch], smi)
+                if label == "b":
+                    for k in launches:
+                        launches[k] += got[0]["launches"][k]
             print(f"steps: ({label}) the world of {STEPS_WORLD} over {backend} took "
                   f"{world_s:.1f} s, its ranks started in "
-                  + ", ".join(f"{o['start_s']:.1f}" for o in ranks) + " s; restore s by rank "
-                  + ", ".join(f"{o['times']['restore_s']:.2f}" for o in ranks), flush=True)
+                  + ", ".join(f"{o[STEPS_ARCH]['start_s']:.1f}" for o in ranks)
+                  + " s; restore s by rank, " + "; ".join(
+                      f"{arch}: " + ", ".join(f"{o[arch]['times']['restore_s']:.2f}"
+                                              for o in ranks) for arch in refs), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dryrun_part(smi)
@@ -3965,93 +4152,96 @@ def steps_phase(smi):
     return launches
 
 
-def steps_held(label, backend, ranks, ref, traced, smi):
-    """Phase 19's checks on one world's results (see :func:`steps_phase`)."""
+def steps_held(label, backend, arch, ranks, ref, traced, smi):
+    """Phase 19's checks on one model's results from one world (see
+    :func:`steps_phase`)."""
     import torch
 
-    cfg = steps_cfg("float32")
-    shape = (SERVE_BATCH, cfg.vocab_size)
+    cfg = steps_cfg("float32", arch)
+    (b, prompt, slots), (train_b, train_s, _) = STEPS_MODELS[arch]
+    shape = (b, cfg.vocab_size)
     exact, picks = ref["exact"], ref["picks"]
     got = ranks[0]["logits"]
     tol = LOGIT_TOL["float32"]
     k32_picks = torch.stack([x.argmax(-1) for x in got["k32"]], 1).numpy()
     err, agreed, decided = logits_held(got["k32"], k32_picks, exact, picks, tol, tol, shape,
-                                       f"steps: ({label}) float32 kernel route on {STEPS_MESH}")
+                                       f"steps: ({label}) {arch} float32 kernel route on "
+                                       f"{STEPS_MESH}")
     p32_picks = torch.stack([x.argmax(-1) for x in got["p32"]], 1).numpy()
     perr, _, _ = logits_held(got["p32"], p32_picks, exact[:2], picks[:, :2], tol, tol, shape,
-                             f"steps: ({label}) float32 plain route on {STEPS_MESH}")
+                             f"steps: ({label}) {arch} float32 plain route on {STEPS_MESH}")
     kb_to_f32 = max(float(row_err(x, w).max()) for x, w in zip(got["kb"], exact))
     check(kb_to_f32 <= BF16_SLACK * ref["plain_to_f32"],
-          f"steps: ({label}) bf16 kernel route on {STEPS_MESH} {kb_to_f32:.3e} from the float32 "
-          f"model, the single-device plain route {ref['plain_to_f32']:.3e}")
-    print(f"steps: ({label}) {STEPS_ARCH} on {STEPS_MESH} {STEPS_AXES} over {backend}, "
-          f"{len(ranks)} ranks, B={SERVE_BATCH} prompt={SERVE_PROMPT} slots={SERVE_SEQ}: float32 "
-          f"kernel route == the single-device plain route, prefill + {STEPS_NEW - 1} decode "
-          f"steps, max_row_rel_err={err:.3e} (tol {tol}), greedy tokens agree in {agreed} of "
-          f"{SERVE_BATCH * STEPS_NEW}, all {decided} decided; float32 plain route (prefill + 1 "
-          f"step) {perr:.3e}; bf16 kernel route {kb_to_f32:.3e} from the float32 model, the "
+          f"steps: ({label}) {arch} bf16 kernel route on {STEPS_MESH} {kb_to_f32:.3e} from the "
+          f"float32 model, the single-device plain route {ref['plain_to_f32']:.3e}")
+    print(f"steps: ({label}) {arch} on {STEPS_MESH} {STEPS_AXES} over {backend}, "
+          f"{len(ranks)} ranks, B={b} prompt={prompt} slots={slots}: float32 kernel route == the "
+          f"single-device plain route, prefill + {STEPS_NEW - 1} decode steps, "
+          f"max_row_rel_err={err:.3e} (tol {tol}), greedy tokens agree in {agreed} of "
+          f"{b * STEPS_NEW}, all {decided} decided; float32 plain route (prefill + 1 step) "
+          f"{perr:.3e}; bf16 kernel route {kb_to_f32:.3e} from the float32 model, the "
           f"single-device bf16 plain route {ref['plain_to_f32']:.3e} (held: <= {BF16_SLACK} x) "
           f"[{smi}]", flush=True)
-    per_prefill, per_step = 16, 32
+    per_prefill, per_step = attention_launches(cfg)
     for o in ranks:
         check(o["launches"] == {"K3": per_prefill, "K4": per_step * (STEPS_NEW - 1)},
-              f"steps: ({label}) rank {o['rank']} launched {o['launches']} on the bf16 kernel "
-              f"route, not {per_prefill} K3 and {per_step} K4 per decode step")
+              f"steps: ({label}) {arch} rank {o['rank']} launched {o['launches']} on the bf16 "
+              f"kernel route, not {per_prefill} K3 and {per_step} K4 per decode step")
         for fault, e in o["faults"].items():
-            check(e > tol, f"steps: ({label}) rank {o['rank']}: planted fault ({fault}) not "
-                  f"rejected ({e:.3e})")
-    print(f"steps: ({label}) every rank launched K3 {per_prefill} times per prefill and K4 "
-          f"{per_step} times per decode step on the bf16 kernel route; planted faults rejected "
-          f"on every rank: " + ", ".join(
+            check(e > tol, f"steps: ({label}) {arch} rank {o['rank']}: planted fault ({fault}) "
+                  f"not rejected ({e:.3e})")
+    print(f"steps: ({label}) {arch}: every rank launched K3 {per_prefill} times per prefill and "
+          f"K4 {per_step} times per decode step on the bf16 kernel route; planted faults "
+          f"rejected on every rank: " + ", ".join(
               f"{f} ({min(o['faults'][f] for o in ranks):.2e} to "
               f"{max(o['faults'][f] for o in ranks):.2e})" for f in ranks[0]["faults"]),
           flush=True)
     # training
     for o in ranks:
-        for step, (a, b) in enumerate(zip(o["losses"], ref["losses"])):
-            check(abs(a - b) <= STEPS_TRAIN_TOL * abs(b), f"steps: ({label}) rank {o['rank']} "
-                  f"train step {step + 1} loss {a:.6f}, single device {b:.6f}")
+        for step, (a, w) in enumerate(zip(o["losses"], ref["losses"], strict=True)):
+            check(abs(a - w) <= STEPS_TRAIN_TOL * abs(w), f"steps: ({label}) {arch} rank "
+                  f"{o['rank']} train step {step + 1} loss {a:.6f}, single device {w:.6f}")
     o0 = ranks[0]
     held, exempt, free_worst, total = o0["train_param_err"]
-    print(f"steps: ({label}) two float32 train steps, B={STEPS_TRAIN_B} S={STEPS_TRAIN_S}: losses "
-          + ", ".join(f"{x:.6f}" for x in o0["losses"]) + " on every rank (single device "
-          + ", ".join(f"{x:.6f}" for x in ref["losses"]) + f"; tol {STEPS_TRAIN_TOL} relative); "
-          f"every parameter's full_tensor() after step 1 within {held:.3e} of its leaf's largest "
-          f"value of the single-device update (tol {STEPS_TRAIN_TOL}), except {exempt} of "
-          f"{total} elements whose clipped single-device gradient is nonzero and below "
-          f"{STEPS_NOISE_EPS} x "
-          f"AdamW's eps (worst {free_worst:.3e}, not held; clip scale {ref['clip']:.4f}) "
-          f"[{smi}]", flush=True)
+    print(f"steps: ({label}) {arch}: {len(o0['losses'])} float32 train step(s), B={train_b} "
+          f"S={train_s}: losses " + ", ".join(f"{x:.6f}" for x in o0["losses"])
+          + " on every rank (single device " + ", ".join(f"{x:.6f}" for x in ref["losses"])
+          + f"; tol {STEPS_TRAIN_TOL} relative); every parameter's full_tensor() after step 1 "
+          f"within {held:.3e} of its leaf's largest value of the single-device update (tol "
+          f"{STEPS_TRAIN_TOL}), except {exempt} of {total} elements whose clipped single-device "
+          f"gradient is nonzero and below {STEPS_NOISE_EPS} x AdamW's eps (worst "
+          f"{free_worst:.3e}, not held; clip scale {ref['clip']:.4f}) [{smi}]", flush=True)
     # (c): the trace's prediction against this world
     for o in ranks:
         for step in ("prefill", "decode", "train"):
             check(o["resident"][step] == traced[step]["argument"],
-                  f"steps: ({label}) rank {o['rank']} {step}: {o['resident'][step]} resident "
-                  f"bytes, the trace's argument {traced[step]['argument']}")
+                  f"steps: ({label}) {arch} rank {o['rank']} {step}: {o['resident'][step]} "
+                  f"resident bytes, the trace's argument {traced[step]['argument']}")
         real = {"prefill": o["collectives"]["plain"]["prefill"],
                 "decode": o["collectives"]["plain"]["decode"], "train": o["collectives"]["train"]}
         for step, kinds in real.items():
             want = {k: tuple(v) for k, v in traced[step]["collectives"].items()}
             have = {k: tuple(v) for k, v in kinds.items()}
-            check(have == want, f"steps: ({label}) rank {o['rank']} {step}: the plain route's "
-                  f"collectives {have}, the trace's {want}")
+            check(have == want, f"steps: ({label}) {arch} rank {o['rank']} {step}: the plain "
+                  f"route's collectives {have}, the trace's {want}")
 
     def fmt(kinds):
         return ", ".join(f"{k} {n} x {b / 1e6:.3f} MB" for k, (n, b) in sorted(kinds.items())) \
             or "none"
 
-    print(f"steps: (c) every rank's resident bytes == the trace's argument bytes (prefill "
-          f"{traced['prefill']['argument'] / 1e9:.4f} GB, decode "
+    kernel = o0["collectives"].get("kernel")
+    print(f"steps: (c) {arch}: every rank's resident bytes == the trace's argument bytes "
+          f"(prefill {traced['prefill']['argument'] / 1e9:.4f} GB, decode "
           f"{traced['decode']['argument'] / 1e9:.4f} GB, train "
           f"{traced['train']['argument'] / 1e9:.4f} GB); the plain route's collectives == the "
           f"trace's: prefill {fmt(traced['prefill']['collectives'])}; decode step "
           f"{fmt(traced['decode']['collectives'])}; train step "
-          f"{fmt(traced['train']['collectives'])}; the kernel route's: prefill "
-          f"{fmt(o0['collectives']['kernel']['prefill'])}; decode step "
-          f"{fmt(o0['collectives']['kernel']['decode'])}", flush=True)
+          f"{fmt(traced['train']['collectives'])}"
+          + (f"; the kernel route's: prefill {fmt(kernel['prefill'])}; decode step "
+             f"{fmt(kernel['decode'])}" if kernel else ""), flush=True)
     times = [o["times"] for o in ranks]
-    print(f"steps: ({label}) {smi}: wall ms by rank (host clock between a barrier and a sync), "
-          f"bf16 kernel route: prefill " + ", ".join(f"{t['prefill_ms']:.1f}" for t in times)
+    print(f"steps: ({label}) {arch} {smi}: wall ms by rank (host clock between a barrier and a "
+          f"sync), bf16 kernel route: prefill " + ", ".join(f"{t['prefill_ms']:.1f}" for t in times)
           + "; decode step p50 " + ", ".join(f"{t['decode_p50_ms']:.1f}" for t in times)
           + ", p99 " + ", ".join(f"{t['decode_p99_ms']:.1f}" for t in times)
           + f" ({STEPS_NEW - 1} steps); float32 train step " + "; ".join(

@@ -25,7 +25,14 @@ or gather a whole batch.  So the model's products run through
 Megatron does (the batch over the data axes, weights gathered over them,
 heads, features or the vocabulary over ``"model"``) and multiply each
 rank's blocks (:func:`local_block`, :func:`from_block`); :func:`whole`
-reduces a partial sum where DTensor would reduce it onto a shard.
+reduces a partial sum where DTensor would reduce it onto a shard.  The
+recurrent blocks (the SSM, mLSTM and sLSTM) compute on each rank's
+channels (:func:`channels`) in the layout of their stored state; their
+products keep a weight where it is stored and move the activation, or
+gather the weight, whichever moves fewer bytes (:func:`mesh_cols`,
+:func:`mesh_rows`), and their states are read and written in their own
+blocks (:func:`state_block`, :func:`store_block`, :func:`read_channels`,
+:func:`write_channels`).
 """
 from __future__ import annotations
 
@@ -203,7 +210,11 @@ def mesh_embed(tokens, table, dtype):
     as a vocab-parallel embedding: the table gathered over the data axes
     and split over ``"model"`` by rows where they divide it, each rank
     looking up the tokens of its batch rows that fall in its rows, the
-    partial sums (one term each) reduced over ``"model"``."""
+    partial sums (one term each) reduced over ``"model"``.  Where the rows
+    do not divide it and the table is stored with its columns split there,
+    each rank looks its tokens up in its own columns and the rows are
+    gathered, when they are fewer than the table's (a decode step's);
+    else the table is gathered whole."""
     import torch
     from torch.distributed.tensor import Partial, Replicate, Shard
 
@@ -211,6 +222,14 @@ def mesh_embed(tokens, table, dtype):
     tp = [Replicate()] * mesh.ndim
     xp = list(layout(tokens.shape, "dp", *([None] * (tokens.ndim - 1))))
     yp = list(xp)
+    i = _model_dim(mesh)
+    s = table.placements[i] if i is not None else None
+    if (not model_split(table.shape[0]) and s is not None and s.is_shard(1)
+            and _block_span(tokens.shape, mesh, xp, 0)[1] * math.prod(tokens.shape[1:])
+            < table.shape[0]):
+        tp[i], yp[i] = Shard(1), Shard(tokens.ndim)
+        rows = local_block(table, tp, yp)[local_block(tokens, xp, yp).long()].to(dtype)
+        return from_block(rows, mesh, yp, (*tokens.shape, table.shape[1])).redistribute(mesh, xp)
     if model_split(table.shape[0]):
         i = mesh.mesh_dim_names.index("model")
         tp[i], yp[i] = Shard(0), Partial()
@@ -220,6 +239,274 @@ def mesh_embed(tokens, table, dtype):
     valid = (idx >= 0) & (idx < local.shape[0])
     rows = (local[idx.clamp(0, local.shape[0] - 1)] * valid[..., None]).to(dtype)
     return whole(from_block(rows, mesh, yp, (*tokens.shape, table.shape[1])))
+
+
+def _model_dim(mesh) -> int | None:
+    """The mesh dim of the context's ``"model"`` axis where it splits
+    channels (None with no such split)."""
+    return mesh.mesh_dim_names.index("model") if model_axis_size() > 1 else None
+
+
+def channels(shape, axis=None) -> list:
+    """Each ``"model"`` rank's channels of a block laid out as ``shape`` and
+    split over ``"model"`` on ``axis``: flat indices into the block, one
+    tensor per rank in coordinate order (``torch.chunk``'s pieces, as
+    DTensor cuts a ``Shard``), or one tensor of every index where
+    ``axis`` is None or ``"model"`` splits nothing."""
+    import torch
+
+    tp = model_axis_size()
+    if axis is None or tp == 1:
+        return [torch.arange(math.prod(shape))]
+    return _stored_parts(shape, axis, tp)
+
+
+def _mine(mesh, parts):
+    """This rank's tensor of ``parts`` (from :func:`channels`)."""
+    if len(parts) == 1:
+        return parts[0]
+    return parts[mesh.get_coordinate()[_model_dim(mesh)]]
+
+
+def _same(parts, others) -> bool:
+    """Whether two lists of per-rank channels are the same, on every rank
+    (so that every rank takes the same branch)."""
+    import torch
+
+    return len(parts) == len(others) and all(
+        a.shape == b.shape and torch.equal(a, b) for a, b in zip(parts, others))
+
+
+def _stored_parts(shape, dim: int, tp: int) -> list:
+    """Each rank's flat indices of a tensor of ``shape`` whose dim ``dim``
+    is split over ``"model"`` (of ``tp`` ranks)."""
+    import torch
+
+    idx = torch.arange(math.prod(shape)).reshape(shape)
+    return [c.reshape(-1) for c in idx.chunk(tp, dim)]
+
+
+def _take(t, parts, mesh, dim=-1):
+    return t.index_select(dim, _mine(mesh, parts).to(t.device))
+
+
+def block_layout(x, split: bool) -> tuple[list, list]:
+    """(``x``'s layout with its leading dim over the data axes and the rest
+    whole, the layout of what each rank computes from it: the same, or
+    split over ``"model"`` on the last dim where ``split``).  The second
+    declares how gradients flow back (:func:`local_block`): as partial sums
+    over ``"model"`` where the ranks compute different parts."""
+    from torch.distributed.tensor import Shard
+
+    xp = list(layout(x.shape, "dp", *([None] * (x.ndim - 1))))
+    yp = list(xp)
+    i = _model_dim(x.device_mesh)
+    if split and i is not None:
+        yp[i] = Shard(x.ndim - 1)
+    return xp, yp
+
+
+def local_rows(x, xp) -> int:
+    """Rows of ``x``'s block laid out as ``xp``: every dim but the last."""
+    return _block_span(x.shape, x.device_mesh, xp, 0)[1] * math.prod(x.shape[1:-1])
+
+
+def stored_product(x, w):
+    """``x (..., K)`` times ``w (K, ...)`` for ``DTensor`` s, computed in
+    ``w``'s own layout over ``"model"`` (``x``'s last dim split to match a
+    split of ``w``'s first, the product split where ``w`` is split on
+    another dim), then whole over ``"model"`` (gathered, or the partial
+    sums reduced); ``x``'s batch over the data axes, ``w`` gathered over
+    them.  Returns the ``DTensor`` ``(..., *w.shape[1:])``."""
+    import torch
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    i = _model_dim(mesh)
+    xp = list(layout(x.shape, "dp", *([None] * (x.ndim - 1))))
+    s = w.placements[i] if i is not None else Replicate()
+    wp, xs, yp = [Replicate()] * mesh.ndim, list(xp), list(xp)
+    if s.is_shard():
+        wp[i] = s
+        if s.dim == 0:
+            xs[i], yp[i] = Shard(x.ndim - 1), Partial()
+        else:
+            yp[i] = Shard(x.ndim - 2 + s.dim)
+    wl = local_block(w, wp, yp)
+    y = torch.matmul(local_block(x, xs, yp), wl.reshape(wl.shape[0], -1))
+    y = from_block(y.unflatten(-1, wl.shape[1:]), mesh, yp, (*x.shape[:-1], *w.shape[1:]))
+    return y.redistribute(mesh, [Replicate() if j == i else p for j, p in enumerate(yp)])
+
+
+def mine(t, parts, split: bool):
+    """This rank's channels ``parts`` (:func:`channels`) of the last dim of
+    ``t``, a ``DTensor`` whole over ``"model"``, as a local tensor (its
+    batch rows), its gradient a partial sum over ``"model"`` where
+    ``split``."""
+    xp, yp = block_layout(t, split)
+    return _take(local_block(t, xp, yp), parts, t.device_mesh)
+
+
+def mesh_cols(x, w, parts=None):
+    """``x @ w`` for a ``DTensor`` ``x (..., K)`` and a ``DTensor`` ``w (K,
+    ...)`` in its stored layout, ``w``'s trailing dims taken flat (N in
+    all).  With ``parts`` (:func:`channels` of those N), this rank's columns
+    as a local tensor ``(..., n)`` of its batch rows; without, the whole
+    product as a ``DTensor`` whole over ``"model"``.  Moves the fewest
+    bytes: nothing where ``w``'s own block on every rank is exactly its
+    columns; else ``w`` gathered whole (K x N elements), or the product
+    taken in ``w``'s own layout and gathered (rows x N,
+    :func:`stored_product`), whichever is fewer."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    i = _model_dim(mesh)
+    K, N = w.shape[0], math.prod(w.shape[1:])
+    split = parts is not None and len(parts) > 1
+    xp, yp = block_layout(x, split)
+    s = w.placements[i] if i is not None else None
+    if s is not None and s.is_shard() and s.dim > 0 and parts is not None and _same(
+            parts, _stored_parts(w.shape[1:], s.dim - 1, mesh.size(i))):
+        wp = [Replicate()] * mesh.ndim
+        wp[i] = s
+        return torch.matmul(local_block(x, xp, yp), local_block(w, wp, yp).reshape(K, -1))
+    if s is None or not s.is_shard() or local_rows(x, xp) >= K:
+        wl = local_block(w, [Replicate()] * mesh.ndim, yp).reshape(K, N)
+        if parts is not None:
+            return torch.matmul(local_block(x, xp, yp), _take(wl, parts, mesh))
+        return from_block(torch.matmul(local_block(x, xp, yp), wl), mesh, xp,
+                          (*x.shape[:-1], N))
+    y = stored_product(x, w).flatten(x.ndim - 1)
+    return y if parts is None else mine(y, parts, split)
+
+
+def gather_channels(y, parts, like):
+    """The channels ``parts`` (:func:`channels`, split across ``"model"``)
+    that each rank holds as ``y (..., n)``, a local tensor of the batch
+    rows of ``like`` (a ``DTensor`` ``(..., ·)``), gathered over
+    ``"model"`` into their order: a ``DTensor`` ``(*like.shape[:-1],
+    K)`` whole over ``"model"``."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    mesh = like.device_mesh
+    xp, _ = block_layout(like, False)
+    sp = list(xp)
+    sp[_model_dim(mesh)] = Shard(y.ndim - 1)
+    shape = (*like.shape[:-1], len(parts) * y.shape[-1])
+    g = from_block(y, mesh, sp, shape).redistribute(mesh, xp).to_local()
+    order = torch.argsort(torch.cat(parts)).to(g.device)
+    return from_block(g.index_select(-1, order), mesh, xp, shape)
+
+
+def mesh_rows(y, parts, w, like):
+    """The sum over ``"model"`` of ``y @ w[idx]``: ``y (..., n)`` a local
+    tensor, this rank's channels ``parts`` (:func:`channels` of ``w``'s
+    first dim, K) of an input whose batch rows are those of ``like`` (a
+    ``DTensor``); returns the ``DTensor`` ``(*like.shape[:-1], N)`` with its
+    batch over the data axes, whole over ``"model"``.  Where every rank
+    holds every channel, as :func:`mesh_matmul` with ``w``'s own split or
+    ``w`` whole, whichever moves fewer bytes; where the ranks' channels
+    partition K, each rank multiplies its own rows of ``w`` (its stored
+    block where that is exactly them, else ``w`` gathered whole, or ``y``'s
+    channels gathered where that moves fewer bytes) and the partial sums
+    are reduced."""
+    import torch
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = like.device_mesh
+    i = _model_dim(mesh)
+    K, N = w.shape
+    xp, _ = block_layout(like, False)
+    rows = y.numel() // max(y.shape[-1], 1)
+    s = w.placements[i] if i is not None else None
+    by_rows = s is not None and s.is_shard(0)
+    if len(parts) == 1:
+        return mesh_matmul(from_block(y, mesh, xp, (*like.shape[:-1], K)), w,
+                           "rows" if by_rows and rows < K else None)
+    yp = list(xp)
+    yp[i] = Partial()
+    shape = (*like.shape[:-1], N)
+    if by_rows and _same(parts, _stored_parts((K,), 0, mesh.size(i))):
+        wp = [Replicate()] * mesh.ndim
+        wp[i] = s
+        return whole(from_block(torch.matmul(y, local_block(w, wp, yp)), mesh, yp, shape))
+    if N <= rows:
+        wl = _take(local_block(w, [Replicate()] * mesh.ndim, yp), parts, mesh, 0)
+        return whole(from_block(torch.matmul(y, wl), mesh, yp, shape))
+    return mesh_matmul(gather_channels(y, parts, like), w, "rows" if by_rows else None)
+
+
+def weight_part(w, parts, use):
+    """This rank's entries ``parts`` (:func:`channels` of ``w`` taken flat)
+    of the ``DTensor`` ``w``, a local tensor for a computation laid out as
+    ``use`` (:func:`block_layout`'s second): ``w``'s own block where that is
+    exactly them on every rank, else ``w`` gathered whole."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    i = _model_dim(mesh)
+    wp = [Replicate()] * mesh.ndim
+    s = w.placements[i] if i is not None else None
+    if s is not None and s.is_shard() and _same(parts, _stored_parts(w.shape, s.dim, mesh.size(i))):
+        wp[i] = s
+        return local_block(w, wp, use).reshape(-1)
+    return _take(local_block(w, wp, use).reshape(-1), parts, mesh)
+
+
+def stored_channels(state, parts) -> bool:
+    """Whether each rank's block of the ``DTensor`` ``state`` holds, on its
+    last dim, exactly its channels ``parts`` (:func:`channels`)."""
+    i = _model_dim(state.device_mesh)
+    s = state.placements[i] if i is not None else None
+    if s is None or not s.is_shard():
+        return len(parts) == 1
+    return s.dim == state.ndim - 1 and _same(
+        parts, _stored_parts((state.shape[-1],), 0, state.device_mesh.size(i)))
+
+
+def read_channels(state, parts):
+    """This rank's channels ``parts`` of the last dim of a state leaf, a
+    ``DTensor`` (B, ..., C), as a local tensor of its batch rows: its own
+    block where it is stored so, else gathered over ``"model"``."""
+    if stored_channels(state, parts):
+        return state.to_local()
+    xp, _ = block_layout(state, False)
+    return _take(state_block(state, xp), parts, state.device_mesh)
+
+
+def write_channels(state, local, parts):
+    """In place: a state leaf, a ``DTensor`` (B, ..., C), takes the value of
+    which ``local`` is this rank's channels ``parts``; each rank writes its
+    own block (the channels gathered first where they are not stored
+    so)."""
+    if stored_channels(state, parts):
+        state.to_local().copy_(local)
+        return state
+    xp, _ = block_layout(state, False)
+    if len(parts) > 1:
+        local = gather_channels(local, parts, state).to_local()
+    return store_block(state, local, xp)
+
+
+def state_block(state, placements):
+    """This rank's block of the ``DTensor`` ``state`` laid out as
+    ``placements`` (a redistribute where the stored layout differs)."""
+    if tuple(state.placements) != tuple(placements):
+        state = state.redistribute(state.device_mesh, placements)
+    return state.to_local()
+
+
+def store_block(dst, local, placements):
+    """In place: ``dst`` (a ``DTensor``) takes the value whose block on this
+    rank, laid out as ``placements``, is ``local``; each rank writes its own
+    block of ``dst`` (a redistribute where the layouts differ)."""
+    if tuple(dst.placements) != tuple(placements):
+        local = from_block(local, dst.device_mesh, placements, dst.shape).redistribute(
+            dst.device_mesh, dst.placements).to_local()
+    dst.to_local().copy_(local)
+    return dst
 
 
 def whole(x):

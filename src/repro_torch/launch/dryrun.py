@@ -21,7 +21,11 @@ this module creates nothing.  The trace runs the plain route (the
 reference's einsum attention, the path its dry-run lowers too).  Per rank,
 every layer of every step is counted as it runs, so the full-depth trace
 is exact and no depth extrapolation is needed (:func:`depth_period` and
-:func:`with_depth` stay, for probes at a cut depth):
+:func:`with_depth` stay, for probes at a cut depth).  The one loop whose
+body is traced once is sLSTM's over time (on meta tensors, a scan's body,
+as the reference's cost analysis counts it):
+:func:`~repro_torch.launch.roofline.slstm_correction_flops` adds its
+recurrent product for every step, as the reference's table does.
 
 * FLOPs: ``torch.utils.flop_counter``'s formulas on each local operation
   (the matrix products; elementwise work is not counted);

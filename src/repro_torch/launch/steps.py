@@ -128,7 +128,9 @@ def build_train_step(
             for p in leaves:
                 p.requires_grad_(True)
             loss, metrics = zoo.loss_fn(params, cfg, batch, kernel=False)
-            grads = torch.autograd.grad(loss, leaves)
+            # zeros for the leaves the loss does not reach (an xLSTM layer's
+            # unused half), as the reference's gradient has them
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
             for p in leaves:
                 p.requires_grad_(False)
             new_params, new_opt, opt_metrics = adamw_update(

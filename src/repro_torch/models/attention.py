@@ -297,7 +297,9 @@ def _mesh_sdpa(q, ke, ve, cfg: ModelConfig, causal: bool, window: int):
     kp = tuple(Replicate() if p.is_shard(1) else p for p in qp)
     q = q.redistribute(mesh, qp)
     lq = q.to_local()
-    lk, lv = ke.redistribute(mesh, kp).to_local(), ve.redistribute(mesh, kp).to_local()
+    # in the sequence layout every rank attends with its own queries over
+    # every key: its gradient of the keys and values is a partial sum
+    lk, lv = local_block(ke, kp, qp), local_block(ve, kp, qp)
     s, s_kv, cd = lq.shape[1], lk.shape[1], cfg.compute_dtype
     if not causal:
         out = _sdpa(lq, lk, lv, torch.ones((1, 1, s, s_kv), dtype=torch.bool, device=lq.device),

@@ -20,6 +20,7 @@ from ..distributed.ctx import (
     is_dtensor,
     local_block,
     local_offset,
+    mesh_cols,
     mesh_embed,
     mesh_matmul,
     model_split,
@@ -74,8 +75,10 @@ def unembed(x: torch.Tensor, table: torch.Tensor, softcap: float = 0.0) -> torch
     (never TF32: the caller keeps ``torch.backends.cuda.matmul.allow_tf32``
     off, its default)."""
     if is_dtensor(x):
-        logits = mesh_matmul(x.float(), table.float().t(),
-                             "cols" if model_split(table.shape[0]) else None)
+        # vocab-parallel where the vocabulary divides "model"; else in the
+        # table's stored layout or with it gathered, whichever moves less
+        logits = (mesh_matmul(x.float(), table.float().t(), "cols") if model_split(table.shape[0])
+                  else mesh_cols(x.float(), table.float().t()))
     else:
         logits = torch.matmul(x.float(), table.float().t())
     if softcap > 0.0:

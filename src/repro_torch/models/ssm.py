@@ -10,6 +10,23 @@ loop over the chunk summaries, all in float32.  No kernel computes it in
 the reference (its TPU form is einsums and a ``lax.scan``), so the port is
 plain PyTorch on every device.  Decode is the O(1) recurrent step on the
 carried state.
+
+**On a mesh.**  Under a step builder's sharding context the block runs on
+``DTensor`` s (:func:`_ssm_mesh`) with the recurrence on each rank's block
+of the state as the sharding rules store it (``cache_specs``: the heads
+over ``"model"`` where they divide it, else the head dim, else whole): the
+recurrence contracts over the state dim ``n``, never over a head's
+channels, so it runs on that block with no collective, and the state is
+read and written in place in its own blocks.  The depthwise conv runs per
+channel where its weight and its rolling window are stored (the inner
+channels in contiguous blocks over ``"model"``) or, where a product's
+rows outnumber the model width (train, prefill), on the recurrence's
+channels with its weight gathered; the gates (``wbc``, ``wdt``) contract
+every channel, so their partial sums are reduced ((B, S, 2n + nh), small).
+``in_proj``'s two halves do not align with its stored column blocks, so
+each rank takes its channels of both through
+:func:`~repro_torch.distributed.ctx.mesh_cols`, which gathers the weight or
+the product, whichever is smaller.
 """
 from __future__ import annotations
 
@@ -19,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.ctx import is_dtensor
 from .layers import _normal, init_dense
 
 
@@ -141,12 +159,13 @@ def _causal_conv(x, w, state):
     return out, new_state
 
 
-def _ssm_gates(xc, p, cfg, nh):
-    """q, k and log_a from the conv output xc (B, S, di)."""
-    bc = torch.matmul(xc, p["wbc"].to(xc.dtype))
+def _ssm_gates(bc, dt, dt_bias, a_log):
+    """q, k and log_a from the conv output's products ``bc = xc @ wbc`` (B,
+    S, 2n) and ``dt = xc @ wdt`` (B, S, nh), and the heads' ``dt_bias`` and
+    ``a_log``."""
     b_in, c_out = torch.chunk(bc, 2, dim=-1)           # (B, S, n) each
-    dt = F.softplus(torch.matmul(xc, p["wdt"].to(xc.dtype)) + p["dt_bias"].to(xc.dtype))
-    a_pos = torch.exp(p["a_log"].float())             # (nh,)
+    dt = F.softplus(dt + dt_bias.to(bc.dtype))
+    a_pos = torch.exp(a_log.float())                  # (nh,)
     log_a = -dt.float() * a_pos                       # (B, S, nh)
     # dt also scales the input (Mamba discretization: B <- dt * B)
     k = b_in[:, :, None, :] * dt[..., None]           # (B, S, nh, n)
@@ -162,7 +181,8 @@ def _ssm_core(x, p, cfg: ModelConfig, conv_state, h0):
     xi, z = torch.chunk(torch.matmul(x, p["in_proj"].to(cd)), 2, dim=-1)
     xc, conv = _causal_conv(xi, p["conv"].to(cd), conv_state)
     xc = F.silu(xc)
-    q, k, log_a = _ssm_gates(xc, p, cfg, nh)
+    q, k, log_a = _ssm_gates(torch.matmul(xc, p["wbc"].to(cd)), torch.matmul(xc, p["wdt"].to(cd)),
+                             p["dt_bias"], p["a_log"])
     v = xc.reshape(B, S, nh, cfg.head_dim)
     y, h_last = ssd_chunked(q, k, v, log_a, cfg.attn_chunk or 256, h0=h0)
     y = y + v.float() * p["d_skip"].float()[None, None, :, None]
@@ -170,8 +190,86 @@ def _ssm_core(x, p, cfg: ModelConfig, conv_state, h0):
     return torch.matmul(y, p["out_proj"].to(cd)), h_last, conv
 
 
+def _ssm_mesh(x, p, cfg: ModelConfig, state: SSMState | None = None, step: bool = False):
+    """The block on ``DTensor`` s, as the module's docstring sets out: the
+    full-sequence SSM (``step`` False; with ``state``, from ``state.h`` and a
+    conv of zeros, as prefill) or the decode step (``step``: x (B, 1, D)),
+    the state written in place.  Returns the output (B, S, D), whole over
+    ``"model"``."""
+    from torch.distributed.tensor import Shard
+
+    from ..distributed.ctx import (
+        block_layout,
+        channels,
+        gather_channels,
+        local_rows,
+        mesh_cols,
+        mesh_rows,
+        mine,
+        model_axis_size,
+        read_channels,
+        state_block,
+        store_block,
+        weight_part,
+        write_channels,
+    )
+
+    cd = cfg.compute_dtype
+    di, nh = ssm_dims(cfg)
+    hd, W = cfg.head_dim, cfg.ssm_conv_width
+    B, S, D = x.shape
+    mesh = x.device_mesh
+    tp = model_axis_size()
+    axis = 0 if nh % tp == 0 else 1 if hd % tp == 0 else None
+    rec = channels((nh, hd), axis)                  # the recurrence's channels (the state's)
+    split = len(rec) > 1
+    xp, yp = block_layout(x, split)
+    rows = local_rows(x, xp)
+    # the conv where its weight and window are stored, unless a weight is
+    # the smaller thing to move (more rows than the model width)
+    conv_ch = channels((di,), 0) if split and rows < D and di % tp == 0 else rec
+    same = conv_ch is rec or all(a.equal(b) for a, b in zip(conv_ch, rec))
+    y_in = mesh_cols(x, p["in_proj"].to(cd), [torch.cat([a, di + b]) for a, b in zip(conv_ch, rec)])
+    xi, z = y_in.split([len(conv_ch[0]), len(rec[0])], dim=-1)
+    w_conv = weight_part(p["conv"].to(cd), [(torch.arange(W)[:, None] * di + c).reshape(-1)
+                                            for c in conv_ch], yp).reshape(W, -1)
+    conv_state = None
+    if step:
+        conv_state = read_channels(state.conv, conv_ch)
+    xc, conv = _causal_conv(xi, w_conv, conv_state)
+    xc = F.silu(xc)
+    heads = channels((nh,), axis if axis == 0 else None)
+    bc = mine(mesh_rows(xc, conv_ch, p["wbc"].to(cd), x), channels((2 * cfg.ssm_state,)), split)
+    dt = mine(mesh_rows(xc, conv_ch, p["wdt"].to(cd), x), heads, split)
+    q, k, log_a = _ssm_gates(bc, dt, weight_part(p["dt_bias"], heads, yp),
+                             weight_part(p["a_log"], heads, yp))
+    if not same:
+        xc = mine(gather_channels(xc, conv_ch, x), rec, split)
+    nh_l = nh // tp if axis == 0 else nh
+    v = xc.reshape(*xc.shape[:2], nh_l, -1)
+    h_layout = list(xp)
+    if split:
+        h_layout[mesh.mesh_dim_names.index("model")] = Shard(1 if axis == 0 else 3)
+    h0 = None if state is None else state_block(state.h, h_layout)
+    if step:
+        y, h_last = ssd_step(q[:, 0], k[:, 0], v[:, 0], log_a[:, 0], h0)
+        y = y[:, None]
+    else:
+        y, h_last = ssd_chunked(q, k, v, log_a, cfg.attn_chunk or 256, h0=h0)
+    d_skip = weight_part(p["d_skip"], heads, yp).float()
+    y = y + v.float() * d_skip[None, None, :, None]
+    y = y.reshape(*y.shape[:2], -1).to(cd) * F.silu(z)
+    out = mesh_rows(y, rec, p["out_proj"].to(cd), x)
+    if state is not None:
+        store_block(state.h, h_last, h_layout)
+        write_channels(state.conv, conv.float(), conv_ch)
+    return out
+
+
 def ssm_train(x, p, cfg: ModelConfig):
     """x (B, S, D) -> (B, S, D): the full-sequence chunked SSM."""
+    if is_dtensor(x):
+        return _ssm_mesh(x, p, cfg)
     return _ssm_core(x, p, cfg, None, None)[0]
 
 
@@ -189,6 +287,8 @@ def ssm_prefill(x, p, cfg: ModelConfig, state: SSMState):
     """``ssm_train`` that also writes the final state into ``state``, in
     place.  As the reference, the recurrence starts from ``state.h`` and the
     conv from zeros."""
+    if is_dtensor(x):
+        return _ssm_mesh(x, p, cfg, state), state
     out, h_last, conv = _ssm_core(x, p, cfg, None, state.h)
     state.h.copy_(h_last)
     state.conv.copy_(conv.float())
@@ -197,13 +297,16 @@ def ssm_prefill(x, p, cfg: ModelConfig, state: SSMState):
 
 def ssm_decode(x, p, cfg: ModelConfig, state: SSMState):
     """One-token step, x (B, 1, D); ``state`` is updated in place."""
+    if is_dtensor(x):
+        return _ssm_mesh(x, p, cfg, state, step=True), state
     cd = cfg.compute_dtype
     di, nh = ssm_dims(cfg)
     B = x.shape[0]
     xi, z = torch.chunk(torch.matmul(x, p["in_proj"].to(cd)), 2, dim=-1)
     xc, conv = _causal_conv(xi, p["conv"].to(cd), state.conv)
     xc = F.silu(xc)
-    q, k, log_a = _ssm_gates(xc, p, cfg, nh)
+    q, k, log_a = _ssm_gates(torch.matmul(xc, p["wbc"].to(cd)), torch.matmul(xc, p["wdt"].to(cd)),
+                             p["dt_bias"], p["a_log"])
     v = xc.reshape(B, 1, nh, cfg.head_dim)
     y, h_new = ssd_step(q[:, 0], k[:, 0], v[:, 0], log_a[:, 0], state.h)
     y = y + v[:, 0].float() * p["d_skip"].float()[None, :, None]

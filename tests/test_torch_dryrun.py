@@ -21,6 +21,18 @@ sLSTM correction to the reference's for every runnable cell on both
 meshes, exactly; ``analyse`` on one synthetic report to the reference's
 terms times the ratio of the two packages' constants (rtol 1e-12); and
 ``parse_override`` to the reference's on every value kind.
+
+The hybrid and xLSTM families trace in a second subprocess
+(:data:`HYBRID_TRACES`): the dry-run CLI for hymba-1.5b's and xlstm-1.3b's
+decode_32k and long_500k on 16x16 (exit 0, reports under
+``reports/hybrid``), xlstm-1.3b's decode_32k step at depths 8 and 16 (its
+period ``p`` = 8: an sLSTM layer every 8th), and the reduced configs'
+train steps on fake worlds of ``("data"=4, "model"=1)`` and one rank.
+Held: each report's ``argument`` bytes to the planned bytes per device;
+the FLOPs law; xlstm-1.3b's depth extrapolation ``f(p) + (L/p - 1) *
+(f(2p) - f(p))`` to the full-depth report; and that no collective of its
+decode step has a result as large as one layer's mLSTM state on a rank,
+the collectives of the step under 0.1 GB per device in all.
 """
 import json
 import math
@@ -95,6 +107,48 @@ print(json.dumps(out))
 """
 
 
+HYBRID_CELLS = [(a, s) for a in ("hymba-1.5b", "xlstm-1.3b") for s in ("decode_32k", "long_500k")]
+
+HYBRID_TRACES = """
+import json, runpy, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import SHAPES, ShapeCell, get_config
+from repro_torch.launch.dryrun import collective_bytes, fake_world, trace_cell, with_depth
+from repro_torch.launch.mesh import make_production_mesh
+
+def as_main(module, argv):
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        return e.code
+    return 0
+
+out = {"rc": {f"{a}|{s}": as_main("repro_torch.launch.dryrun",
+                                  ["--arch", a, "--shape", s, "--out", "reports/hybrid"])
+              for a, s in CELLS}}
+with fake_world(256):
+    mesh = make_production_mesh(device="cpu")
+    out["depth"] = {}
+    for k in (8, 16):
+        got = trace_cell(with_depth(get_config("xlstm-1.3b"), k), SHAPES["decode_32k"], mesh)
+        out["depth"][k] = {"flops": got["flops"], "coll": got["collectives"],
+                           "largest": max(sum(collective_bytes([r]).values())
+                                          for r in got["records"])}
+shape = ShapeCell("law", 32, 8, "train")
+out["share"] = {}
+for arch in ("hymba-1.5b", "xlstm-1.3b"):
+    cfg = get_config(arch, reduced=True)
+    with fake_world(4):
+        mesh = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+        per_rank = trace_cell(cfg, shape, mesh)["flops"]
+    with fake_world(1):
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        out["share"][arch] = (per_rank, trace_cell(cfg, shape, mesh)["flops"])
+print(json.dumps(out))
+"""
+
+
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     """The subprocess's results and the directory it ran in (its reports
@@ -107,6 +161,19 @@ def traced(tmp_path_factory):
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
     return json.loads(proc.stdout.strip().splitlines()[-1]), cwd / "reports" / "dryrun", \
         proc.stdout
+
+
+@pytest.fixture(scope="module")
+def hybrid(tmp_path_factory):
+    """:data:`HYBRID_TRACES`'s results and the directory of its reports."""
+    cwd = tmp_path_factory.mktemp("dryrun_hybrid")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO_ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    script = f"CELLS = {HYBRID_CELLS!r}\n" + HYBRID_TRACES
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          env=env, cwd=cwd, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1]), cwd / "reports" / "hybrid"
 
 
 def _report(reports, arch, shape, mesh="16x16"):
@@ -169,6 +236,58 @@ def test_argument_bytes_equal_the_planned_bytes_per_device(traced):
             + _planned_bytes([token], batch_specs([token], MESH16), MESH16) + 4
             + _planned_bytes(cache, cache_specs(cache, MESH16), MESH16))
     assert _report(traced[1], "llama3.2-1b", "decode_32k")["bytes_per_device"]["argument"] == want
+
+
+def _planned_decode_bytes(cfg, shape) -> int:
+    """The serving parameters, the token, the position and the cache of a
+    decode cell, per device on 16x16, as the rules plan them."""
+    params, cache = zoo.abstract_params(cfg), zoo.abstract_cache(cfg, shape)
+    token = torch.empty((shape.global_batch,), dtype=torch.int32, device="meta")
+    return (_planned_bytes(params, param_specs(params, MESH16, serving=True), MESH16)
+            + _planned_bytes([token], batch_specs([token], MESH16), MESH16) + 4
+            + _planned_bytes(cache, cache_specs(cache, MESH16), MESH16))
+
+
+@pytest.mark.parametrize("arch,shape", HYBRID_CELLS)
+def test_hybrid_cells_trace_with_the_planned_argument_bytes(hybrid, arch, shape):
+    out, reports = hybrid
+    assert out["rc"][f"{arch}|{shape}"] == 0
+    rep = _report(reports, arch, shape)
+    assert set(rep) == REPORT_KEYS and rep["hlo_flops_per_device"] > 0
+    want = _planned_decode_bytes(get_config(arch), SHAPES[shape])
+    assert rep["bytes_per_device"]["argument"] == want
+
+
+def test_xlstm_depth_extrapolation_equals_the_full_depth_count(hybrid):
+    out, reports = hybrid
+    full = _report(reports, "xlstm-1.3b", "decode_32k")
+    cfg = get_config("xlstm-1.3b")
+    p = cfg.slstm_every
+    f1, f2 = out["depth"][str(p)], out["depth"][str(2 * p)]
+    n = cfg.n_layers // p
+    assert f1["flops"] + (n - 1) * (f2["flops"] - f1["flops"]) == full["hlo_flops_per_device"]
+    coll = full["collective_bytes_per_device"]
+    assert set(f1["coll"]) == set(f2["coll"]) == set(coll) and coll
+    for kind in coll:
+        assert f1["coll"][kind] + (n - 1) * (f2["coll"][kind] - f1["coll"][kind]) == coll[kind]
+
+
+def test_xlstm_decode_reduces_no_recurrent_state(hybrid):
+    """The decode step's collectives move (B, di) products, never a layer's
+    (B, nh, hd, hd + 1) mLSTM state: every result is smaller than one
+    layer's state on a rank, and all of them together under 0.1 GB."""
+    out, reports = hybrid
+    cfg, shape = get_config("xlstm-1.3b"), SHAPES["decode_32k"]
+    h = zoo.abstract_cache(cfg, shape)["mlstm"].h
+    layer_state = _planned_bytes([h], [cache_specs({"h": h}, MESH16)["h"]], MESH16) // cfg.n_layers
+    assert max(d["largest"] for d in out["depth"].values()) < layer_state
+    assert _report(reports, "xlstm-1.3b", "decode_32k")["collective_total_per_device"] < 0.1e9
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b"])
+def test_hybrid_flops_per_rank_are_the_ranks_share(hybrid, arch):
+    per_rank, one_rank = hybrid[0]["share"][arch]
+    assert one_rank > 0 and 4 * per_rank == one_rank
 
 
 def test_depth_extrapolation_equals_the_full_depth_count(traced):
