@@ -14,8 +14,9 @@ hybrid, MoE and xLSTM families (hymba-1.5b, qwen3-moe-30b-a3b,
 llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
 (paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route,
 elastic restore (``reshard_restore``, llama3.2-1b at full width across
-four ranks) and the sharded steps (``launch.steps``, the same model and
-hymba-1.5b on a (2, 2) mesh) of ``repro_torch``; the first
+four ranks), the sharded steps (``launch.steps``, the same model and
+hymba-1.5b on a (2, 2) mesh) and the four example twins
+(``examples/*_torch.py``) of ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -330,6 +331,24 @@ Phases, one line or more each:
    of 256 or 512 ranks in this process, meta tensors): per-device bytes,
    FLOPs, collectives by kind, the roofline's three terms with the H100
    constants, the trace's wall s.
+20. examples (run after phase 19, before 9 and 10) — ``python -m
+   repro_torch.lint src/repro_torch chip_smoke.py --strict`` (a subprocess
+   beside the rest) must exit 0; then each example twin's ``main`` on the
+   card at its defaults, every launch counter set to 0 just before and
+   read just after: ``quickstart_torch.py`` (2 K2 launches; its offline,
+   A1 and DELAYEDOFF costs equal the port's fluid model's),
+   ``trace_provisioning_torch.py`` (6 K2 launches here, and the 3 of its
+   mesh rank, a world of one over NCCL, checked by the twin; Fig. 3's A1
+   column and Fig. 4d equal the fluid model's, the heterogeneous fleet the
+   plain CPU route's, the drawn A3 column and noise sweep within their
+   bounds plus 0.05, the sharded schedule identical),
+   ``serve_autoscale_torch.py`` (6 K2 launches; 2 K3 per prefill and 4 K4
+   per decode step of the reduced model, its head dim raised to 64; A1's
+   sweep equals the plain CPU planner's, the cluster's reports those
+   without engines, every session's tokens generated), K3 and K4 at that
+   twin's shapes held to their plain versions (bf16, phase 9's limits),
+   and ``train_lm_torch.py`` (300 steps, the loss falls; a rerun resumes
+   from step 300 and takes 10 more; no kernel); each twin's wall seconds.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -368,7 +387,8 @@ Phases, one line or more each:
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
 paths' of phases 13, 15 and 16 and rank 0's bf16 main paths of phase 19,
-K3's the no-grad losses of phases 14 and 16); the
+K3's the no-grad losses of phases 14 and 16, and all three the twins' of
+phase 20); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -4248,6 +4268,244 @@ def steps_held(label, backend, arch, ranks, ref, traced, smi):
               ", ".join(f"{x:.1f}" for x in t["train_ms"]) for t in times), flush=True)
 
 
+TWINS = ("quickstart", "trace_provisioning", "serve_autoscale", "train_lm")   # phase 20
+TWIN_RESUME_STEPS = 10           # phase 20: steps the rerun of train_lm adds after its resume
+TWIN_BOUND_TOL = 0.05            # phase 20: the eval's tolerance on a drawn number's bound
+LINT_TIMEOUT_S = 300
+
+
+def twin_run(name, argv):
+    """Phase 20: ``main(argv)`` of ``examples/<name>_torch.py`` on the card,
+    every launch counter set to 0 just before and read just after; returns
+    (its standard output, the launches of K1 to K4, its wall seconds)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    kernels = importlib.import_module("repro_torch.kernels.provision_scan")
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = twin
+    spec.loader.exec_module(twin)
+    buf = io.StringIO()
+    kernels.launches = kernels.stream_launches = 0
+    flash.flash_launches = decode.decode_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = twin.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"K1": kernels.launches, "K2": kernels.stream_launches,
+              "K3": flash.flash_launches, "K4": decode.decode_launches}
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"examples: {name}: {line}", flush=True)
+    check(rc == 0, f"examples: {name}_torch.py exited {rc}")
+    return out, counts, wall
+
+
+def twin_kernels():
+    """Phase 20: K3 and K4 at the serving twin's shapes — its prompts of 32
+    tokens and its 96-slot caches, the reduced llama3.2-1b's 4 query and 2
+    kv heads at head dim 64, bf16 — held to their plain versions; returns
+    their largest absolute errors."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3.2-1b", reduced=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, 64
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    q, k, v = draw(1, 32, h, hd), draw(1, 32, kvh, hd), draw(1, 32, kvh, hd)
+    errs = {"K3": compare(flash.flash_attention(q, k, v, block_q=32, block_k=32),
+                          flash.flash_attention_plain(q, k, v), "bfloat16",
+                          "examples: K3 at the serving twin's prompt")[0]}
+    q1, kc, vc = draw(1, h, hd), draw(1, 96, kvh, hd), draw(1, 96, kvh, hd)
+    lengths = torch.tensor([47], dtype=torch.int32, device="cuda")
+    errs["K4"] = compare(decode.decode_attention(q1, kc, vc, lengths, block_k=96),
+                         decode.decode_attention_plain(q1, kc, vc, lengths), "bfloat16",
+                         "examples: K4 over the serving twin's cache")[0]
+    return errs
+
+
+def examples_phase(smi):
+    """Phase 20: the port's lint over its tree and this script (a
+    subprocess, run beside the rest), then the four example twins' ``main``
+    on the card at their defaults, each held to the checks of its CPU tests
+    against host oracles (the port's fluid model, the plain CPU route, the
+    cluster without engines), K3 and K4 at the serving twin's shapes held to
+    their plain versions.  Returns the twins' launches of K1 to K4 and the
+    largest K3 and K4 errors."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        PAPER_COSTS,
+        CostModel,
+        PolicySpec,
+        ProvisionSpec,
+        Workload,
+        fluid_cost,
+        msr_like_trace,
+        provision,
+        theoretical_ratio,
+    )
+    from repro_torch.core.traces import WEEK_SLOTS
+    from repro_torch.data.requests import generate_sessions
+    from repro_torch.scenarios import Scenario, generate
+    from repro_torch.serving import (
+        FleetProvisioner,
+        make_window_max_predictor,
+        run_cluster,
+    )
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.lint", "src/repro_torch", "chip_smoke.py",
+         "--strict"], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    walls = {}
+    try:
+        # quickstart: A1's sweep and DELAYEDOFF are one K2 launch each, the
+        # offline optimum a closed form; the costs are the fluid model's
+        out, counts, walls["quickstart"] = twin_run("quickstart", [])
+        check(counts == {"K1": 0, "K2": 2, "K3": 0, "K4": 0},
+              f"examples: quickstart launched {counts}, expected 2 of K2")
+        costs = CostModel(P=1.0, beta_on=3.0, beta_off=3.0)
+        trace = msr_like_trace(np.random.default_rng(0))
+        lines = out.splitlines()
+        opt = fluid_cost(trace, "offline", costs).cost
+        check(f"offline optimal cost     : {opt:,.0f}  " in out,
+              "examples: quickstart's offline optimum is not the fluid model's")
+        want = [f"{'A1':<12}{w:>7}{fluid_cost(trace, 'A1', costs, window=w).cost:>12,.0f}"
+                for w in (0, 2, 4, 5)]
+        want.append(f"{'DELAYEDOFF':<12}{'--':>7}"
+                    f"{fluid_cost(trace, 'delayedoff', costs).cost:>12,.0f}")
+        for prefix in want:
+            check(any(line.startswith(prefix) for line in lines),
+                  f"examples: quickstart has no line {prefix!r}")
+        for k in launches:
+            launches[k] += counts[k]
+
+        # trace_provisioning: six K2 launches here (the rank's three are
+        # counted by the twin itself); the draw-free numbers are the fluid
+        # model's and the plain CPU route's, the drawn ones within bounds
+        out, counts, walls["trace_provisioning"] = twin_run("trace_provisioning", [])
+        check(counts == {"K1": 0, "K2": 6, "K3": 0, "K4": 0},
+              f"examples: trace_provisioning launched {counts}, expected 6 of K2")
+        check("sharded over 1 device(s): identical schedule ✓" in out,
+              "examples: trace_provisioning's sharded schedule")
+        msr = Scenario("msr_diurnal", target_pmr=4.63, mean_jobs=40.0)
+        week = generate(msr, 1, WEEK_SLOTS)[0]
+        opt = fluid_cost(week, "offline", PAPER_COSTS).cost
+        rows = out.split("A3 emp\n")[1].splitlines()[:6]
+        for w, row in enumerate(rows):
+            alpha, a1_bound, a1_emp, a3_bound, a3_emp = (float(x) for x in row.split())
+            a1 = fluid_cost(week, "A1", PAPER_COSTS, window=w).cost / opt
+            check(f"{a1_emp:.3f}" == f"{a1:.3f}", f"examples: Fig.3 A1 window {w}")
+            check(1.0 <= a3_emp <= a3_bound + TWIN_BOUND_TOL, f"examples: Fig.3 A3 window {w}")
+        for target in (2, 4, 6, 8, 10):
+            a = generate(dataclasses.replace(msr, target_pmr=float(target)), 1, WEEK_SLOTS)[0]
+            red = 1 - fluid_cost(a, "offline", PAPER_COSTS).cost / fluid_cost(
+                a, "static", PAPER_COSTS).cost
+            check(f"  PMR={target:>2}: reduction {red:6.1%}" in out, f"examples: Fig.4d {target}")
+        n_levels = int(week.max()) + 1
+        n_base = int(n_levels * 0.5)
+        beta = np.where(np.arange(n_levels) < n_base, 4.5, 1.5)
+        het = provision(ProvisionSpec(costs=CostModel(P=1.0, beta_on=beta, beta_off=beta),
+                                      workload=Workload(demand=week),
+                                      policy=PolicySpec("A1", window=2), device="cpu"))
+        check(f"  total={float(het.cost):,.0f}  energy={float(het.energy):,.0f} "
+              f"toggles={float(het.toggle_cost):,.0f}" in out,
+              "examples: the heterogeneous fleet differs from the plain CPU route")
+        bound = theoretical_ratio("A1", 3 / PAPER_COSTS.delta)
+        for line in out.split("(PredictionNoise sweep axis):\n")[1].splitlines()[:3]:
+            cr = float(line.split("mean CR ")[1].split()[0])
+            check(1.0 <= cr <= bound + TWIN_BOUND_TOL, f"examples: flash crowd {line!r}")
+        for k in launches:
+            launches[k] += counts[k]
+
+        # serve_autoscale: K2 for the two sweeps and four plans; K3 per
+        # layer and prefill, K4 twice per layer and decode step
+        out, counts, walls["serve_autoscale"] = twin_run("serve_autoscale", [])
+        sessions = generate_sessions(np.random.default_rng(0), n_slots=40,
+                                     mean_concurrency=2.5)
+        layers = get_config("llama3.2-1b", reduced=True).n_layers
+        n_new = [min(s.max_new_tokens, 16) for s in sessions.sessions]
+        want = {"K1": 0, "K2": 6, "K3": layers * len(n_new),
+                "K4": 2 * layers * sum(n - 1 for n in n_new)}
+        check(counts == want, f"examples: serve_autoscale launched {counts}, expected {want}")
+        serve = importlib.import_module("serve_autoscale_torch")
+        demand = serve.slot_concurrency(sessions, 40)
+        plan = FleetProvisioner(costs, policy="A1", max_replicas=int(demand.max()) + 1,
+                                device="cpu").sweep_costs(demand, np.arange(6))
+        check("  A1: " + " ".join(f"w={w}:{c:,.0f}" for w, c in enumerate(plan)) in out,
+              "examples: serve_autoscale's A1 sweep differs from the plain CPU route")
+        pred = make_window_max_predictor(sessions)
+        for alpha in (0.0, 0.5, 1.0):
+            rep = run_cluster(sessions, costs, policy="A1", alpha=alpha, predictor=pred)
+            check(f"A1(alpha={alpha:.2f}): cost={rep.total_cost:,.1f} "
+                  f"static={rep.static_cost:,.0f} reduction={rep.reduction:.1%}" in out,
+                  f"examples: serve_autoscale's cluster at alpha {alpha}")
+        rep = run_cluster(sessions, costs, policy="A1", alpha=0.5, predictor=pred)
+        check(f"A1(alpha=0.50) + real generation: cost={rep.total_cost:,.1f} " in out
+              and out.rstrip().endswith(f"tokens={sum(n_new)}"),
+              "examples: serve_autoscale's engines: cost or tokens")
+        for k in launches:
+            launches[k] += counts[k]
+
+        errs = twin_kernels()
+
+        # train_lm: the reduced model at the twin's defaults, then a rerun
+        # that resumes from its last checkpoint; training runs no kernel
+        work = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+        shutil.rmtree(work, ignore_errors=True)
+        try:
+            out, counts, walls["train_lm"] = twin_run("train_lm", ["--ckpt-dir", work])
+            first, last = (float(x) for x in out.split("loss ")[-1].split(" -> "))
+            check("to step 300:" in out and last < first,
+                  f"examples: train_lm's loss {first} -> {last} over 300 steps")
+            out, resumed, walls["train_lm resumed"] = twin_run(
+                "train_lm", ["--ckpt-dir", work, "--steps", str(300 + TWIN_RESUME_STEPS)])
+            check(f"to step {300 + TWIN_RESUME_STEPS}:" in out, "examples: train_lm's rerun")
+            check(counts == resumed == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+                  f"examples: train_lm launched {counts} and {resumed}")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
+        lint_out, lint_err = lint.communicate(timeout=LINT_TIMEOUT_S)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    check(lint.returncode == 0, f"examples: the port's lint exited {lint.returncode}:\n"
+          f"{lint_out[-3000:]}{lint_err[-3000:]}")
+    print(f"examples: python -m repro_torch.lint src/repro_torch chip_smoke.py --strict: "
+          f"exit 0 ({lint_err.strip()})", flush=True)
+    print("examples: wall s " + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f"; launches {launches}; K3 err {errs['K3']:.3e}, K4 err {errs['K4']:.3e} [{smi}]",
+          flush=True)
+    print(f"examples: phase 20 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": launches, "errs": errs}
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -4861,15 +5119,19 @@ def main() -> int:
     # 19. the step builders, the dry-run and the sharded steps (after phase 18)
     steps_launches = steps_phase(smi)
 
+    # 20. the port's lint and the example twins (after phase 19)
+    twins = examples_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
         entry["launches"] += train_k3 if kernel == "K3" else 0
         entry["launches"] += families["launches"][kernel] + vlm_encdec["launches"][kernel]
-        entry["launches"] += steps_launches[kernel]
+        entry["launches"] += steps_launches[kernel] + twins["launches"][kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
-                                   families["errs"][kernel], vlm_encdec["errs"][kernel])
+                                   families["errs"][kernel], vlm_encdec["errs"][kernel],
+                                   twins["errs"][kernel])
 
     ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
@@ -4892,7 +5154,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
         "launches": (main_k2 + stream_main_launches + eval_launches + stepper_launches
-                     + mesh_launches),
+                     + mesh_launches + twins["launches"]["K2"]),
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
         "plain_ms": k2_plain,

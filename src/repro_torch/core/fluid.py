@@ -29,7 +29,7 @@ E = math.e
 
 
 @dataclasses.dataclass
-class FluidResult:
+class FluidResult:  # repro-lint: disable=RPL005
     cost: float
     energy: float
     toggle_cost: float

@@ -419,6 +419,7 @@ def _grid_inputs(ab, predb, windows, delta, uniforms, *, n_levels, max_h, policy
     W = len(windows)
     wf = torch.tensor(windows, dtype=torch.float32, device=dev)
     s_ix, w_ix, b_ix = torch.meshgrid(     # on the host: K1's wrapper checks them there
+        # repro-torch-lint: disable=RPT005 (host cell maps; moved to the card after the check)
         torch.arange(S), torch.arange(W), torch.arange(B), indexing="ij",
     )
     i32 = torch.int32

@@ -98,6 +98,7 @@ def _normalize(traces, predicted, thresholds, cells, *, delta, horizon,
         lo, hi = torch.stack(cells).aminmax(dim=1)
         rows = (traces.shape[0], predicted.shape[0], rows, level_horizon.shape[0])
         for name, a, b, k in zip(("cell_trace", "cell_pred", "cell_thr", "cell_hor"),
+                                 # repro-torch-lint: disable=RPT002 (host maps on the engine's path)
                                  lo.tolist(), hi.tolist(), rows):
             if a < 0 or b >= k:
                 raise ValueError(f"{name} indexes rows [{a}, {b}] of a table with {k} rows")
@@ -131,8 +132,12 @@ def _uniform_waits_args(w, T, G, dev):
     if cell.shape[0] != G:
         raise ValueError(f"the uniforms' cell map has {cell.shape[0]} rows, the cells {G}")
     if G:
+        # as in _normalize: the engine makes the cell map on the host, so
+        # this check reads no device memory on its path
         lo, hi = cell.aminmax()
+        # repro-torch-lint: disable=RPT002 (a host map on the engine's path)
         if int(lo) < 0 or int(hi) >= u.shape[0]:
+            # repro-torch-lint: disable=RPT002 (the error message of the check above)
             raise ValueError(f"the uniforms' cell map indexes rows [{int(lo)}, {int(hi)}] "
                              f"of {u.shape[0]}")
     return UniformWaits(u0, u, span, p0, cell.to(dev, non_blocking=True))

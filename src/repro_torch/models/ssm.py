@@ -231,7 +231,8 @@ def _ssm_mesh(x, p, cfg: ModelConfig, state: SSMState | None = None, step: bool 
     same = conv_ch is rec or all(a.equal(b) for a, b in zip(conv_ch, rec))
     y_in = mesh_cols(x, p["in_proj"].to(cd), [torch.cat([a, di + b]) for a, b in zip(conv_ch, rec)])
     xi, z = y_in.split([len(conv_ch[0]), len(rec[0])], dim=-1)
-    w_conv = weight_part(p["conv"].to(cd), [(torch.arange(W)[:, None] * di + c).reshape(-1)
+    # host indices, as channels() makes them: they pick each rank's block
+    w_conv = weight_part(p["conv"].to(cd), [(torch.arange(W)[:, None] * di + c).reshape(-1)  # repro-torch-lint: disable=RPT005
                                             for c in conv_ch], yp).reshape(W, -1)
     conv_state = None
     if step:

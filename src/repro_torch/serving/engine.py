@@ -41,7 +41,7 @@ _MATRICES = ("wq", "wk", "wv", "wo", "wi", "wg", "in_proj", "out_proj", "conv", 
 
 
 @dataclasses.dataclass
-class GenerationResult:
+class GenerationResult:  # repro-lint: disable=RPL005
     tokens: np.ndarray          # (B, n_new)
     prefill_len: int
 
