@@ -293,8 +293,8 @@ Phases, one line or more each:
    (``repro_torch.launch.steps``) and the dry-run: (b) llama3.2-1b at full
    width and depth in float32 from ``SEED``, saved under
    ``build/chip_smoke_steps/`` (removed after) with the single-device
-   float32 and bf16 plain routes over phase 13's stream and two float32
-   train steps computed first and freed; then a world of four processes
+   float32 and bf16 plain routes over phase 13's stream and one float32
+   train step computed first and freed; then a world of four processes
    on the one card over gloo, mesh (2, 2) ``("data", "model")``, each
    rank's blocks restored from the checkpoint (no collective): the
    prefill and 8 decode steps on the float32 kernel route held to the
@@ -303,15 +303,23 @@ Phases, one line or more each:
    model than 1.25 times the single-device bf16 plain route, exactly 16 K3
    launches per prefill and 32 K4 per decode step on every rank (module
    counters), two planted faults rejected on every rank (one rank's wq
-   block from its neighbour; K4 given the next rank's kv heads), two
-   float32 train steps whose losses are within 1e-4 relative of one
-   device's and whose parameters after step 1 are within 1e-4 of each
-   leaf's largest value of the single-device update (the elements whose
-   clipped gradient is nonzero and below 100 AdamW eps counted, not held),
-   and wall ms per rank between a barrier and a sync; (e) in the same
+   block from its neighbour; K4 given the next rank's kv heads), one
+   float32 train step whose loss is within 1e-4 relative of one device's
+   and whose parameters are within 1e-4 of each leaf's largest value of
+   the single-device update (the elements whose clipped gradient is
+   nonzero and below 100 AdamW eps counted, not held), and wall ms per
+   rank between a barrier and a sync; then the same under sequence
+   parallelism (``seq_parallel``: the residual stream split by sequence
+   over ``"model"``, gathered into every tensor-parallel region and
+   reduce-scattered out of it): the prefill (and one decode step) on the
+   float32 kernel and plain routes held as above, the bf16 kernel route's
+   prefill and 8 decode steps held as above with the same K3 and K4
+   launches on every rank as without it, and one float32 train step held
+   as above; its prefill and train ms per rank printed beside the others;
+   (e) in the same
    world after (b), hymba-1.5b at full width and depth (1,644,860,800
    parameters) by the same rules on B 2, a prompt of 2304 tokens (past its
-   2048-token window and even: the ring wraps, the sequence splits) and 8
+   2048-token window and even: the ring wraps, the sequence splits) and 4
    decode steps: its 25 query and 5 KV heads do not divide ``"model"``, so
    attention takes the sequence layout with K3 under the window on each
    rank's batch rows and K4 over the ring's valid slots gathered to the
@@ -319,18 +327,21 @@ Phases, one line or more each:
    per prefill and 64 K4 per decode step on every rank, two planted faults
    rejected on every rank (K3 called without its window; K4 reading the
    ring's first slots without the gather), one float32 train step (B 2, S
-   128) by (b)'s rules; (c) the same three steps of both models traced on
-   a fake world of four at (2, 2) in a subprocess: every rank's resident
+   128) by (b)'s rules; (c) the same three steps of both models, and
+   llama3.2-1b's prefill and train step under sequence parallelism, traced
+   on a fake world of four at (2, 2) in a subprocess: every rank's resident
    bytes equal the trace's argument bytes and the float32 plain route's
    collectives equal the trace's in count and bytes by kind (llama's kernel
    route's printed beside them); (d) only with four cards or more: (b) and
    (e) over NCCL, a card per rank; (a) the dry-run of llama3.2-1b's three
-   cells on 16x16 (train_4k also on 2x16x16), command-r-plus-104b x
+   cells on 16x16 (train_4k also on 2x16x16 and under sequence
+   parallelism), command-r-plus-104b x
    decode_32k, hymba-1.5b x decode_32k, long_500k and train_4k and
    xlstm-1.3b x decode_32k and long_500k on the card's host (a fake group
    of 256 or 512 ranks in this process, meta tensors): per-device bytes,
    FLOPs, collectives by kind, the roofline's three terms with the H100
-   constants, the trace's wall s.
+   constants, the trace's wall s.  The phase's wall s is printed, and at
+   the end the whole run's.
 20. examples (run after phase 19, before 9 and 10) — ``python -m
    repro_torch.lint src/repro_torch chip_smoke.py --strict`` (a subprocess
    beside the rest) must exit 0; then each example twin's ``main`` on the
@@ -403,6 +414,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()     # the whole run's wall time is printed from here
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1354,7 +1367,7 @@ def serving_phase(smi):
     from repro_torch.core import CostModel
     from repro_torch.data import generate_sessions
     from repro_torch.models import attention, init_params, param_count
-    from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
+    from repro_torch.models.layers import embed_tokens, rms_norm
     from repro_torch.serving import InferenceEngine, make_window_max_predictor, run_cluster
     from repro_torch.serving.engine import serving_params
 
@@ -1399,9 +1412,8 @@ def serving_phase(smi):
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), device=dev)
         h = rms_norm(embed_tokens(tokens, shared["embed"], cd), shared["blocks"][0]["ln1"],
                      cfg.norm_eps)
-        q, k, v = attention._qkv(h, p0, cd)
         pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+        return attention._qkv(h, p0, cfg, pos)
 
     measured, errs = {}, {"K3": 0.0, "K4": 0.0}
     for b, s in SERVE_FLASH:
@@ -2365,7 +2377,7 @@ def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
 
     from repro_torch.models import attention
     from repro_torch.models.blocks import attn_window
-    from repro_torch.models.layers import apply_rope, embed_tokens, rms_norm
+    from repro_torch.models.layers import embed_tokens, rms_norm
 
     cd = cfg.compute_dtype
     rng = np.random.default_rng(SEED)
@@ -2374,9 +2386,8 @@ def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, n)), device=dev)
         h = rms_norm(embed_tokens(tokens, shared["embed"], cd), shared["blocks"][0]["ln1"],
                      cfg.norm_eps)
-        q, k, v = attention._qkv(h, shared["blocks"][0]["attn"], cd)
         pos = torch.arange(n, dtype=torch.int32, device=dev).expand(b, n)
-        return apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta), v
+        return attention._qkv(h, shared["blocks"][0]["attn"], cfg, pos)
 
     q, k, v = projections(s)
     measured = {"K3": k3_timed(q, k, v, True, f"{what} prefill", smi, "families",
@@ -3558,24 +3569,31 @@ STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width and depth, rand
 # runs with the window on each rank's batch rows; its 50 SSM heads do
 STEPS_HYBRID = "hymba-1.5b"
 STEPS_WORLD, STEPS_MESH, STEPS_AXES = 4, (2, 2), ("data", "model")
-STEPS_NEW = 9                    # (b), (e): the prefill's token and 8 decode steps
+# (b), (e): the prefill's token and 8 (hymba: 4) decode steps
+STEPS_NEW = {STEPS_ARCH: 9, STEPS_HYBRID: 5}
 # per model: the serving stream's (batch, prompt, cache slots) and the float32
 # training's (batch, sequence, steps); llama3.2-1b's stream is phase 13's,
 # hymba-1.5b's prompt is past its 2048-token window and even, so that its ring
 # wraps (K4 over the valid slots gathered to the front, ROADMAP.md § 3.9) and
 # the sequence splits over "model"
-STEPS_MODELS = {STEPS_ARCH: ((SERVE_BATCH, SERVE_PROMPT, SERVE_SEQ), (4, 128, 2)),
-                STEPS_HYBRID: ((2, 2304, 2304 + STEPS_NEW), (2, 128, 1))}
+STEPS_MODELS = {STEPS_ARCH: ((SERVE_BATCH, SERVE_PROMPT, SERVE_SEQ), (4, 128, 1)),
+                STEPS_HYBRID: ((2, 2304, 2304 + STEPS_NEW[STEPS_HYBRID]), (2, 128, 1))}
+# (b), (c): the models whose steps also run under sequence parallelism
+STEPS_SP = (STEPS_ARCH,)
 STEPS_TRAIN_TOL = 1e-4           # (b): the loss and every parameter after step 1, relative
 STEPS_NOISE_EPS = 100            # (b): clipped gradients below this many AdamW eps are not held
 STEPS_CKPT = 3
-# (a): the dry-run's cells on the card's host, (arch, shape, multi-pod)
-DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", False), ("llama3.2-1b", "prefill_32k", False),
-                ("llama3.2-1b", "train_4k", False), ("llama3.2-1b", "train_4k", True),
-                ("command-r-plus-104b", "decode_32k", False),
-                ("hymba-1.5b", "decode_32k", False), ("hymba-1.5b", "long_500k", False),
-                ("hymba-1.5b", "train_4k", False), ("xlstm-1.3b", "decode_32k", False),
-                ("xlstm-1.3b", "long_500k", False))
+# (a): the dry-run's cells on the card's host, (arch, shape, multi-pod,
+# config overrides)
+SP_ON = {"seq_parallel": True}
+DRYRUN_CELLS = (("llama3.2-1b", "decode_32k", False, {}),
+                ("llama3.2-1b", "prefill_32k", False, {}),
+                ("llama3.2-1b", "train_4k", False, {}), ("llama3.2-1b", "train_4k", True, {}),
+                ("llama3.2-1b", "train_4k", False, SP_ON),
+                ("command-r-plus-104b", "decode_32k", False, {}),
+                ("hymba-1.5b", "decode_32k", False, {}), ("hymba-1.5b", "long_500k", False, {}),
+                ("hymba-1.5b", "train_4k", False, {}), ("xlstm-1.3b", "decode_32k", False, {}),
+                ("xlstm-1.3b", "long_500k", False, {}))
 
 # (c): the three steps traced on a fake world of four at (2, 2) on the card's
 # host (a "cuda" mesh, as the real world's), in a subprocess
@@ -3602,9 +3620,15 @@ with fake_world(WORLD):
             "train": steps.build_train_step(cfg, mesh, ShapeCell("train", TRAIN_S, TRAIN_B,
                                                                  "train")),
         }
-        b = bundles["prefill"]
-        bundles["prefill"] = dataclasses.replace(
-            b, abstract_args=(b.abstract_args[0], {"tokens": prompt}, b.abstract_args[2]))
+        if arch in SP:
+            sp = cfg.replace(seq_parallel=True)
+            bundles["prefill_sp"] = steps.build_prefill_step(sp, mesh, serve, kernel=False)
+            bundles["train_sp"] = steps.build_train_step(sp, mesh, ShapeCell("train", TRAIN_S,
+                                                                             TRAIN_B, "train"))
+        for name in [k for k in bundles if k.startswith("prefill")]:
+            b = bundles[name]
+            bundles[name] = dataclasses.replace(
+                b, abstract_args=(b.abstract_args[0], {"tokens": prompt}, b.abstract_args[2]))
         out[arch] = {}
         for name, b in bundles.items():
             c = StepCounters()
@@ -3627,14 +3651,17 @@ def dryrun_part(smi):
     from repro_torch.launch.roofline import analyse
 
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
-        for arch, shape, multi_pod in DRYRUN_CELLS:
+        for arch, shape, multi_pod, overrides in DRYRUN_CELLS:
             t0 = time.perf_counter()
-            rep = run_cell(arch, shape, multi_pod, pathlib.Path(out_dir))
+            tag = "".join(f"__{k}" for k in overrides)
+            rep = run_cell(arch, shape, multi_pod, pathlib.Path(out_dir), overrides=overrides,
+                           tag_suffix=tag)
             wall = time.perf_counter() - t0
             a, mem = analyse(rep), rep["bytes_per_device"]
             check(rep["hlo_flops_per_device"] > 0 and mem["argument"] > 0,
                   f"dryrun: {arch} x {shape}: an empty trace")
-            print(f"dryrun: (a) {arch} x {shape} x {rep['mesh']}: argument "
+            print(f"dryrun: (a) {arch} x {shape} x {rep['mesh']}"
+                  + "".join(f" with {k}={v}" for k, v in overrides.items()) + ": argument "
                   f"{mem['argument'] / 1e9:.4f} GB, temp {mem['temp'] / 1e9:.4f} GB, output "
                   f"{mem['output'] / 1e9:.4f} GB per device; {rep['hlo_flops_per_device']:.4e} "
                   f"FLOPs per device; collectives per device "
@@ -3699,10 +3726,11 @@ def steps_reference(work, dev, arch=STEPS_ARCH):
     save(os.path.join(folder, "weights"), STEPS_CKPT, params)
     prompt = steps_stream(arch)
     picks, exact = InferenceEngine(f32, params, max_batch=b, max_seq=slots, device=dev,
-                                   kernel=False)._generate(prompt, STEPS_NEW, keep_logits=True)
+                                   kernel=False)._generate(prompt, STEPS_NEW[arch],
+                                                           keep_logits=True)
     _, plain = InferenceEngine(bf16, serving_params(params, bf16, dev), max_batch=b,
                                max_seq=slots, device=dev, kernel=False)._generate(
-        prompt, STEPS_NEW, forced=picks, keep_logits=True)
+        prompt, STEPS_NEW[arch], forced=picks, keep_logits=True)
     plain_to_f32 = max(float(row_err(x, ref).max()) for x, ref in zip(plain, exact))
     out = {"picks": picks, "exact": [x.cpu() for x in exact], "plain_to_f32": plain_to_f32}
     del plain, exact
@@ -3759,14 +3787,15 @@ def steps_whole(mesh, x):
 
 
 def sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out, counters=None,
-                  timed=False):
+                  timed=False, tag=""):
     """Phase 19: the prefill of ``prompt`` and ``n_new - 1`` decode steps fed
     ``picks`` through the step builders on ``mesh`` (``slots`` cache slots),
     the weights placed as the prefill step's shardings; returns the gathered
     logits of each (on every rank).  ``counters`` ({"prefill", "decode"}
     :class:`StepCounters`) count the prefill and the first decode step,
     whose resident bytes go to ``out["resident"]``; ``timed``: wall ms per
-    rank between a barrier and a sync in ``out["times"]``."""
+    rank between a barrier and a sync in ``out["times"]``; both keyed with
+    ``tag`` after the step's name."""
     import contextlib
     import dataclasses
     import statistics as stats
@@ -3787,7 +3816,7 @@ def sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out, 
         (weights, {"tokens": prompt}, init_cache(cfg, b, slots, device=dev)),
         prefill.in_shardings)
     if counters is not None:
-        out["resident"]["prefill"] = _resident((params, batch, cache))
+        out["resident"]["prefill" + tag] = _resident((params, batch, cache))
     steps_sync()
     t0 = time.perf_counter()
     with counters["prefill"] if counters else contextlib.nullcontext():
@@ -3800,7 +3829,7 @@ def sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out, 
             (picks[:, i], torch.tensor(s + i, dtype=torch.int32, device=dev)),
             decode.in_shardings[1:3])
         if counters is not None and i == 0:
-            out["resident"]["decode"] = _resident((params, token, cur_len, cache))
+            out["resident"]["decode" + tag] = _resident((params, token, cur_len, cache))
         steps_sync()
         t0 = time.perf_counter()
         with counters["decode"] if counters and i == 0 else contextlib.nullcontext():
@@ -3809,9 +3838,10 @@ def sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out, 
         step_ms.append((time.perf_counter() - t0) * 1e3)
         seen.append(steps_whole(mesh, logits))
     if timed:
-        out["times"].update(prefill_ms=prefill_ms, decode_p50_ms=stats.median(step_ms),
-                            decode_p99_ms=sorted(step_ms)[min(len(step_ms) - 1, int(
-                                0.99 * len(step_ms)))])
+        out["times"].update({"prefill_ms" + tag: prefill_ms,
+                             "decode_p50_ms" + tag: stats.median(step_ms),
+                             "decode_p99_ms" + tag: sorted(step_ms)[min(len(step_ms) - 1, int(
+                                 0.99 * len(step_ms)))]})
     return seen
 
 
@@ -3819,8 +3849,9 @@ def steps_rank(mesh, payload):
     """One rank of phase 19 (b) (a ``run_world`` target on a (2, 2) mesh):
     the weights restored onto this rank's blocks, the serving steps on the
     stream (float32 kernel and plain routes, bf16 kernel route: the main
-    path, counted and timed), two float32 train steps, the planted faults;
-    what the checks need comes back (rank 0 also the gathered logits)."""
+    path, counted and timed), the same under sequence parallelism, the
+    planted faults, one float32 train step with it and one without; what
+    the checks need comes back (rank 0 also the gathered logits)."""
     import unittest.mock
 
     import torch
@@ -3846,9 +3877,10 @@ def steps_rank(mesh, payload):
     def whole(x):
         return steps_whole(mesh, x)
 
-    def serve(cfg, weights, kernel, n_new=STEPS_NEW, counters=None, timed=False):
+    def serve(cfg, weights, kernel, n_new=STEPS_NEW[STEPS_ARCH], counters=None, timed=False,
+              tag=""):
         return sharded_serve(mesh, cfg, weights, prompt, picks, SERVE_SEQ, kernel, n_new, out,
-                             counters, timed)
+                             counters, timed, tag)
 
     weights = steps_weights(mesh, STEPS_ARCH, work, out)
 
@@ -3866,10 +3898,24 @@ def steps_rank(mesh, payload):
     flash.flash_launches = decode_mod.decode_launches = 0
     kb = serve(bf16, shared, True, timed=True)
     out["launches"] = {"K3": flash.flash_launches, "K4": decode_mod.decode_launches}
+    # sequence parallelism: the prefill (and a decode step after it) on the
+    # float32 kernel and plain routes, the plain route's collectives counted;
+    # the bf16 kernel route, counted and timed
+    f32_sp, bf16_sp = f32.replace(seq_parallel=True), bf16.replace(seq_parallel=True)
+    k32_sp = serve(f32_sp, weights, True, n_new=2)
+    sp_counts = {"prefill": StepCounters(), "decode": StepCounters()}
+    p32_sp = serve(f32_sp, weights, False, n_new=2, counters=sp_counts, tag="_sp")
+    out["collectives"]["plain_sp"] = {k: collective_counts(c.records)
+                                      for k, c in sp_counts.items()}
+    flash.flash_launches = decode_mod.decode_launches = 0
+    kb_sp = serve(bf16_sp, shared, True, timed=True, tag="_sp")
+    out["launches_sp"] = {"K3": flash.flash_launches, "K4": decode_mod.decode_launches}
     del shared
     if rank == 0:
-        out["logits"] = {"k32": [x.cpu() for x in k32], "p32": [x.cpu() for x in p32],
-                         "kb": [x.cpu() for x in kb]}
+        out["logits"] = {name: [x.cpu() for x in got] for name, got in (
+            ("k32", k32), ("p32", p32), ("kb", kb), ("k32_sp", k32_sp), ("p32_sp", p32_sp),
+            ("kb_sp", kb_sp))}
+    del k32_sp, p32_sp, kb_sp
 
     # planted: this rank's block of layer 0's wq swapped with its neighbour's on "model"
     wq = weights["blocks"][0]["attn"]["wq"]
@@ -3902,6 +3948,9 @@ def steps_rank(mesh, payload):
     del weights, bad, k32, p32, kb
     torch.cuda.empty_cache()
 
+    # the train step under sequence parallelism first, then without it (the
+    # first train step of the process also pays its warm-up)
+    sharded_train(mesh, STEPS_ARCH, work, payload["clip"], out, seq_parallel=True)
     sharded_train(mesh, STEPS_ARCH, work, payload["clip"], out)
     return out
 
@@ -3925,11 +3974,13 @@ def steps_weights(mesh, arch, work, out):
     return weights
 
 
-def sharded_train(mesh, arch, work, clip, out):
+def sharded_train(mesh, arch, work, clip, out, seq_parallel=False):
     """Phase 19: ``arch``'s float32 train steps (``STEPS_MODELS``) from its
     saved weights in the training layout, timed, the first counted; the
     losses, and on rank 0 the parameters after step 1 held to the saved
-    single-device update (:func:`steps_params_held`)."""
+    single-device update (:func:`steps_params_held`).  ``seq_parallel``:
+    the steps under sequence parallelism, their results keyed with
+    ``_sp``."""
     import contextlib
 
     import torch
@@ -3945,12 +3996,13 @@ def sharded_train(mesh, arch, work, clip, out):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     _, (b, s, n_steps) = STEPS_MODELS[arch]
-    f32 = steps_cfg("float32", arch)
+    f32 = steps_cfg("float32", arch).replace(seq_parallel=seq_parallel)
+    tag = "_sp" if seq_parallel else ""
     train = steps.build_train_step(f32, mesh, ShapeCell("train", s, b, "train"))
     params = reshard_restore(os.path.join(work, "weights"), STEPS_CKPT, abstract_params(f32), mesh)
     batch = {"tokens": torch.as_tensor(steps_train_batch(arch), device=dev)}
     params, state, batch = steps.place((params, init_adamw(params), batch), train.in_shardings)
-    out["resident"]["train"] = _resident((params, state, batch))
+    out["resident"]["train" + tag] = _resident((params, state, batch))
     losses, step_ms, counts = [], [], StepCounters()
     for step in range(n_steps):
         steps_sync()
@@ -3964,13 +4016,13 @@ def sharded_train(mesh, arch, work, clip, out):
             gathered = ((path, steps_whole(mesh, leaf))
                         for path, leaf in zip(tree_paths(params), tree_leaves(params)))
             if dist.get_rank() == 0:
-                out["train_param_err"] = steps_params_held(gathered, work, dev, clip)
+                out["train_param_err" + tag] = steps_params_held(gathered, work, dev, clip)
             else:
                 for _ in gathered:
                     pass
-    out["collectives"]["train"] = collective_counts(counts.records)
-    out["losses"] = losses
-    out["times"]["train_ms"] = step_ms
+    out["collectives"]["train" + tag] = collective_counts(counts.records)
+    out["losses" + tag] = losses
+    out["times"]["train_ms" + tag] = step_ms
     del params, state, batch
     torch.cuda.empty_cache()
 
@@ -4002,7 +4054,7 @@ def hybrid_rank(mesh, payload):
     (_, _, slots), _ = STEPS_MODELS[STEPS_HYBRID]
     f32, bf16 = steps_cfg("float32", STEPS_HYBRID), steps_cfg("bfloat16", STEPS_HYBRID)
 
-    def serve(cfg, weights, kernel, n_new=STEPS_NEW, counters=None, timed=False):
+    def serve(cfg, weights, kernel, n_new=STEPS_NEW[STEPS_HYBRID], counters=None, timed=False):
         return sharded_serve(mesh, cfg, weights, prompt, picks, slots, kernel, n_new, out,
                              counters, timed)
 
@@ -4133,12 +4185,13 @@ def steps_phase(smi):
         # (c)'s trace, in a subprocess while nothing else runs
         t0 = time.perf_counter()
         script = (f"WORLD, MESH, AXES = {STEPS_WORLD}, {STEPS_MESH!r}, {STEPS_AXES!r}\n"
-                  f"MODELS = {STEPS_MODELS!r}\n" + STEPS_TRACE)
+                  f"MODELS = {STEPS_MODELS!r}\nSP = {STEPS_SP!r}\n" + STEPS_TRACE)
         proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                               cwd=ROOT, timeout=600)
         check(proc.returncode == 0, f"steps: (c) the trace failed: {proc.stderr[-3000:]}")
         traced = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"steps: (c) the three steps of both models traced on a fake world of "
+        print(f"steps: (c) the three steps of both models (and {', '.join(STEPS_SP)}'s prefill "
+              f"and train step under sequence parallelism) traced on a fake world of "
               f"{STEPS_WORLD} at {STEPS_MESH} in {time.perf_counter() - t0:.1f} s", flush=True)
 
         runs = [("b", "gloo")]
@@ -4156,9 +4209,12 @@ def steps_phase(smi):
             for arch, part in ((STEPS_ARCH, label), (STEPS_HYBRID, "e" if label == "b" else label)):
                 got = [o[arch] for o in ranks]
                 steps_held(part, backend, arch, got, refs[arch], traced[arch], smi)
+                if arch in STEPS_SP:
+                    steps_sp_held(part, backend, arch, got, refs[arch], traced[arch], smi)
                 if label == "b":
-                    for k in launches:
-                        launches[k] += got[0]["launches"][k]
+                    for k in launches:      # the bf16 kernel routes, with and without SP
+                        launches[k] += sum(got[0].get(key, {}).get(k, 0)
+                                           for key in ("launches", "launches_sp"))
             print(f"steps: ({label}) the world of {STEPS_WORLD} over {backend} took "
                   f"{world_s:.1f} s, its ranks started in "
                   + ", ".join(f"{o[STEPS_ARCH]['start_s']:.1f}" for o in ranks)
@@ -4168,7 +4224,7 @@ def steps_phase(smi):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     dryrun_part(smi)
-    print(f"steps: phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"steps: phase 19 took {time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
     return launches
 
 
@@ -4179,6 +4235,7 @@ def steps_held(label, backend, arch, ranks, ref, traced, smi):
 
     cfg = steps_cfg("float32", arch)
     (b, prompt, slots), (train_b, train_s, _) = STEPS_MODELS[arch]
+    n_new = STEPS_NEW[arch]
     shape = (b, cfg.vocab_size)
     exact, picks = ref["exact"], ref["picks"]
     got = ranks[0]["logits"]
@@ -4196,15 +4253,15 @@ def steps_held(label, backend, arch, ranks, ref, traced, smi):
           f"float32 model, the single-device plain route {ref['plain_to_f32']:.3e}")
     print(f"steps: ({label}) {arch} on {STEPS_MESH} {STEPS_AXES} over {backend}, "
           f"{len(ranks)} ranks, B={b} prompt={prompt} slots={slots}: float32 kernel route == the "
-          f"single-device plain route, prefill + {STEPS_NEW - 1} decode steps, "
+          f"single-device plain route, prefill + {n_new - 1} decode steps, "
           f"max_row_rel_err={err:.3e} (tol {tol}), greedy tokens agree in {agreed} of "
-          f"{b * STEPS_NEW}, all {decided} decided; float32 plain route (prefill + 1 step) "
+          f"{b * n_new}, all {decided} decided; float32 plain route (prefill + 1 step) "
           f"{perr:.3e}; bf16 kernel route {kb_to_f32:.3e} from the float32 model, the "
           f"single-device bf16 plain route {ref['plain_to_f32']:.3e} (held: <= {BF16_SLACK} x) "
           f"[{smi}]", flush=True)
     per_prefill, per_step = attention_launches(cfg)
     for o in ranks:
-        check(o["launches"] == {"K3": per_prefill, "K4": per_step * (STEPS_NEW - 1)},
+        check(o["launches"] == {"K3": per_prefill, "K4": per_step * (n_new - 1)},
               f"steps: ({label}) {arch} rank {o['rank']} launched {o['launches']} on the bf16 "
               f"kernel route, not {per_prefill} K3 and {per_step} K4 per decode step")
         for fault, e in o["faults"].items():
@@ -4264,8 +4321,91 @@ def steps_held(label, backend, arch, ranks, ref, traced, smi):
           f"sync), bf16 kernel route: prefill " + ", ".join(f"{t['prefill_ms']:.1f}" for t in times)
           + "; decode step p50 " + ", ".join(f"{t['decode_p50_ms']:.1f}" for t in times)
           + ", p99 " + ", ".join(f"{t['decode_p99_ms']:.1f}" for t in times)
-          + f" ({STEPS_NEW - 1} steps); float32 train step " + "; ".join(
+          + f" ({n_new - 1} steps); float32 train step " + "; ".join(
               ", ".join(f"{x:.1f}" for x in t["train_ms"]) for t in times), flush=True)
+
+
+def steps_sp_held(label, backend, arch, ranks, ref, traced, smi):
+    """Phase 19's checks on ``arch``'s steps under sequence parallelism
+    (``seq_parallel``) from one world: the float32 kernel and plain routes'
+    prefill and decode step and the bf16 kernel route's stream held to the
+    single-device routes as :func:`steps_held` holds them, the same K3 and
+    K4 launches on every rank as without it, the train step's loss and
+    parameters, and (c): the resident bytes and the plain route's
+    collectives equal to the trace's."""
+    import torch
+
+    cfg = steps_cfg("float32", arch)
+    (b, _, _), (train_b, train_s, _) = STEPS_MODELS[arch]
+    shape = (b, cfg.vocab_size)
+    exact, picks = ref["exact"], ref["picks"]
+    got = ranks[0]["logits"]
+    tol = LOGIT_TOL["float32"]
+    errs = {}
+    for route in ("k32_sp", "p32_sp"):
+        got_picks = torch.stack([x.argmax(-1) for x in got[route]], 1).numpy()
+        errs[route] = logits_held(got[route], got_picks, exact[:2], picks[:, :2], tol, tol, shape,
+                                  f"steps: ({label}) {arch} seq_parallel float32 "
+                                  f"{route[:3]} route on {STEPS_MESH}")[0]
+    kb_to_f32 = max(float(row_err(x, w).max()) for x, w in zip(got["kb_sp"], exact))
+    check(kb_to_f32 <= BF16_SLACK * ref["plain_to_f32"],
+          f"steps: ({label}) {arch} seq_parallel bf16 kernel route {kb_to_f32:.3e} from the "
+          f"float32 model, the single-device plain route {ref['plain_to_f32']:.3e}")
+    for o in ranks:
+        check(o["launches_sp"] == o["launches"],
+              f"steps: ({label}) {arch} rank {o['rank']} launched {o['launches_sp']} under "
+              f"seq_parallel, {o['launches']} without it")
+        for step, (a, w) in enumerate(zip(o["losses_sp"], ref["losses"], strict=True)):
+            check(abs(a - w) <= STEPS_TRAIN_TOL * abs(w), f"steps: ({label}) {arch} rank "
+                  f"{o['rank']} seq_parallel train step {step + 1} loss {a:.6f}, single device "
+                  f"{w:.6f}")
+        for step, key in (("prefill_sp", "prefill_sp"), ("decode", "decode_sp"),
+                          ("train_sp", "train_sp")):
+            check(o["resident"][key] == traced[step]["argument"],
+                  f"steps: ({label}) {arch} rank {o['rank']} {key}: {o['resident'][key]} "
+                  f"resident bytes, the trace's argument {traced[step]['argument']}")
+        real = {"prefill_sp": o["collectives"]["plain_sp"]["prefill"],
+                "decode": o["collectives"]["plain_sp"]["decode"],
+                "train_sp": o["collectives"]["train_sp"]}
+        for step, kinds in real.items():
+            want = {k: tuple(v) for k, v in traced[step]["collectives"].items()}
+            have = {k: tuple(v) for k, v in kinds.items()}
+            check(have == want, f"steps: ({label}) {arch} rank {o['rank']} seq_parallel {step}: "
+                  f"the plain route's collectives {have}, the trace's {want}")
+    o0 = ranks[0]
+    held, exempt, free_worst, total = o0["train_param_err_sp"]
+
+    def fmt(kinds):
+        return ", ".join(f"{k} {n} x {b / 1e6:.3f} MB" for k, (n, b) in sorted(kinds.items())) \
+            or "none"
+
+    print(f"steps: ({label}) {arch} under seq_parallel on {STEPS_MESH} over {backend}: float32 "
+          f"kernel route == the single-device plain route, prefill + 1 decode step, "
+          f"max_row_rel_err={errs['k32_sp']:.3e}, plain route {errs['p32_sp']:.3e} (tol {tol}); "
+          f"bf16 kernel route {kb_to_f32:.3e} from the float32 model (held: <= {BF16_SLACK} x "
+          f"{ref['plain_to_f32']:.3e}); K3/K4 launches per rank " + ", ".join(
+              f"{o['launches_sp']['K3']}/{o['launches_sp']['K4']}" for o in ranks)
+          + f" == without it; float32 train step, B={train_b} S={train_s}: loss "
+          + ", ".join(f"{x:.6f}" for x in o0["losses_sp"]) + " on every rank (single device "
+          + ", ".join(f"{x:.6f}" for x in ref["losses"]) + f"), every parameter within "
+          f"{held:.3e} of its leaf's largest value (tol {STEPS_TRAIN_TOL}), except {exempt} of "
+          f"{total} elements (worst {free_worst:.3e}, not held) [{smi}]", flush=True)
+    print(f"steps: (c) {arch} under seq_parallel: every rank's resident bytes == the trace's "
+          f"(prefill {traced['prefill_sp']['argument'] / 1e9:.4f} GB, train "
+          f"{traced['train_sp']['argument'] / 1e9:.4f} GB); the plain route's collectives == the "
+          f"trace's: prefill {fmt(traced['prefill_sp']['collectives'])}; train step "
+          f"{fmt(traced['train_sp']['collectives'])} (without it: prefill "
+          f"{fmt(traced['prefill']['collectives'])}; train step "
+          f"{fmt(traced['train']['collectives'])})", flush=True)
+    times = [o["times"] for o in ranks]
+    print(f"steps: ({label}) {arch} {smi}: wall ms by rank (host clock between a barrier and a "
+          f"sync), bf16 kernel route prefill under seq_parallel " + ", ".join(
+              f"{t['prefill_ms_sp']:.1f}" for t in times) + " (without it " + ", ".join(
+              f"{t['prefill_ms']:.1f}" for t in times) + "); decode step p50 after it " + ", ".join(
+              f"{t['decode_p50_ms_sp']:.1f}" for t in times) + "; float32 train step under "
+          "seq_parallel " + "; ".join(", ".join(f"{x:.1f}" for x in t["train_ms_sp"])
+                                      for t in times) + " (without it " + "; ".join(
+              ", ".join(f"{x:.1f}" for x in t["train_ms"]) for t in times) + ")", flush=True)
 
 
 TWINS = ("quickstart", "trace_provisioning", "serve_autoscale", "train_lm")   # phase 20
@@ -5135,6 +5275,8 @@ def main() -> int:
 
     ms, plain, bound, bound_by = measured["A2+record"]
     k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
+    print(f"chip_smoke: the whole run took {time.perf_counter() - T_START:.1f} s [{smi}]",
+          flush=True)
     print(f"device: {smi}")
     print(json.dumps({"kernels": [{
         "name": "provision_scan_grid",

@@ -33,6 +33,15 @@ gather the weight, whichever moves fewer bytes (:func:`mesh_cols`,
 :func:`mesh_rows`), and their states are read and written in their own
 blocks (:func:`state_block`, :func:`store_block`, :func:`read_channels`,
 :func:`write_channels`).
+
+Under sequence parallelism (``seq_parallel``, :func:`sequence_parallel`) the
+residual stream between blocks is split by sequence over ``"model"``, as
+Megatron lays it out: the norms and the residual adds run on each rank's
+own rows; a tensor-parallel region's input is gathered once
+(:func:`gather_sequence`, an all-gather whose backward is a
+reduce-scatter), and its output is reduced onto the sequence (``seq=True``
+of :func:`mesh_matmul` and :func:`mesh_rows`: a reduce-scatter of the
+partial sums, whose backward is an all-gather) instead of reduced whole.
 """
 from __future__ import annotations
 
@@ -41,6 +50,8 @@ import contextvars
 import math
 import sys
 from typing import Iterator
+
+import torch
 
 from .sharding import PartitionSpec, mesh_shape, to_placements
 
@@ -109,7 +120,10 @@ def constrain(x, *spec):
     tensor = sys.modules.get("torch.distributed.tensor")   # no DTensor unless it is loaded
     if tensor is None or not isinstance(x, tensor.DTensor):
         return x
-    return x.redistribute(mesh, to_placements(names, mesh))
+    placements = to_placements(names, mesh)
+    if sequence_parallel() and tuple(x.placements) == tuple(placements):
+        return x        # as local_block: partial gradients pass on to the gather
+    return x.redistribute(mesh, placements)
 
 
 def is_dtensor(x) -> bool:
@@ -152,30 +166,38 @@ def local_block(x, placements, out_placements):
     ``placements``, for a computation whose result is placed as
     ``out_placements``: where ``x`` is whole on a mesh dim that splits the
     result (a shard or a partial sum), each rank's gradient is a part of
-    the whole, so the block's gradient flows back as a partial sum there."""
+    the whole, so the block's gradient flows back as a partial sum there.
+    Under sequence parallelism an ``x`` already laid out so is taken as it
+    is, so that those partial sums flow back unreduced to where a region
+    gathered its sequence, and are reduce-scattered there once."""
     from torch.distributed.tensor import Partial
 
-    x = x.redistribute(x.device_mesh, placements)
+    if not sequence_parallel() or tuple(x.placements) != tuple(placements):
+        x = x.redistribute(x.device_mesh, placements)
     grads = [Partial() if p.is_replicate() and not o.is_replicate() else p
              for p, o in zip(placements, out_placements)]
     return x.to_local(grad_placements=grads)
 
 
-def from_block(local, mesh, placements, shape):
-    """``local``, this rank's block (made contiguous), as a ``DTensor`` of
-    global ``shape`` placed as ``placements`` (no collective)."""
-    import torch
-    from torch.distributed.tensor import DTensor
-
+def _stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
     stride, step = [], 1
     for n in reversed(tuple(shape)):
         stride.append(step)
         step *= n
+    return tuple(reversed(stride))
+
+
+def from_block(local, mesh, placements, shape):
+    """``local``, this rank's block (made contiguous), as a ``DTensor`` of
+    global ``shape`` placed as ``placements`` (no collective)."""
+    from torch.distributed.tensor import DTensor
+
     return DTensor.from_local(local.contiguous(), mesh, placements, run_check=False,
-                              shape=torch.Size(shape), stride=tuple(reversed(stride)))
+                              shape=torch.Size(shape), stride=_stride(shape))
 
 
-def mesh_matmul(x, w, split: str | None):
+def mesh_matmul(x, w, split: str | None, seq: bool = False):
     """``x (..., K) @ w (K, N)`` for ``DTensor`` s, laid out as Megatron
     lays a linear layer: ``x``'s leading (batch) dim over the data axes and
     the rest whole, ``w`` gathered over the data axes (FSDP); ``split``
@@ -184,8 +206,11 @@ def mesh_matmul(x, w, split: str | None):
     ``"model"``, the partial products summed over ``"model"`` (an
     all-reduce); ``None``: ``w`` whole on every rank.  Each rank multiplies
     its blocks; the gradients flow back to the placements ``x`` and ``w``
-    came with."""
-    import torch
+    came with.  ``seq``: the product joins the residual stream, and under
+    sequence parallelism is laid out as it (:func:`onto_sequence`): the
+    partial sums of ``"rows"`` reduce-scattered onto the sequence, and
+    without a split each rank multiplies its own rows of an ``x`` that is
+    split by sequence."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = x.device_mesh
@@ -198,11 +223,14 @@ def mesh_matmul(x, w, split: str | None):
             yp[i] = Shard(x.ndim - 1)
         else:
             xp[i], yp[i] = Shard(x.ndim - 1), Partial()
+    elif seq and sequence_parallel() and by_sequence(x):
+        i = mesh.mesh_dim_names.index("model")
+        xp[i] = yp[i] = Shard(1)
     y = torch.matmul(local_block(x, xp, yp), local_block(w, wp, yp))
     y = from_block(y, mesh, yp, (*x.shape[:-1], w.shape[1]))
-    if split == "rows":
-        y = y.redistribute(mesh, [Replicate() if p.is_partial() else p for p in yp])
-    return y
+    if seq and split != "cols":
+        return onto_sequence(y)
+    return whole(y) if split == "rows" else y
 
 
 def mesh_embed(tokens, table, dtype):
@@ -210,12 +238,12 @@ def mesh_embed(tokens, table, dtype):
     as a vocab-parallel embedding: the table gathered over the data axes
     and split over ``"model"`` by rows where they divide it, each rank
     looking up the tokens of its batch rows that fall in its rows, the
-    partial sums (one term each) reduced over ``"model"``.  Where the rows
+    partial sums (one term each) reduced over ``"model"`` (onto the
+    sequence under sequence parallelism).  Where the rows
     do not divide it and the table is stored with its columns split there,
     each rank looks its tokens up in its own columns and the rows are
     gathered, when they are fewer than the table's (a decode step's);
     else the table is gathered whole."""
-    import torch
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = table.device_mesh
@@ -238,7 +266,7 @@ def mesh_embed(tokens, table, dtype):
     idx = (local_block(tokens, xp, yp) - first).long()
     valid = (idx >= 0) & (idx < local.shape[0])
     rows = (local[idx.clamp(0, local.shape[0] - 1)] * valid[..., None]).to(dtype)
-    return whole(from_block(rows, mesh, yp, (*tokens.shape, table.shape[1])))
+    return onto_sequence(from_block(rows, mesh, yp, (*tokens.shape, table.shape[1])))
 
 
 def _model_dim(mesh) -> int | None:
@@ -253,8 +281,6 @@ def channels(shape, axis=None) -> list:
     tensor per rank in coordinate order (``torch.chunk``'s pieces, as
     DTensor cuts a ``Shard``), or one tensor of every index where
     ``axis`` is None or ``"model"`` splits nothing."""
-    import torch
-
     tp = model_axis_size()
     if axis is None or tp == 1:
         return [torch.arange(math.prod(shape))]
@@ -271,8 +297,6 @@ def _mine(mesh, parts):
 def _same(parts, others) -> bool:
     """Whether two lists of per-rank channels are the same, on every rank
     (so that every rank takes the same branch)."""
-    import torch
-
     return len(parts) == len(others) and all(
         a.shape == b.shape and torch.equal(a, b) for a, b in zip(parts, others))
 
@@ -280,8 +304,6 @@ def _same(parts, others) -> bool:
 def _stored_parts(shape, dim: int, tp: int) -> list:
     """Each rank's flat indices of a tensor of ``shape`` whose dim ``dim``
     is split over ``"model"`` (of ``tp`` ranks)."""
-    import torch
-
     idx = torch.arange(math.prod(shape)).reshape(shape)
     return [c.reshape(-1) for c in idx.chunk(tp, dim)]
 
@@ -318,7 +340,6 @@ def stored_product(x, w):
     another dim), then whole over ``"model"`` (gathered, or the partial
     sums reduced); ``x``'s batch over the data axes, ``w`` gathered over
     them.  Returns the ``DTensor`` ``(..., *w.shape[1:])``."""
-    import torch
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = x.device_mesh
@@ -357,7 +378,6 @@ def mesh_cols(x, w, parts=None):
     columns; else ``w`` gathered whole (K x N elements), or the product
     taken in ``w``'s own layout and gathered (rows x N,
     :func:`stored_product`), whichever is fewer."""
-    import torch
     from torch.distributed.tensor import Replicate
 
     mesh = x.device_mesh
@@ -387,7 +407,6 @@ def gather_channels(y, parts, like):
     rows of ``like`` (a ``DTensor`` ``(..., ·)``), gathered over
     ``"model"`` into their order: a ``DTensor`` ``(*like.shape[:-1],
     K)`` whole over ``"model"``."""
-    import torch
     from torch.distributed.tensor import Shard
 
     mesh = like.device_mesh
@@ -400,7 +419,7 @@ def gather_channels(y, parts, like):
     return from_block(g.index_select(-1, order), mesh, xp, shape)
 
 
-def mesh_rows(y, parts, w, like):
+def mesh_rows(y, parts, w, like, seq: bool = False):
     """The sum over ``"model"`` of ``y @ w[idx]``: ``y (..., n)`` a local
     tensor, this rank's channels ``parts`` (:func:`channels` of ``w``'s
     first dim, K) of an input whose batch rows are those of ``like`` (a
@@ -411,8 +430,8 @@ def mesh_rows(y, parts, w, like):
     partition K, each rank multiplies its own rows of ``w`` (its stored
     block where that is exactly them, else ``w`` gathered whole, or ``y``'s
     channels gathered where that moves fewer bytes) and the partial sums
-    are reduced."""
-    import torch
+    are reduced.  ``seq``: the product joins the residual stream, as in
+    :func:`mesh_matmul`."""
     from torch.distributed.tensor import Partial, Replicate
 
     mesh = like.device_mesh
@@ -424,18 +443,19 @@ def mesh_rows(y, parts, w, like):
     by_rows = s is not None and s.is_shard(0)
     if len(parts) == 1:
         return mesh_matmul(from_block(y, mesh, xp, (*like.shape[:-1], K)), w,
-                           "rows" if by_rows and rows < K else None)
+                           "rows" if by_rows and rows < K else None, seq)
     yp = list(xp)
     yp[i] = Partial()
     shape = (*like.shape[:-1], N)
+    reduce = onto_sequence if seq else whole
     if by_rows and _same(parts, _stored_parts((K,), 0, mesh.size(i))):
         wp = [Replicate()] * mesh.ndim
         wp[i] = s
-        return whole(from_block(torch.matmul(y, local_block(w, wp, yp)), mesh, yp, shape))
+        return reduce(from_block(torch.matmul(y, local_block(w, wp, yp)), mesh, yp, shape))
     if N <= rows:
         wl = _take(local_block(w, [Replicate()] * mesh.ndim, yp), parts, mesh, 0)
-        return whole(from_block(torch.matmul(y, wl), mesh, yp, shape))
-    return mesh_matmul(gather_channels(y, parts, like), w, "rows" if by_rows else None)
+        return reduce(from_block(torch.matmul(y, wl), mesh, yp, shape))
+    return mesh_matmul(gather_channels(y, parts, like), w, "rows" if by_rows else None, seq)
 
 
 def weight_part(w, parts, use):
@@ -593,6 +613,151 @@ def constrain_tokens_3d(x):
     if ctx is not None and len(ctx) > 2 and ctx[2]:
         return constrain(x, "dp", "model", None)
     return constrain(x, "dp", None, None)
+
+
+def sequence_parallel() -> bool:
+    """Whether the installed context holds the residual stream split by
+    sequence over a ``"model"`` axis that splits anything (``seq_parallel``
+    set, not ``fsdp_only``)."""
+    ctx = _get()
+    return ctx is not None and ctx[2] and model_axis_size() > 1
+
+
+def by_sequence(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (B, S, ...) split by sequence over
+    ``"model"``."""
+    if not is_dtensor(x) or x.ndim < 2 or "model" not in x.device_mesh.mesh_dim_names:
+        return False
+    return x.placements[x.device_mesh.mesh_dim_names.index("model")].is_shard(1)
+
+
+def gather_sequence(x):
+    """Into a tensor-parallel region: ``x`` (B, S, ...) whole over
+    ``"model"``, its sequence gathered once for every product of the region
+    (an all-gather; in the backward pass the region's partial gradients
+    reduce-scattered back onto the sequence).  ``x`` itself where it is not
+    split by sequence."""
+    if not by_sequence(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    i = x.device_mesh.mesh_dim_names.index("model")
+    return x.redistribute(x.device_mesh, [Replicate() if j == i else p
+                                          for j, p in enumerate(x.placements)])
+
+
+def _as_partial(grad):
+    """A ``DTensor`` gradient with its ``"model"`` dim a partial sum: kept
+    where it is one, else the whole on the first ``"model"`` rank and zeros
+    on the others (the same sum, exactly)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = grad.device_mesh
+    i = mesh.mesh_dim_names.index("model")
+    if not grad.placements[i].is_replicate():
+        return grad
+    local = grad.to_local()
+    if mesh.get_coordinate()[i]:
+        local = torch.zeros_like(local)
+    placements = list(grad.placements)
+    placements[i] = Partial()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=grad.shape,
+                              stride=grad.stride())
+
+
+class _PartialGrad(torch.autograd.Function):
+    """The identity; its gradient goes on as a partial sum over
+    ``"model"``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _as_partial(grad)
+
+
+class _FromBlockPartial(torch.autograd.Function):
+    """``DTensor.from_local`` whose backward keeps (or makes) the gradient a
+    partial sum over ``"model"``, its other mesh dims laid out as given."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, shape):
+        from torch.distributed.tensor import DTensor
+
+        ctx.spec = (mesh, tuple(placements))
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=torch.Size(shape), stride=_stride(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import Partial
+
+        mesh, placements = ctx.spec
+        i = mesh.mesh_dim_names.index("model")
+        grad = _as_partial(grad)
+        target = [Partial() if j == i else p for j, p in enumerate(placements)]
+        if tuple(grad.placements) != tuple(target):
+            grad = grad.redistribute(mesh, target)
+        return grad.to_local(), None, None, None
+
+
+def partial_grad(x):
+    """``x``, whose gradient, where it comes back whole over ``"model"``,
+    goes on as a partial sum there (the whole on the first ``"model"`` rank,
+    zeros on the others: the same sum, exactly).  Under sequence
+    parallelism a region's product that every rank computes whole (k and v
+    where their heads do not divide ``"model"``) reads its gathered input
+    through it, so that its gradient joins the region's other partial sums
+    for the one reduce-scatter, whatever DTensor would do with a whole
+    gradient and a partial one.  ``x`` itself elsewhere."""
+    if not sequence_parallel() or not is_dtensor(x):
+        return x
+    return _PartialGrad.apply(x)
+
+
+def from_block_partial(local, mesh, placements, shape):
+    """:func:`from_block` for a block that each rank computed whole over
+    ``"model"`` and whose users there each use a part: its gradient comes
+    back as a partial sum over ``"model"`` (unreduced; a whole one given to
+    the first rank), for a :func:`local_block` that declared its gradient
+    partial there.  Under sequence parallelism the expanded k and v of the
+    sequence layout are made so, so that their gradients reach the gather of
+    k and v as partial sums, reduce-scattered there."""
+    return _FromBlockPartial.apply(local.contiguous(), mesh, placements, tuple(shape))
+
+
+def onto_sequence(y):
+    """Out of a tensor-parallel region: the ``DTensor`` ``y`` (B, S, ...)
+    laid out as the residual stream.  Under sequence parallelism, where S
+    splits over ``"model"``, its sequence over ``"model"`` (partial sums
+    reduce-scattered, a whole product cut to each rank's rows, with no
+    collective) and its other partial sums reduced; else every partial sum
+    reduced (:func:`whole`)."""
+    tp = model_axis_size()
+    if not sequence_parallel() or y.ndim < 3 or y.shape[1] % tp:
+        return whole(y) if any(p.is_partial() for p in y.placements) else y
+    from torch.distributed.tensor import Replicate, Shard
+
+    i = _model_dim(y.device_mesh)
+    placements = [Shard(1) if j == i else Replicate() if p.is_partial() else p
+                  for j, p in enumerate(y.placements)]
+    return y if tuple(placements) == tuple(y.placements) else y.redistribute(y.device_mesh,
+                                                                             placements)
+
+
+def last_position(x):
+    """``x[:, -1:]`` of ``x`` (B, S, ...).  Where ``x`` is split by sequence
+    over ``"model"`` (in even blocks, as ``constrain`` splits it), each rank's
+    last row is gathered ((B, ranks, ...), one row a rank) and the last
+    kept: the sequence itself is never gathered."""
+    if not by_sequence(x):
+        return x[:, -1:]
+    mesh = x.device_mesh
+    rows = x.to_local()[:, -1:]
+    n = mesh.size(mesh.mesh_dim_names.index("model"))
+    return from_block(rows, mesh, x.placements, (x.shape[0], n, *x.shape[2:]))[:, -1:]
 
 
 def constrain_attention_decode(q, k, v):

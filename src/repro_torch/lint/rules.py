@@ -55,7 +55,8 @@ class Rule:
 #: The reviewed table of the per-step entry functions, by module below
 #: ``repro_torch/``: what one provisioning call, one stepper chunk, one
 #: serving prefill or decode step and one step of each model family runs
-#: (``chip_smoke.py`` phases 4, 12, 13 and 15).  A region is such a
+#: (``chip_smoke.py`` phases 4, 12, 13 and 15), and the sequence-parallel
+#: boundaries of a sharded step (phase 19).  A region is such a
 #: function plus the functions of its module that it calls, transitively.
 #: ``Class.method`` names a method (``self.m(...)`` calls are followed).
 LAUNCH_PATH: dict[str, tuple[str, ...]] = {
@@ -78,6 +79,8 @@ LAUNCH_PATH: dict[str, tuple[str, ...]] = {
     "models/ssm.py": ("ssm_prefill", "ssm_decode"),
     "models/moe.py": ("moe_layer",),
     "models/xlstm.py": ("mlstm_train", "mlstm_decode", "slstm_train", "slstm_decode"),
+    # a sharded step's sequence-parallel boundaries (phase 19)
+    "distributed/ctx.py": ("gather_sequence", "onto_sequence", "last_position"),
 }
 
 #: Parameter names that carry host values on the launch path (configs,

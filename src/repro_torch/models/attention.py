@@ -105,12 +105,16 @@ from ..distributed.ctx import (
     constrain_attention_decode,
     fill_rows,
     from_block,
+    from_block_partial,
+    gather_sequence,
     is_dtensor,
     local_block,
     local_offset,
     mesh_matmul,
     model_axis_size,
     model_split,
+    partial_grad,
+    sequence_parallel,
     store_rows,
 )
 from ..kernels import ops
@@ -155,25 +159,32 @@ def _expand_kv(x, n_heads: int):
     where ``"model"`` leaves it whole and splits the H heads, each rank keeps
     the heads it will attend with (the layout ``constrain_attention`` pins),
     so that no gather is needed, nor one of the gradient in the backward
-    pass."""
+    pass.  Under sequence parallelism, where the H heads stay whole (the
+    sequence layout: each rank attends with its own query rows), the
+    expanded copies' gradient goes back as a partial sum over ``"model"``,
+    to be reduce-scattered where k and v were gathered."""
     kvh = x.shape[2]
     if kvh == n_heads:
         return x
     if is_dtensor(x):
-        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import Partial, Replicate, Shard
 
         mesh = x.device_mesh
         whole = [Replicate() if p.is_shard(2) else p for p in x.placements]
-        out = list(whole)
-        if model_split(n_heads):
+        out, grads = list(whole), list(whole)
+        partial = False
+        if "model" in mesh.mesh_dim_names and model_axis_size() > 1:
             i = mesh.mesh_dim_names.index("model")
-            if whole[i].is_replicate():
-                out[i] = Shard(2)
-        local = torch.repeat_interleave(local_block(x, whole, out), n_heads // kvh, dim=2)
+            if whole[i].is_replicate() and model_split(n_heads):
+                out[i] = grads[i] = Shard(2)
+            elif whole[i].is_replicate() and sequence_parallel():
+                grads[i], partial = Partial(), True
+        local = torch.repeat_interleave(local_block(x, whole, grads), n_heads // kvh, dim=2)
         for i, p in enumerate(out):
             if p.is_shard(2):
                 local = local.chunk(mesh.size(i), dim=2)[mesh.get_coordinate()[i]]
-        return from_block(local, mesh, out, (*x.shape[:2], n_heads, x.shape[3]))
+        shape = (*x.shape[:2], n_heads, x.shape[3])
+        return (from_block_partial if partial else from_block)(local, mesh, out, shape)
     return torch.repeat_interleave(x, n_heads // kvh, dim=2)
 
 
@@ -188,29 +199,53 @@ def _causal_mask(q_len: int, kv_len: int, window: int = 0, q_offset: int = 0,
     return mask
 
 
-def _project(x, w, cd):
+def _project(x, w, cd, seq: bool = False):
     """``einsum("bsd,dhk->bshk")`` as one matrix product; on ``DTensor`` s,
     with whole heads over ``"model"`` where they divide it
-    (:func:`~repro_torch.distributed.ctx.mesh_matmul`)."""
+    (:func:`~repro_torch.distributed.ctx.mesh_matmul`; ``seq``: without that
+    split, on each rank's own rows of an ``x`` split by sequence)."""
     d, h, hd = w.shape
     w = w.to(cd).reshape(d, h * hd)
     if is_dtensor(x):
-        return mesh_matmul(x, w, "cols" if model_split(h) else None).unflatten(-1, (h, hd))
+        split = "cols" if model_split(h) else None
+        return mesh_matmul(x, w, split, seq).unflatten(-1, (h, hd))
     return torch.matmul(x, w).unflatten(-1, (h, hd))
 
 
 def _out(o, w, cd):
     """``einsum("bshk,hkd->bsd")`` as one matrix product; on ``DTensor`` s,
-    over each rank's heads, the partial sums reduced over ``"model"``."""
+    over each rank's heads, the partial sums reduced over ``"model"`` (onto
+    the sequence under sequence parallelism)."""
     h, hd, d = w.shape
     w = w.to(cd).reshape(h * hd, d)
     if is_dtensor(o):
-        return mesh_matmul(o.flatten(-2), w, "rows" if model_split(h) else None)
+        return mesh_matmul(o.flatten(-2), w, "rows" if model_split(h) else None, seq=True)
     return torch.matmul(o.flatten(-2), w)
 
 
-def _qkv(x, p, cd):
-    return _project(x, p["wq"], cd), _project(x, p["wk"], cd), _project(x, p["wv"], cd)
+def _qkv(x, p, cfg: ModelConfig, positions=None, memory=None):
+    """q of ``x``, k and v of ``memory`` (``x`` itself by default), in the
+    compute dtype, q and k rotated at ``positions`` where they are given.
+    Under sequence parallelism, where ``x`` is split by sequence: in the
+    heads layout (the query heads divide ``"model"``) the three products
+    read ``x`` (and ``memory``) gathered once; in the sequence layout q is
+    projected on each rank's own rows with no gather, and k and v on their
+    rows, then gathered after the rotation (so that their gradients come
+    back as partial sums, reduce-scattered)."""
+    cd = cfg.compute_dtype
+    heads = model_split(p["wq"].shape[1])
+    if heads:
+        x = gather_sequence(x)
+    src = x if memory is None else gather_sequence(memory) if heads else memory
+    if heads and not model_split(p["wk"].shape[1]):
+        src = partial_grad(src)         # k and v whole on every rank
+
+    q, k, v = (_project(t, p[w], cd, seq=not heads)
+               for t, w in ((x, "wq"), (src, "wk"), (src, "wv")))
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, gather_sequence(k), gather_sequence(v)
 
 
 def _kernel_route(x: torch.Tensor, kernel: bool) -> bool:
@@ -386,9 +421,7 @@ def attention_train(x, p, cfg: ModelConfig, positions, window: int = 0,
     ``window`` (0 = none), or ``bidirectional`` (the encoder's: every
     position over every position, never banded)."""
     cd = cfg.compute_dtype
-    q, k, v = _qkv(x, p, cd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(x, p, cfg, positions)
     att = (_full_attention(q, k, v, cfg, kernel) if bidirectional
            else _causal_attention(q, k, v, cfg, window, kernel))
     return _out(att, p["wo"], cd)
@@ -398,8 +431,7 @@ def cross_attention(x, memory, p, cfg: ModelConfig, kernel: bool = True):
     """x (B, S, D) attending over ``memory`` (B, S_src, D): q from x, k and
     v from the memory, no rope and no mask."""
     cd = cfg.compute_dtype
-    q = _project(x, p["wq"], cd)
-    k, v = _project(memory, p["wk"], cd), _project(memory, p["wv"], cd)
+    q, k, v = _qkv(x, p, cfg, memory=memory)
     return _out(_full_attention(q, k, v, cfg, kernel), p["wo"], cd)
 
 
@@ -428,9 +460,7 @@ def prefill_attention(x, p, cfg: ModelConfig, positions, cache: KVCache, window:
     cd = cfg.compute_dtype
     s = x.shape[1]
     cache_len = cache.k.shape[1]
-    q, k, v = _qkv(x, p, cd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(x, p, cfg, positions)
     if cache_len < s:
         store_rows(cache.k, 1, 0, k[:, s - cache_len:])
         store_rows(cache.v, 1, 0, v[:, s - cache_len:])
@@ -501,9 +531,7 @@ def decode_attention(x, p, cfg: ModelConfig, cache: KVCache, cur_len: int, windo
     cache_len = cache.k.shape[1]
     slot = cur_len % cache_len
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(x, p, cd)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _qkv(x, p, cfg, pos)
     store_rows(cache.k, 1, slot, k)
     store_rows(cache.v, 1, slot, v)
     fill_rows(cache.pos, 0, slot, slot + 1, cur_len)

@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.ctx import constrain_tokens_3d
+from ..distributed.ctx import constrain_tokens_3d, gather_sequence, last_position
 from .attention import (
     KVCache,
     _decode_kernel,
@@ -153,7 +153,8 @@ def encdec_loss(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
     h = decode_train(params, cfg, tokens, memory, kernel=kernel)
     B, S = tokens.shape
     n_pred = S - 1
-    loss = _chunk_ce(h[:, :n_pred], tokens[:, 1:], params["embed"], 0.0) / (B * n_pred)
+    loss = _chunk_ce(gather_sequence(h)[:, :n_pred], tokens[:, 1:], params["embed"],
+                     0.0) / (B * n_pred)
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
 
 
@@ -206,7 +207,7 @@ def encdec_prefill(params, cfg: ModelConfig, batch: dict, cache: dict, kernel: b
         x = x + mlp(hn, p["mlp"], cfg.act, cd)
     cache["xk"], cache["xv"] = torch.stack(xks), torch.stack(xvs)
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    return unembed(h[:, -1:, :], params["embed"])[:, 0, :], cache
+    return unembed(last_position(h), params["embed"])[:, 0, :], cache
 
 
 def encdec_decode_step(params, cfg: ModelConfig, token: torch.Tensor, cur_len, cache: dict,

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ..distributed.ctx import (
     from_block,
+    gather_sequence,
     is_dtensor,
     local_block,
     local_offset,
@@ -137,15 +138,20 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, p: dict, act: str, compute_dtype) -> torch.Tensor:
     """On ``DTensor`` s a Megatron MLP: the hidden features over
-    ``"model"`` where they divide it, the output's partial sums reduced."""
+    ``"model"`` where they divide it, the output's partial sums reduced
+    (under sequence parallelism: ``x`` gathered once for both products, the
+    output reduce-scattered onto the sequence; without a split, every
+    product on each rank's own rows)."""
     wi = p["wi"].to(compute_dtype)
     wg = p["wg"].to(compute_dtype)
     wo = p["wo"].to(compute_dtype)
     if is_dtensor(x):
         split = model_split(wi.shape[1])
-        h = mesh_matmul(x, wi, "cols" if split else None)
-        g = activation(mesh_matmul(x, wg, "cols" if split else None), act)
-        return mesh_matmul(h * g, wo, "rows" if split else None)
+        if split:
+            x = gather_sequence(x)
+        h = mesh_matmul(x, wi, "cols" if split else None, seq=True)
+        g = activation(mesh_matmul(x, wg, "cols" if split else None, seq=True), act)
+        return mesh_matmul(h * g, wo, "rows" if split else None, seq=True)
     h = torch.matmul(x, wi)
     g = activation(torch.matmul(x, wg), act)
     return torch.matmul(h * g, wo)

@@ -16,7 +16,15 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.ctx import constrain, from_block, is_dtensor, layout, local_block, whole
+from ..distributed.ctx import (
+    constrain,
+    from_block,
+    is_dtensor,
+    layout,
+    local_block,
+    onto_sequence,
+    whole,
+)
 from .layers import activation, init_dense
 
 
@@ -126,7 +134,10 @@ def _mesh_moe(x, p: dict, cfg: ModelConfig):
     with the experts over ``"model"`` (the reference's constraint), each
     rank runs its experts' SwiGLU on its blocks, and the outputs are
     gathered over ``"model"`` to be combined; the aux loss's means reduce
-    over the data axes."""
+    over the data axes.  Under sequence parallelism the input's sequence is
+    gathered (a sequence is routed whole) and the combined output is cut to
+    each rank's own rows of the residual stream (no collective: the
+    experts' outputs were gathered, not summed)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     cd, mesh = cfg.compute_dtype, x.device_mesh
@@ -154,4 +165,5 @@ def _mesh_moe(x, p: dict, cfg: ModelConfig):
     out = torch.einsum("becf,efd->becd", h * activation(g, cfg.act), wo)
     out = from_block(out, mesh, ep, buf.shape)
     out = local_block(out, tuple(Replicate() if q.is_shard(1) else q for q in ep), xp)
-    return from_block(_combine(out, dest, gate_vals, keep, cfg), mesh, xp, x.shape), aux
+    return onto_sequence(from_block(_combine(out, dest, gate_vals, keep, cfg), mesh, xp,
+                                    x.shape)), aux

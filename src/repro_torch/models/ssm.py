@@ -195,13 +195,15 @@ def _ssm_mesh(x, p, cfg: ModelConfig, state: SSMState | None = None, step: bool 
     full-sequence SSM (``step`` False; with ``state``, from ``state.h`` and a
     conv of zeros, as prefill) or the decode step (``step``: x (B, 1, D)),
     the state written in place.  Returns the output (B, S, D), whole over
-    ``"model"``."""
+    ``"model"`` (under sequence parallelism, its sequence gathered at entry
+    and the output reduce-scattered onto it)."""
     from torch.distributed.tensor import Shard
 
     from ..distributed.ctx import (
         block_layout,
         channels,
         gather_channels,
+        gather_sequence,
         local_rows,
         mesh_cols,
         mesh_rows,
@@ -217,6 +219,7 @@ def _ssm_mesh(x, p, cfg: ModelConfig, state: SSMState | None = None, step: bool 
     cd = cfg.compute_dtype
     di, nh = ssm_dims(cfg)
     hd, W = cfg.head_dim, cfg.ssm_conv_width
+    x = gather_sequence(x)          # the recurrence reads the whole sequence
     B, S, D = x.shape
     mesh = x.device_mesh
     tp = model_axis_size()
@@ -260,7 +263,7 @@ def _ssm_mesh(x, p, cfg: ModelConfig, state: SSMState | None = None, step: bool 
     d_skip = weight_part(p["d_skip"], heads, yp).float()
     y = y + v.float() * d_skip[None, None, :, None]
     y = y.reshape(*y.shape[:2], -1).to(cd) * F.silu(z)
-    out = mesh_rows(y, rec, p["out_proj"].to(cd), x)
+    out = mesh_rows(y, rec, p["out_proj"].to(cd), x, seq=True)
     if state is not None:
         store_block(state.h, h_last, h_layout)
         write_channels(state.conv, conv.float(), conv_ch)

@@ -31,7 +31,13 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.ctx import constrain_tokens_3d, is_dtensor, whole
+from ..distributed.ctx import (
+    constrain_tokens_3d,
+    gather_sequence,
+    is_dtensor,
+    last_position,
+    whole,
+)
 from .blocks import (
     init_layer,
     init_layer_cache,
@@ -144,8 +150,10 @@ def lm_loss(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
     S_total = x.shape[1]
     h, aux = lm_backbone(params, cfg, x, _positions(B, S_total, x.device), kernel=kernel)
 
-    # predictions for text tokens only: positions offset..offset+S_text-1
-    h_text = h[:, S_total - S_text:, :]
+    # the sequence gathered once for every chunk's vocab-split product
+    # (sequence parallelism); predictions for text tokens only: positions
+    # offset..offset+S_text-1
+    h_text = gather_sequence(h)[:, S_total - S_text:, :]
     table = _unembed_table(params, cfg)
     if is_dtensor(table):       # laid out for the products once, not once per chunk
         table = unembed_layout(table)
@@ -202,7 +210,7 @@ def lm_prefill(params, cfg: ModelConfig, batch: dict, cache: dict, kernel: bool 
     for i, (p, flag) in enumerate(zip(params["blocks"], layer_flags(cfg))):
         x, _ = layer_prefill(p, cfg, x, positions, _layer_cache(cache, i), flag, kernel=kernel)
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = unembed(h[:, -1:, :], _unembed_table(params, cfg), cfg.logit_softcap)
+    logits = unembed(last_position(h), _unembed_table(params, cfg), cfg.logit_softcap)
     return logits[:, 0, :], cache
 
 

@@ -132,12 +132,14 @@ def _mlstm_mesh(x, p, cfg: ModelConfig, state: MLSTMState | None = None, step: b
     """The mLSTM on ``DTensor`` s, as the module's docstring sets out: the
     full sequence (``step`` False; with ``state``, from it) or one decode
     step; the state written in place.  Returns (B, S, D), whole over
-    ``"model"``."""
+    ``"model"`` (under sequence parallelism, its sequence gathered at entry
+    and the output reduce-scattered onto it)."""
     from torch.distributed.tensor import Shard
 
     from ..distributed.ctx import (
         block_layout,
         channels,
+        gather_sequence,
         mesh_cols,
         mesh_rows,
         mine,
@@ -149,6 +151,7 @@ def _mlstm_mesh(x, p, cfg: ModelConfig, state: MLSTMState | None = None, step: b
 
     cd = cfg.compute_dtype
     di, nh, hd = xlstm_dims(cfg)
+    x = gather_sequence(x)          # the recurrence reads the whole sequence
     mesh = x.device_mesh
     axis = 0 if nh % model_axis_size() == 0 else None
     rec = channels((nh, hd), axis)                 # this rank's heads' channels
@@ -175,7 +178,7 @@ def _mlstm_mesh(x, p, cfg: ModelConfig, state: MLSTMState | None = None, step: b
     if state is not None:
         store_block(state.h, h_last, h_layout)
     y = _mlstm_read(y_aug).flatten(-2).to(cd) * F.silu(z)
-    return mesh_rows(y, rec, p["out_proj"].to(cd), x)
+    return mesh_rows(y, rec, p["out_proj"].to(cd), x, seq=True)
 
 
 def mlstm_train(x, p, cfg: ModelConfig, state: MLSTMState | None = None):
@@ -262,13 +265,16 @@ def _slstm_mesh(x, p, cfg: ModelConfig, state: SLSTMState | None = None):
     """The sLSTM on ``DTensor`` s, as the module's docstring sets out: the
     loop over x (B, S, D) on whole heads of each rank's batch rows (one
     position: a decode step); with ``state``, from it, its final value
-    written in place.  Returns (B, S, D), whole over ``"model"``."""
+    written in place.  Returns (B, S, D), whole over ``"model"`` (under
+    sequence parallelism, its sequence gathered at entry and the output
+    reduce-scattered onto it)."""
     from torch.distributed.tensor import Shard
 
     from ..distributed.ctx import (
         block_layout,
         channels,
         from_block,
+        gather_sequence,
         local_rows,
         mesh_cols,
         mesh_rows,
@@ -281,6 +287,7 @@ def _slstm_mesh(x, p, cfg: ModelConfig, state: SLSTMState | None = None):
     cd = cfg.compute_dtype
     di, nh, hd = xlstm_dims(cfg)
     B, S, _ = x.shape
+    x = gather_sequence(x)          # the loop runs over the whole sequence
     mesh = x.device_mesh
     # a step runs on whole heads, so that r_in may stay in its column blocks
     axis = 0 if S > 1 and nh % model_axis_size() == 0 else None
@@ -315,7 +322,7 @@ def _slstm_mesh(x, p, cfg: ModelConfig, state: SLSTMState | None = None):
         for dst, src in zip(state, ys[-1]):
             store_block(dst, src, st_layout)
     y = torch.stack([s.y for s in ys], dim=1).expand(-1, S, -1, -1).flatten(-2).to(cd)
-    return mesh_rows(y, channels((nh, hd), axis), p["out_proj"].to(cd), x)
+    return mesh_rows(y, channels((nh, hd), axis), p["out_proj"].to(cd), x, seq=True)
 
 
 def _recurrent_product(y, r_in):

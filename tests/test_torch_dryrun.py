@@ -22,6 +22,17 @@ meshes, exactly; ``analyse`` on one synthetic report to the reference's
 terms times the ratio of the two packages' constants (rtol 1e-12); and
 ``parse_override`` to the reference's on every value kind.
 
+The same subprocess traces the reduced llama3.2-1b's train and prefill
+steps (B 4, S 32, ``remat="none"``) on a fake world of ``("data"=1,
+"model"=4)`` with and without ``seq_parallel``: under it no all-reduce has
+the residual stream's (B_local, S, D) shape; per layer the forward pass
+gathers the stream twice and reduce-scatters it twice onto (B_local, S/4,
+D) (the embedding once more, the loss's gather once in a train step), and
+the train step's backward pass mirrors every one; the result bytes are at
+most 1.10 x, the temp bytes at most those of the step without it; without
+it the collectives and temp bytes are those of the tree before sequence
+parallelism was laid out (:data:`NO_SP`).
+
 The hybrid and xLSTM families trace in a second subprocess
 (:data:`HYBRID_TRACES`): the dry-run CLI for hymba-1.5b's and xlstm-1.3b's
 decode_32k and long_500k on 16x16 (exit 0, reports under
@@ -69,10 +80,10 @@ BYTES_KEYS = {"argument", "output", "temp", "generated_code"}
 ROOFLINE_KEYS = {"compute_s", "memory_s_hlo_upper", "collective_s"}
 
 TRACES = """
-import json, runpy, sys
+import json, math, runpy, sys
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.configs import SHAPES, ShapeCell, get_config
-from repro_torch.launch.dryrun import fake_world, trace_cell, with_depth
+from repro_torch.launch.dryrun import collective_counts, fake_world, trace_cell, with_depth
 from repro_torch.launch.mesh import make_production_mesh
 
 def as_main(module, argv):
@@ -103,6 +114,17 @@ with fake_world(4):
 with fake_world(1):
     mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
     out["one_rank"] = trace_cell(cfg, shape, mesh)["flops"]
+cfg = get_config("llama3.2-1b", reduced=True).replace(remat="none")
+out["sp"] = {}
+with fake_world(4):
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    for sp in (False, True):
+        for kind in ("train", "prefill"):
+            got = trace_cell(cfg.replace(seq_parallel=sp), ShapeCell("sp", SP_S, SP_B, kind), mesh)
+            out["sp"][f"{kind}|{sp}"] = {
+                "temp": got["temp"], "coll": collective_counts(got["records"]),
+                "records": [[k, math.prod(res[0][0])] for op, res in got["records"]
+                            for k in collective_counts([(op, res)])]}
 print(json.dumps(out))
 """
 
@@ -149,6 +171,16 @@ print(json.dumps(out))
 """
 
 
+# the sequence-parallel law's steps: the reduced llama3.2-1b (2 layers, D 64) at
+# B 4, S 32 on ("data"=1, "model"=4)
+SP_B, SP_S, SP_TP = 4, 32, 4
+# the collectives (kind: count, result bytes) and temp bytes of those steps
+# without seq_parallel, as the tree traced them before sequence parallelism
+# was laid out: a step without it must not move
+NO_SP = {"train": ({"all-reduce": [20, 246228.0]}, 1196412),
+         "prefill": ({"all-reduce": [5, 81920.0], "all-gather": [1, 8192.0]}, 204928)}
+
+
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     """The subprocess's results and the directory it ran in (its reports
@@ -156,7 +188,8 @@ def traced(tmp_path_factory):
     cwd = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO_ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", TRACES], capture_output=True, text=True,
+    script = f"SP_B, SP_S = {SP_B}, {SP_S}\n" + TRACES
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           env=env, cwd=cwd, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-5000:]
     return json.loads(proc.stdout.strip().splitlines()[-1]), cwd / "reports" / "dryrun", \
@@ -304,6 +337,37 @@ def test_depth_extrapolation_equals_the_full_depth_count(traced):
 def test_flops_per_rank_are_the_ranks_share(traced):
     out = traced[0]
     assert out["one_rank"] > 0 and 4 * out["per_rank_of_4"] == out["one_rank"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_seq_parallel_collective_law(traced, kind):
+    """Under seq_parallel the residual stream's all-reduces become a gather
+    into each tensor-parallel region and a reduce-scatter out of it."""
+    sp, plain = traced[0]["sp"][f"{kind}|True"], traced[0]["sp"][f"{kind}|False"]
+    cfg = get_config("llama3.2-1b", reduced=True)
+    L, stream = cfg.n_layers, SP_B * SP_S * cfg.d_model
+
+    def count(k, numel):
+        return sum(1 for r in sp["records"] if r == [k, numel])
+
+    assert count("all-reduce", stream) == 0, sp["coll"]
+    # forward: 2 gathers and 2 scatters a layer, the embedding's scatter (and
+    # in a train step the loss's gather); the backward pass mirrors each
+    gathers, scatters = 2 * L + (kind == "train"), 2 * L + 1
+    if kind == "train":
+        gathers, scatters = gathers + scatters, scatters + gathers
+    assert count("all-gather", stream) == gathers, sp["records"]
+    assert count("reduce-scatter", stream // SP_TP) == scatters, sp["records"]
+    total = sum(b for _, b in sp["coll"].values())
+    assert total <= 1.10 * sum(b for _, b in plain["coll"].values())
+    assert sp["temp"] <= plain["temp"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_steps_without_seq_parallel_unchanged(traced, kind):
+    plain = traced[0]["sp"][f"{kind}|False"]
+    coll, temp = NO_SP[kind]
+    assert plain["coll"] == coll and plain["temp"] == temp
 
 
 # ---------------------------------------------------------------------------

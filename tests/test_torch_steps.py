@@ -21,7 +21,14 @@ leaf's largest |value| of the reference (the form of
 additions).  The ranks also run llama3.2-1b's prefill and decode steps on
 the kernel route (``kernel=True``, forced onto CPU tensors by a stand-in
 for ``attention._kernel_route``: the kernels' plain versions run where K3
-and K4 would, on each rank's local heads), held to the same bound.
+and K4 would, on each rank's local heads), held to the same bound.  Under
+sequence parallelism (``seq_parallel``: the residual stream split by
+sequence over ``"model"``, a gather into every tensor-parallel region and a
+reduce-scatter out of it) both archs' train steps, and llama3.2-1b's
+prefill and 4 decode steps on both routes, run in the same world at
+``(2, 2)``, held to
+the reference's steps with ``seq_parallel=True`` (on its one device, the
+same numbers) within the same bound.
 
 Specs: every bundle's in and out specs equal the reference bundle's, leaf
 for leaf (a stacked layer's spec without its leading ``None``), on 16x16
@@ -67,14 +74,18 @@ SPEC_MESHES = {"16x16": {"data": 16, "model": 16},
                "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 SPEC_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # what the world runs of each arch: the train step's modes, the serving routes
-TRAIN_MODES = {"llama3.2-1b": ("mesh", "fsdp_only"), "qwen3-moe-30b-a3b": ("mesh",)}
+TRAIN_MODES = {"llama3.2-1b": ("mesh", "fsdp_only", "seq_parallel"),
+               "qwen3-moe-30b-a3b": ("mesh", "seq_parallel")}
 SERVE_ROUTES = {"llama3.2-1b": (False, True), "qwen3-moe-30b-a3b": (False,)}
+# the archs whose serving steps also run under sequence parallelism, on both routes
+SP_SERVE = ("llama3.2-1b",)
 WEIGHT_STD = 0.05
 
 
-def port_cfg(arch, fsdp_only=False):
+def port_cfg(arch, mode="mesh"):
     return get_config(arch, reduced=True).replace(
-        compute_dtype=torch.float32, kv_cache_dtype=torch.float32, fsdp_only=fsdp_only)
+        compute_dtype=torch.float32, kv_cache_dtype=torch.float32,
+        fsdp_only=mode == "fsdp_only", seq_parallel=mode == "seq_parallel")
 
 
 def inputs(arch):
@@ -94,15 +105,46 @@ def _whole(tree):
     return tree_map(lambda x: x.full_tensor().clone() if hasattr(x, "full_tensor") else x, tree)
 
 
-def rank_steps(mesh, payload):
-    """One rank: for each arch, the train step at (2, 2) and with
-    ``fsdp_only``, then the prefill and decode steps on both routes; rank 0
-    returns the gathered outputs."""
+def serve_steps(mesh, cfg, weights, prompt, picks, kernel):
+    """The prefill and ``N_DECODE`` teacher-forced decode steps of ``cfg`` on
+    ``mesh`` (``kernel``: forced onto CPU tensors, so that K3's and K4's plain
+    versions run where the kernels would, on each rank's local heads); the
+    gathered logits and caches."""
     import unittest.mock
 
+    from repro_torch.models import attention, init_cache
+
+    cell = ShapeCell("p", SLOTS, B, "prefill")
+    forced = unittest.mock.patch.object(attention, "_kernel_route", lambda x, kernel: kernel)
+    if kernel:
+        forced.start()
+    try:
+        prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
+        decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
+                                         kernel=kernel)
+        params, batch, cache = steps.place(
+            (weights, {"tokens": prompt}, init_cache(cfg, B, SLOTS, device="cpu")),
+            prefill.in_shardings)
+        logits, cache = prefill.fn(params, batch, cache)
+        got = {"prefill": _whole((logits, cache)), "decode": []}
+        for i in range(N_DECODE):
+            token, cur_len = steps.place((picks[i], torch.tensor(S + i, dtype=torch.int32)),
+                                         decode.in_shardings[1:3])
+            logits, cache = decode.fn(params, token, cur_len, cache)
+            got["decode"].append(_whole(logits))
+        got["cache"] = _whole(cache)
+    finally:
+        if kernel:
+            forced.stop()
+    return got
+
+
+def rank_steps(mesh, payload):
+    """One rank: for each arch, the train step in each of its modes at (2,
+    2), then the prefill and decode steps on both routes (for ``SP_SERVE``
+    also under ``seq_parallel``); rank 0 returns the gathered outputs."""
     import torch.distributed as dist
 
-    from repro_torch.models import attention, init_cache
     from repro_torch.optim import init_adamw
 
     out = {}
@@ -110,39 +152,19 @@ def rank_steps(mesh, payload):
         prompt, picks = (torch.as_tensor(x) for x in inputs(arch))
         weights = payload[arch]
         for mode in TRAIN_MODES[arch]:
-            cfg = port_cfg(arch, fsdp_only=mode == "fsdp_only")
-            bundle = steps.build_train_step(cfg, mesh, ShapeCell("t", S, B, "train"))
+            bundle = steps.build_train_step(port_cfg(arch, mode), mesh,
+                                            ShapeCell("t", S, B, "train"))
             params = tree_map(lambda x: x.clone(), weights)
             args = steps.place((params, init_adamw(params), {"tokens": prompt}),
                                bundle.in_shardings)
             new_params, _, metrics = bundle.fn(*args)
             out[arch, "train", mode] = _whole((new_params, metrics))
-        cfg = port_cfg(arch)
-        cell = ShapeCell("p", SLOTS, B, "prefill")
         for kernel in SERVE_ROUTES[arch]:
-            # the kernel route on CPU tensors: forced, so that K3's and K4's plain
-            # versions run where the kernels would, on each rank's local heads
-            forced = unittest.mock.patch.object(attention, "_kernel_route",
-                                                lambda x, kernel: kernel)
-            if kernel:
-                forced.start()
-            prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
-            decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
-                                             kernel=kernel)
-            params, batch, cache = steps.place(
-                (weights, {"tokens": prompt}, init_cache(cfg, B, SLOTS, device="cpu")),
-                prefill.in_shardings)
-            logits, cache = prefill.fn(params, batch, cache)
-            got = {"prefill": _whole((logits, cache)), "decode": []}
-            for i in range(N_DECODE):
-                token, cur_len = steps.place((picks[i], torch.tensor(S + i, dtype=torch.int32)),
-                                             decode.in_shardings[1:3])
-                logits, cache = decode.fn(params, token, cur_len, cache)
-                got["decode"].append(_whole(logits))
-            got["cache"] = _whole(cache)
-            out[arch, "serve", kernel] = got
-            if kernel:
-                forced.stop()
+            out[arch, "serve", kernel] = serve_steps(mesh, port_cfg(arch), weights, prompt,
+                                                     picks, kernel)
+            if arch in SP_SERVE:
+                out[arch, "serve_sp", kernel] = serve_steps(
+                    mesh, port_cfg(arch, "seq_parallel"), weights, prompt, picks, kernel)
     return out if dist.get_rank() == 0 else None
 
 
@@ -150,13 +172,13 @@ def rank_steps(mesh, payload):
 # The reference
 # ---------------------------------------------------------------------------
 
-def _ref_cfg(arch, fsdp_only=False):
+def _ref_cfg(arch, seq_parallel=False):
     import jax.numpy as jnp
 
     from repro.configs import get_config as ref_config
 
     return ref_config(arch, reduced=True).replace(
-        compute_dtype=jnp.float32, kv_cache_dtype=jnp.float32, fsdp_only=fsdp_only)
+        compute_dtype=jnp.float32, kv_cache_dtype=jnp.float32, seq_parallel=seq_parallel)
 
 
 def _ref_mesh():
@@ -191,38 +213,54 @@ def reference_weights():
     return out
 
 
-def reference_steps(weights):
-    """The reference's bundles on its one device: for each arch the train
-    step (both modes), the prefill and the decode steps."""
+def _ref_serve(cfg, mesh, params, prompt, picks):
+    """The reference's prefill and ``N_DECODE`` decode steps, jitted."""
     import jax
     import jax.numpy as jnp
 
     from repro.launch import steps as ref_steps
     from repro.models import init_cache
+
+    cell = ShapeCell("p", SLOTS, B, "prefill")
+    prefill = jax.jit(ref_steps.build_prefill_step(cfg, mesh, cell).fn)
+    decode = jax.jit(ref_steps.build_decode_step(
+        cfg, mesh, dataclasses.replace(cell, kind="decode")).fn)
+    logits, cache = prefill(params, {"tokens": jnp.asarray(prompt)}, init_cache(cfg, B, SLOTS))
+    got = {"prefill": jax.tree.map(np.asarray, (logits, cache)), "decode": []}
+    for i in range(N_DECODE):
+        logits, cache = decode(params, jnp.asarray(picks[i]), jnp.int32(S + i), cache)
+        got["decode"].append(np.asarray(logits))
+    got["cache"] = jax.tree.map(np.asarray, cache)
+    return got
+
+
+def reference_steps(weights):
+    """The reference's bundles on its one device: for each arch the train
+    step, the prefill and the decode steps, and the same with
+    ``seq_parallel`` (the train step, and for ``SP_SERVE`` the serving
+    steps)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch import steps as ref_steps
     from repro.optim import init_adamw
 
     mesh, out = _ref_mesh(), {}
     for arch in ARCHS:
         prompt, picks = inputs(arch)
         params = jax.tree.map(jnp.asarray, weights[arch])
-        # on one device fsdp_only moves nothing: one train step holds both modes
-        bundle = ref_steps.build_train_step(_ref_cfg(arch), mesh, ShapeCell("t", S, B, "train"))
-        new_params, _, metrics = jax.jit(bundle.fn)(params, init_adamw(params),
-                                                    {"tokens": jnp.asarray(prompt)})
-        out[arch, "train"] = jax.tree.map(np.asarray, (new_params, metrics))
-        cfg = _ref_cfg(arch)
-        cell = ShapeCell("p", SLOTS, B, "prefill")
-        prefill = jax.jit(ref_steps.build_prefill_step(cfg, mesh, cell).fn)
-        decode = jax.jit(ref_steps.build_decode_step(
-            cfg, mesh, dataclasses.replace(cell, kind="decode")).fn)
-        logits, cache = prefill(params, {"tokens": jnp.asarray(prompt)},
-                                init_cache(cfg, B, SLOTS))
-        got = {"prefill": jax.tree.map(np.asarray, (logits, cache)), "decode": []}
-        for i in range(N_DECODE):
-            logits, cache = decode(params, jnp.asarray(picks[i]), jnp.int32(S + i), cache)
-            got["decode"].append(np.asarray(logits))
-        got["cache"] = jax.tree.map(np.asarray, cache)
-        out[arch, "serve"] = got
+        # on one device fsdp_only moves nothing: one train step holds both
+        # modes; seq_parallel is the reference's own flag
+        for sp in (False, True) if "seq_parallel" in TRAIN_MODES[arch] else (False,):
+            bundle = ref_steps.build_train_step(_ref_cfg(arch, sp), mesh,
+                                                ShapeCell("t", S, B, "train"))
+            new_params, _, metrics = jax.jit(bundle.fn)(params, init_adamw(params),
+                                                        {"tokens": jnp.asarray(prompt)})
+            out[arch, "train_sp" if sp else "train"] = jax.tree.map(np.asarray,
+                                                                    (new_params, metrics))
+        out[arch, "serve"] = _ref_serve(_ref_cfg(arch), mesh, params, prompt, picks)
+        if arch in SP_SERVE:
+            out[arch, "serve_sp"] = _ref_serve(_ref_cfg(arch, True), mesh, params, prompt, picks)
     return out
 
 
@@ -299,7 +337,8 @@ def assert_leaves_close(got, want, what):
 def test_train_step_matches_reference(results, arch, mode):
     from repro_torch.convert import lm_params_from_numpy
 
-    got, want = results[0][arch, "train", mode], results[1][arch, "train"]
+    got = results[0][arch, "train", mode]
+    want = results[1][arch, "train_sp" if mode == "seq_parallel" else "train"]
     new_params, metrics = got
     want_params, want_metrics = want
     assert sorted(metrics) == sorted(want_metrics) == sorted(steps.METRICS)
@@ -311,15 +350,29 @@ def test_train_step_matches_reference(results, arch, mode):
     assert_leaves_close(new_params, want_params, f"{arch} {mode} params")
 
 
+def assert_serving_close(got, want, what):
+    assert_leaves_close(got["prefill"][0], want["prefill"][0], f"{what} prefill logits")
+    assert_leaves_close(got["prefill"][1], want["prefill"][1], f"{what} prefill cache")
+    for i, (g, w) in enumerate(zip(got["decode"], want["decode"], strict=True)):
+        assert_leaves_close(g, w, f"{what} decode step {i}")
+    assert_leaves_close(got["cache"], want["cache"], f"{what} cache after decode")
+
+
 @pytest.mark.parametrize("arch,kernel", [(a, k) for a in ARCHS for k in SERVE_ROUTES[a]],
                          ids=lambda v: {False: "plain", True: "kernel"}.get(v, v))
 def test_serving_steps_match_reference(results, arch, kernel):
-    got, want = results[0][arch, "serve", kernel], results[1][arch, "serve"]
-    assert_leaves_close(got["prefill"][0], want["prefill"][0], f"{arch} prefill logits")
-    assert_leaves_close(got["prefill"][1], want["prefill"][1], f"{arch} prefill cache")
-    for i, (g, w) in enumerate(zip(got["decode"], want["decode"], strict=True)):
-        assert_leaves_close(g, w, f"{arch} decode step {i}")
-    assert_leaves_close(got["cache"], want["cache"], f"{arch} cache after decode")
+    assert_serving_close(results[0][arch, "serve", kernel], results[1][arch, "serve"], arch)
+
+
+@pytest.mark.parametrize("arch,kernel", [(a, k) for a in SP_SERVE for k in SERVE_ROUTES[a]],
+                         ids=lambda v: {False: "plain", True: "kernel"}.get(v, v))
+def test_seq_parallel_serving_steps_match_reference(results, arch, kernel):
+    """The prefill under sequence parallelism (and the decode steps after
+    it) against the reference's with ``seq_parallel=True``, and against the
+    world's own steps without it."""
+    got = results[0][arch, "serve_sp", kernel]
+    assert_serving_close(got, results[1][arch, "serve_sp"], f"{arch} seq_parallel")
+    assert_serving_close(got, results[0][arch, "serve", kernel], f"{arch} seq_parallel vs not")
 
 
 def _port_spec_leaves(bundle_tree):

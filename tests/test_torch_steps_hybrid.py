@@ -26,9 +26,16 @@ across by ``repro_torch.convert.lm_params_from_numpy``.  Held, within
 ``test_torch_steps.py``'s form (rtol 1e-5, atol 1e-5 x the leaf's largest
 |value|): the train step's loss, metrics and new parameters, the prefill's
 logits and every cache leaf, each decode step's logits and the cache after
-them.  Specs: every bundle's in and out specs equal the reference's, leaf
-for leaf, on 16x16 and 2x16x16 for both archs and all three kinds (one
-512-device subprocess, as in ``test_torch_steps.py``).
+them.  Under sequence parallelism (``seq_parallel``) both archs' train
+steps, and hymba's prefill and 4 decode steps on the plain route, run on
+both meshes too: hymba's attention on ``(2, 2)`` in the heads layout, on
+``(1, 4)`` in the sequence layout (each rank's own query rows, k and v
+gathered), the SSM, mLSTM and sLSTM gathering the sequence at entry and
+reduce-scattering at exit; held to the
+reference's steps with ``seq_parallel=True`` in the same form.  Specs:
+every bundle's in and out specs equal the reference's, leaf for leaf, on
+16x16 and 2x16x16 for both archs and all three kinds (one 512-device
+subprocess, as in ``test_torch_steps.py``).
 """
 import concurrent.futures
 import dataclasses
@@ -71,14 +78,16 @@ SEED = 12
 WEIGHT_STD = 0.05
 WORLD_TIMEOUT_S = 240
 SERVE_ROUTES = {"hymba-1.5b": (False, True), "xlstm-1.3b": (False,)}
+SP_SERVE = ("hymba-1.5b",)      # its plain route's serving steps also run under seq_parallel
 SPEC_MESHES = {"16x16": {"data": 16, "model": 16},
                "2x16x16": {"pod": 2, "data": 16, "model": 16}}
 SPEC_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
-def port_cfg(arch):
+def port_cfg(arch, seq_parallel=False):
     return get_config(arch, reduced=True).replace(
-        compute_dtype=torch.float32, kv_cache_dtype=torch.float32, **HEADS[arch])
+        compute_dtype=torch.float32, kv_cache_dtype=torch.float32, seq_parallel=seq_parallel,
+        **HEADS[arch])
 
 
 def inputs(arch):
@@ -98,17 +107,58 @@ def _whole(tree):
     return tree_map(lambda x: x.full_tensor().clone() if hasattr(x, "full_tensor") else x, tree)
 
 
-def rank_steps(mesh, payload):
-    """One rank: on each mesh, for each arch, the train step, then the
-    prefill and decode steps on each route; rank 0 returns the gathered
-    outputs."""
+def serve_steps(mesh, cfg, weights, prompt, picks, kernel):
+    """The prefill and ``N_DECODE`` teacher-forced decode steps of ``cfg`` on
+    ``mesh`` (``kernel``: forced onto CPU tensors, so that K3's and K4's plain
+    versions run where the kernels would); the gathered logits and caches."""
     import unittest.mock
 
+    from repro_torch.models import attention, init_cache
+
+    cell = ShapeCell("p", SLOTS, B, "prefill")
+    forced = unittest.mock.patch.object(attention, "_kernel_route", lambda x, kernel: kernel)
+    if kernel:
+        forced.start()
+    try:
+        prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
+        decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
+                                         kernel=kernel)
+        params, batch, cache = steps.place(
+            (weights, {"tokens": prompt}, init_cache(cfg, B, SLOTS, device="cpu")),
+            prefill.in_shardings)
+        logits, cache = prefill.fn(params, batch, cache)
+        got = {"prefill": _whole((logits, cache)), "decode": []}
+        for i in range(N_DECODE):
+            token, cur_len = steps.place(
+                (picks[i], torch.tensor(S + i, dtype=torch.int32)), decode.in_shardings[1:3])
+            logits, cache = decode.fn(params, token, cur_len, cache)
+            got["decode"].append(_whole(logits))
+        got["cache"] = _whole(cache)
+    finally:
+        if kernel:
+            forced.stop()
+    return got
+
+
+def train_step(mesh, cfg, weights, prompt):
+    """One train step of ``cfg`` on ``mesh``: the gathered new parameters
+    and metrics."""
+    from repro_torch.optim import init_adamw
+
+    bundle = steps.build_train_step(cfg, mesh, ShapeCell("t", S, B, "train"))
+    params = tree_map(lambda x: x.clone(), weights)
+    args = steps.place((params, init_adamw(params), {"tokens": prompt}), bundle.in_shardings)
+    new_params, _, metrics = bundle.fn(*args)
+    return _whole((new_params, metrics))
+
+
+def rank_steps(mesh, payload):
+    """One rank: on each mesh, for each arch, the train step, then the
+    prefill and decode steps on each route, and under ``seq_parallel`` the
+    train step (and for ``SP_SERVE`` the plain route's serving steps);
+    rank 0 returns the gathered outputs."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.models import attention, init_cache
-    from repro_torch.optim import init_adamw
 
     out = {}
     for name, shape in MESHES.items():
@@ -116,37 +166,14 @@ def rank_steps(mesh, payload):
         for arch in ARCHS:
             cfg, weights = port_cfg(arch), payload[arch]
             prompt, picks = (torch.as_tensor(x) for x in inputs(arch))
-            bundle = steps.build_train_step(cfg, mesh, ShapeCell("t", S, B, "train"))
-            params = tree_map(lambda x: x.clone(), weights)
-            args = steps.place((params, init_adamw(params), {"tokens": prompt}),
-                               bundle.in_shardings)
-            new_params, _, metrics = bundle.fn(*args)
-            out[name, arch, "train"] = _whole((new_params, metrics))
-            cell = ShapeCell("p", SLOTS, B, "prefill")
+            out[name, arch, "train"] = train_step(mesh, cfg, weights, prompt)
             for kernel in SERVE_ROUTES[arch]:
-                # the kernel route on CPU tensors: forced, so that K3's and
-                # K4's plain versions run where the kernels would
-                forced = unittest.mock.patch.object(attention, "_kernel_route",
-                                                    lambda x, kernel: kernel)
-                if kernel:
-                    forced.start()
-                prefill = steps.build_prefill_step(cfg, mesh, cell, kernel=kernel)
-                decode = steps.build_decode_step(cfg, mesh, dataclasses.replace(cell, kind="decode"),
-                                                 kernel=kernel)
-                params, batch, cache = steps.place(
-                    (weights, {"tokens": prompt}, init_cache(cfg, B, SLOTS, device="cpu")),
-                    prefill.in_shardings)
-                logits, cache = prefill.fn(params, batch, cache)
-                got = {"prefill": _whole((logits, cache)), "decode": []}
-                for i in range(N_DECODE):
-                    token, cur_len = steps.place(
-                        (picks[i], torch.tensor(S + i, dtype=torch.int32)), decode.in_shardings[1:3])
-                    logits, cache = decode.fn(params, token, cur_len, cache)
-                    got["decode"].append(_whole(logits))
-                got["cache"] = _whole(cache)
-                out[name, arch, "serve", kernel] = got
-                if kernel:
-                    forced.stop()
+                out[name, arch, "serve", kernel] = serve_steps(mesh, cfg, weights, prompt, picks,
+                                                               kernel)
+            sp = port_cfg(arch, seq_parallel=True)
+            out[name, arch, "train_sp"] = train_step(mesh, sp, weights, prompt)
+            if arch in SP_SERVE:
+                out[name, arch, "serve_sp"] = serve_steps(mesh, sp, weights, prompt, picks, False)
     return out if dist.get_rank() == 0 else None
 
 
@@ -154,13 +181,14 @@ def rank_steps(mesh, payload):
 # The reference
 # ---------------------------------------------------------------------------
 
-def _ref_cfg(arch):
+def _ref_cfg(arch, seq_parallel=False):
     import jax.numpy as jnp
 
     from repro.configs import get_config as ref_config
 
     return ref_config(arch, reduced=True).replace(
-        compute_dtype=jnp.float32, kv_cache_dtype=jnp.float32, **HEADS[arch])
+        compute_dtype=jnp.float32, kv_cache_dtype=jnp.float32, seq_parallel=seq_parallel,
+        **HEADS[arch])
 
 
 def reference_weights():
@@ -190,7 +218,8 @@ def reference_weights():
 
 def reference_steps(weights):
     """The reference's bundles on its one device: for each arch the train
-    step, the prefill and the decode steps."""
+    step, the prefill and the decode steps, and with ``seq_parallel=True``
+    the train step (and for ``SP_SERVE`` the serving steps)."""
     import jax
     import jax.numpy as jnp
 
@@ -200,25 +229,28 @@ def reference_steps(weights):
 
     mesh, out = _ref_mesh(), {}
     for arch in ARCHS:
-        cfg = _ref_cfg(arch)
         prompt, picks = inputs(arch)
         params = jax.tree.map(jnp.asarray, weights[arch])
-        bundle = ref_steps.build_train_step(cfg, mesh, ShapeCell("t", S, B, "train"))
-        new_params, _, metrics = jax.jit(bundle.fn)(params, init_adamw(params),
-                                                    {"tokens": jnp.asarray(prompt)})
-        out[arch, "train"] = jax.tree.map(np.asarray, (new_params, metrics))
-        cell = ShapeCell("p", SLOTS, B, "prefill")
-        prefill = jax.jit(ref_steps.build_prefill_step(cfg, mesh, cell).fn)
-        decode = jax.jit(ref_steps.build_decode_step(
-            cfg, mesh, dataclasses.replace(cell, kind="decode")).fn)
-        logits, cache = prefill(params, {"tokens": jnp.asarray(prompt)},
-                                init_cache(cfg, B, SLOTS))
-        got = {"prefill": jax.tree.map(np.asarray, (logits, cache)), "decode": []}
-        for i in range(N_DECODE):
-            logits, cache = decode(params, jnp.asarray(picks[i]), jnp.int32(S + i), cache)
-            got["decode"].append(np.asarray(logits))
-        got["cache"] = jax.tree.map(np.asarray, cache)
-        out[arch, "serve"] = got
+        for sp in (False, True):
+            cfg, tag = _ref_cfg(arch, sp), "_sp" if sp else ""
+            bundle = ref_steps.build_train_step(cfg, mesh, ShapeCell("t", S, B, "train"))
+            new_params, _, metrics = jax.jit(bundle.fn)(params, init_adamw(params),
+                                                        {"tokens": jnp.asarray(prompt)})
+            out[arch, "train" + tag] = jax.tree.map(np.asarray, (new_params, metrics))
+            if sp and arch not in SP_SERVE:
+                continue
+            cell = ShapeCell("p", SLOTS, B, "prefill")
+            prefill = jax.jit(ref_steps.build_prefill_step(cfg, mesh, cell).fn)
+            decode = jax.jit(ref_steps.build_decode_step(
+                cfg, mesh, dataclasses.replace(cell, kind="decode")).fn)
+            logits, cache = prefill(params, {"tokens": jnp.asarray(prompt)},
+                                    init_cache(cfg, B, SLOTS))
+            got = {"prefill": jax.tree.map(np.asarray, (logits, cache)), "decode": []}
+            for i in range(N_DECODE):
+                logits, cache = decode(params, jnp.asarray(picks[i]), jnp.int32(S + i), cache)
+                got["decode"].append(np.asarray(logits))
+            got["cache"] = jax.tree.map(np.asarray, cache)
+            out[arch, "serve" + tag] = got
     return out
 
 
@@ -252,33 +284,57 @@ def results():
     return got, want, json.loads(stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_matches_reference(results, arch, mesh):
+def assert_train_close(got, want, arch, what):
     from repro_torch.convert import lm_params_from_numpy
 
-    new_params, metrics = results[0][mesh, arch, "train"]
-    want_params, want_metrics = results[1][arch, "train"]
+    new_params, metrics = got
+    want_params, want_metrics = want
     assert sorted(metrics) == sorted(want_metrics) == sorted(steps.METRICS)
     for k in want_metrics:
         np.testing.assert_allclose(float(metrics[k]), float(want_metrics[k]), rtol=RTOL,
-                                   err_msg=f"{arch} {mesh} metric {k}")
+                                   err_msg=f"{what} metric {k}")
     want_params = lm_params_from_numpy(want_params, port_cfg(arch), device="cpu")
     assert tree_paths(new_params) == tree_paths(want_params)
-    assert_leaves_close(new_params, want_params, f"{arch} {mesh} params")
+    assert_leaves_close(new_params, want_params, f"{what} params")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_reference(results, arch, mesh):
+    assert_train_close(results[0][mesh, arch, "train"], results[1][arch, "train"], arch,
+                       f"{arch} {mesh}")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_seq_parallel_train_step_matches_reference(results, arch, mesh):
+    assert_train_close(results[0][mesh, arch, "train_sp"], results[1][arch, "train_sp"], arch,
+                       f"{arch} {mesh} seq_parallel")
+
+
+def assert_serving_close(got, want, what):
+    assert_leaves_close(got["prefill"][0], want["prefill"][0], f"{what} prefill logits")
+    assert_leaves_close(got["prefill"][1], want["prefill"][1], f"{what} prefill cache")
+    for i, (g, w) in enumerate(zip(got["decode"], want["decode"], strict=True)):
+        assert_leaves_close(g, w, f"{what} decode step {i}")
+    assert_leaves_close(got["cache"], want["cache"], f"{what} cache after decode")
 
 
 @pytest.mark.parametrize("arch,kernel", [(a, k) for a in ARCHS for k in SERVE_ROUTES[a]],
                          ids=lambda v: {False: "plain", True: "kernel"}.get(v, v))
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_serving_steps_match_reference(results, mesh, arch, kernel):
-    got, want = results[0][mesh, arch, "serve", kernel], results[1][arch, "serve"]
-    what = f"{arch} {mesh} {'kernel' if kernel else 'plain'}"
-    assert_leaves_close(got["prefill"][0], want["prefill"][0], f"{what} prefill logits")
-    assert_leaves_close(got["prefill"][1], want["prefill"][1], f"{what} prefill cache")
-    for i, (g, w) in enumerate(zip(got["decode"], want["decode"], strict=True)):
-        assert_leaves_close(g, w, f"{what} decode step {i}")
-    assert_leaves_close(got["cache"], want["cache"], f"{what} cache after decode")
+    assert_serving_close(results[0][mesh, arch, "serve", kernel], results[1][arch, "serve"],
+                         f"{arch} {mesh} {'kernel' if kernel else 'plain'}")
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", SP_SERVE)
+def test_seq_parallel_serving_steps_match_reference(results, arch, mesh):
+    got = results[0][mesh, arch, "serve_sp"]
+    assert_serving_close(got, results[1][arch, "serve_sp"], f"{arch} {mesh} seq_parallel")
+    assert_serving_close(got, results[0][mesh, arch, "serve", False],
+                         f"{arch} {mesh} seq_parallel vs not")
 
 
 @pytest.mark.parametrize("mesh", list(SPEC_MESHES))
