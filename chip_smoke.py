@@ -15,8 +15,9 @@ llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
 (paligemma-3b, seamless-m4t-large-v2), the multi-device provisioning route,
 elastic restore (``reshard_restore``, llama3.2-1b at full width across
 four ranks), the sharded steps (``launch.steps``, the same model and
-hymba-1.5b on a (2, 2) mesh) and the four example twins
-(``examples/*_torch.py``) of ``repro_torch``; the first
+hymba-1.5b on a (2, 2) mesh), the four example twins
+(``examples/*_torch.py``) and the benchmarks (``repro_torch.bench``) of
+``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
 ``msr_like_trace`` demand traces with mean N/4, windows 0..5 under the
@@ -291,7 +292,8 @@ Phases, one line or more each:
    1) and checked on every rank against the first checkpoint.
 19. steps (run after phase 18, before 9 and 10) — the step builders
    (``repro_torch.launch.steps``) and the dry-run: (b) llama3.2-1b at full
-   width and depth in float32 from ``SEED``, saved under
+   width, its depth cut to 8 of 16 layers (``STEPS_LAYERS``), in float32
+   from ``SEED``, saved under
    ``build/chip_smoke_steps/`` (removed after) with the single-device
    float32 and bf16 plain routes over phase 13's stream and one float32
    train step computed first and freed; then a world of four processes
@@ -300,8 +302,9 @@ Phases, one line or more each:
    prefill and 8 decode steps on the float32 kernel route held to the
    single-device plain route (every row within 1e-4 of its largest value,
    greedy tokens equal), the bf16 kernel route no farther from the float32
-   model than 1.25 times the single-device bf16 plain route, exactly 16 K3
-   launches per prefill and 32 K4 per decode step on every rank (module
+   model than 1.25 times the single-device bf16 plain route, exactly one K3
+   launch per layer and prefill and two K4 per layer and decode step on
+   every rank (module
    counters), two planted faults rejected on every rank (one rank's wq
    block from its neighbour; K4 given the next rank's kv heads), one
    float32 train step whose loss is within 1e-4 relative of one device's
@@ -317,14 +320,15 @@ Phases, one line or more each:
    launches on every rank as without it, and one float32 train step held
    as above; its prefill and train ms per rank printed beside the others;
    (e) in the same
-   world after (b), hymba-1.5b at full width and depth (1,644,860,800
-   parameters) by the same rules on B 2, a prompt of 2304 tokens (past its
+   world after (b), hymba-1.5b at full width, 8 of its 32 layers, by the
+   same rules on B 2, a prompt of 2304 tokens (past its
    2048-token window and even: the ring wraps, the sequence splits) and 4
    decode steps: its 25 query and 5 KV heads do not divide ``"model"``, so
    attention takes the sequence layout with K3 under the window on each
    rank's batch rows and K4 over the ring's valid slots gathered to the
-   front, its 50 SSM heads split over ``"model"``; exactly 32 K3 launches
-   per prefill and 64 K4 per decode step on every rank, two planted faults
+   front, its 50 SSM heads split over ``"model"``; exactly one K3 launch
+   per layer and prefill and two K4 per layer and step on every rank, two
+   planted faults
    rejected on every rank (K3 called without its window; K4 reading the
    ring's first slots without the gather), one float32 train step (B 2, S
    128) by (b)'s rules; (c) the same three steps of both models, and
@@ -360,6 +364,18 @@ Phases, one line or more each:
    twin's shapes held to their plain versions (bf16, phase 9's limits),
    and ``train_lm_torch.py`` (300 steps, the loss falls; a rerun resumes
    from step 300 and takes 10 more; no kernel); each twin's wall seconds.
+21. bench (run after phase 20, before 9 and 10) — ``repro_torch.bench``,
+   the twins of the reference's ``benchmarks/`` scripts, in full in this
+   process, function by function (the paper's Figs. 3 and 4b-4d, the
+   provisioning sweeps, K2 over 10^6 slots and over 10^4 lanes, the
+   rooflines, the held timer of K1-K4), every launch counter set to 0
+   just before and read just after each function and held to its count;
+   the twins' own checks (Fig. 3 within its bounds, K1 == its plain
+   version and routed == contiguous bit for bit, K2 == K1 summed over
+   levels, the build gates, the mesh route == the plain scan) raise; the
+   rows' names must be the reference's under the route mapping, and the
+   figures run again on the plain scan (``kernel=False``) must print the
+   same numbers; the phase's wall seconds.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -398,8 +414,11 @@ Phases, one line or more each:
 The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
 paths' of phases 13, 15 and 16 and rank 0's bf16 main paths of phase 19,
-K3's the no-grad losses of phases 14 and 16, and all three the twins' of
-phase 20); the
+K3's the no-grad losses of phases 14 and 16, all three the twins' of
+phase 20, and all four the bench's of phase 21) and, beside the CUPTI
+``ms``, each kernel's ``held_ms`` at the same shapes (``repro_torch.obs.
+torchwatch.held_ms``: CUDA events on a stream held until the host has
+queued the call, the one timer comparable across runs); the
 last is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before them.
 """
@@ -434,10 +453,11 @@ SEED = 0
 from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
 from repro_torch.launch.roofline import PEAK_FLOPS_BF16 as BF16_OPS_PER_S  # noqa: E402
 from repro_torch.launch.roofline import PEAK_FLOPS_F32 as FP32_OPS_PER_S  # noqa: E402
+# the one timer of a kernel call's device time: CUDA events on a held stream
+from repro_torch.obs.torchwatch import held_ms  # noqa: E402
 OPS_PER_UPDATE = 8               # compares and selects of one (cell, slot, level) update
 KERNEL_REPS, PLAIN_REPS, PROVISION_REPS = 20, 3, 3
 PROFILE_ATTEMPTS = 3
-HOLD_CYCLES, HOLD_DOUBLINGS = 1 << 21, 6     # a hold of about 1 ms at 1.98 GHz, at most 64 times that
 
 
 class SmokeFailure(RuntimeError):
@@ -464,38 +484,6 @@ def cuda_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def held_ms(fn, reps):
-    """Median device milliseconds of one ``fn()`` call over ``reps`` calls,
-    each between a pair of CUDA events while a spinning kernel
-    (``torch.cuda._sleep``) holds the stream until the host has queued the
-    whole call: the device span of the call's launches, without the host's
-    launch overhead between them.  A call is kept only if its start event
-    was still pending when the host had queued its end event; else the hold
-    doubles, up to ``HOLD_CYCLES << HOLD_DOUBLINGS``, and a call that still
-    outruns it (one that waits for the card) fails the run."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    cycles, times = HOLD_CYCLES, []
-    while len(times) < reps:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        fn()
-        end.record()
-        held = not start.query()
-        end.synchronize()
-        if held:
-            times.append(start.elapsed_time(end))
-            continue
-        cycles *= 2
-        check(cycles <= HOLD_CYCLES << HOLD_DOUBLINGS,
-              f"held stream: the host had not queued the call after a hold of "
-              f"{cycles // 2} cycles")
     return statistics.median(times)
 
 
@@ -845,19 +833,20 @@ def attention_phases(smi):
                 is_causal=causal and mask is None, enable_gqa=True)
 
         ms = kernel_ms(run, KERNEL_REPS, name=flash.k3_instance(q.dtype, hd)[0])
+        held = held_ms(run, KERNEL_REPS)
         call, plain_ms = cuda_ms(run, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS)
         lib_ms = cuda_ms(library, KERNEL_REPS)
         pairs = admitted_pairs(s, causal, window)
         nbytes = q.element_size() * 2 * b * s * (h + kvh) * hd       # q, k, v read; out written
         bound, bound_by = attention_bound_ms(4 * b * h * hd * pairs, nbytes, dt)
-        k3[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
+        k3[name] = dict(err=err, ms=ms, held=held, plain=plain_ms, library=lib_ms, bound=bound,
                         bound_by=bound_by)
         print(f"flash: K3 {name}: {4 * b * h * hd * pairs / ms / 1e9:.1f} TFLOP/s "
               f"({bound / ms:.1%} of the bound; SDPA "
               f"{4 * b * h * hd * pairs / lib_ms / 1e9:.1f} TFLOP/s) [{smi}]", flush=True)
         print(f"flash: K3 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} causal={causal} "
               f"window={window}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
-              f"(planted faults rejected: {rejected}) kernel_ms={ms:.4f} "
+              f"(planted faults rejected: {rejected}) kernel_ms={ms:.4f} held_ms={held:.4f} "
               f"call_ms={call:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
               f"bound_ms={bound:.4f} ({bound_by}; {4 * b * h * hd * pairs / 1e9:.2f} GFLOP) "
               f"[{smi}]", flush=True)
@@ -920,13 +909,14 @@ def attention_phases(smi):
             return ops.decode_attention(*args)
 
         ms = kernel_ms(run, KERNEL_REPS, name=("decode_split", "decode_combine_kernel"))
+        held = held_ms(run, KERNEL_REPS)
         call = cuda_ms(run, KERNEL_REPS)
         plain_ms = cuda_ms(lambda args=args: decode.decode_attention_plain(*args), PLAIN_REPS)
         lib_ms = cuda_ms(library, KERNEL_REPS)
         nbytes = (q.element_size() * (2 * valid * kvh * hd + 2 * b * h * hd)  # cache rows, q, out
                   + 4 * b)
         bound, bound_by = attention_bound_ms(4 * h * hd * valid, nbytes, dt)
-        k4[name] = dict(err=err, ms=ms, plain=plain_ms, library=lib_ms, bound=bound,
+        k4[name] = dict(err=err, ms=ms, held=held, plain=plain_ms, library=lib_ms, bound=bound,
                         bound_by=bound_by)
         print(f"decode: K4 {name}: {nbytes / ms / 1e9:.3f} TB/s ({bound / ms:.1%} of the "
               f"bound; SDPA {nbytes / lib_ms / 1e9:.3f} TB/s) [{smi}]", flush=True)
@@ -935,7 +925,7 @@ def attention_phases(smi):
         print(f"decode: K4 {name}: B={b} S={s} H={h} KVH={kvh} hd={hd} valid "
               f"positions={valid} (rows of length 0: {empty}) splits={n_split}x{chunk}: "
               f"close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} (planted faults "
-              f"rejected: {rejected}) kernel_ms={ms:.4f} call_ms={call:.4f} "
+              f"rejected: {rejected}) kernel_ms={ms:.4f} held_ms={held:.4f} call_ms={call:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} "
               f"({bound_by}; {nbytes / 1e9:.3f} GB) [{smi}]", flush=True)
     del inputs, outs
@@ -953,7 +943,8 @@ def attention_phases(smi):
         one = cases[headline]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(c["err"] for c in cases.values()),
-                "ms": one["ms"], "plain_ms": one["plain"], "bound_ms": one["bound"],
+                "ms": one["ms"], "held_ms": one["held"], "plain_ms": one["plain"],
+                "bound_ms": one["bound"],
                 "bound_by": one["bound_by"], "library_ms": one["library"]}
 
     return [entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3563,12 +3554,15 @@ def elastic_phase(smi):
 # Phase 19: the step builders, the dry-run and the sharded steps
 # ---------------------------------------------------------------------------
 
-STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width and depth, random from SEED
-# (e): hymba-1.5b at full width and depth on the same mesh: its 25 query and 5
+STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width, random from SEED
+# (e): hymba-1.5b at full width on the same mesh: its 25 query and 5
 # KV heads do not divide "model", so attention takes the sequence layout and K3
 # runs with the window on each rank's batch rows; its 50 SSM heads do
 STEPS_HYBRID = "hymba-1.5b"
 STEPS_WORLD, STEPS_MESH, STEPS_AXES = 4, (2, 2), ("data", "model")
+# (b), (c), (e): each model's depth, cut from 16 and 32 layers so that the
+# whole script stays in its time on a slow host (every check stands)
+STEPS_LAYERS = {STEPS_ARCH: 8, STEPS_HYBRID: 8}
 # (b), (e): the prefill's token and 8 (hymba: 4) decode steps
 STEPS_NEW = {STEPS_ARCH: 9, STEPS_HYBRID: 5}
 # per model: the serving stream's (batch, prompt, cache slots) and the float32
@@ -3610,7 +3604,7 @@ with fake_world(WORLD):
     mesh = init_device_mesh("cuda", MESH, mesh_dim_names=AXES)
     for arch, ((B, PROMPT, SLOTS), (TRAIN_B, TRAIN_S, _)) in MODELS.items():
         cfg = get_config(arch).replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32,
-                                       remat="none")
+                                       remat="none", n_layers=LAYERS[arch])
         serve = ShapeCell("serve", SLOTS, B, "prefill")
         prompt = torch.empty((B, PROMPT), dtype=torch.int32, device="meta")
         bundles = {
@@ -3680,7 +3674,7 @@ def steps_cfg(dtype, arch=STEPS_ARCH):
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch).replace(remat="none")
+    cfg = get_config(arch).replace(remat="none", n_layers=STEPS_LAYERS[arch])
     if dtype == "float32":
         cfg = cfg.replace(compute_dtype=torch.float32, kv_cache_dtype=torch.float32)
     return cfg
@@ -4177,7 +4171,7 @@ def steps_phase(smi):
             t0 = time.perf_counter()
             refs[arch] = steps_reference(work, dev, arch)
             n_train = STEPS_MODELS[arch][1][2]
-            print(f"steps: ({label}) {arch} full width and depth, "
+            print(f"steps: ({label}) {arch} full width, {STEPS_LAYERS[arch]} layers, "
                   f"{param_count(steps_cfg('float32', arch)):,} parameters, random from seed "
                   f"{SEED}, saved; the single-device routes and {n_train} train step(s) in "
                   f"{time.perf_counter() - t0:.1f} s (losses "
@@ -4185,7 +4179,8 @@ def steps_phase(smi):
         # (c)'s trace, in a subprocess while nothing else runs
         t0 = time.perf_counter()
         script = (f"WORLD, MESH, AXES = {STEPS_WORLD}, {STEPS_MESH!r}, {STEPS_AXES!r}\n"
-                  f"MODELS = {STEPS_MODELS!r}\nSP = {STEPS_SP!r}\n" + STEPS_TRACE)
+                  f"MODELS = {STEPS_MODELS!r}\nSP = {STEPS_SP!r}\nLAYERS = {STEPS_LAYERS!r}\n"
+                  + STEPS_TRACE)
         proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                               cwd=ROOT, timeout=600)
         check(proc.returncode == 0, f"steps: (c) the trace failed: {proc.stderr[-3000:]}")
@@ -4414,6 +4409,24 @@ TWIN_BOUND_TOL = 0.05            # phase 20: the eval's tolerance on a drawn num
 LINT_TIMEOUT_S = 300
 
 
+def launch_counts():
+    """The four kernels' launch counters, ``{"K1": ..., "K4": ...}``."""
+    kernels = importlib.import_module("repro_torch.kernels.provision_scan")
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    return {"K1": kernels.launches, "K2": kernels.stream_launches,
+            "K3": flash.flash_launches, "K4": decode.decode_launches}
+
+
+def reset_launches():
+    """Set the four kernels' launch counters to 0."""
+    kernels = importlib.import_module("repro_torch.kernels.provision_scan")
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    kernels.launches = kernels.stream_launches = 0
+    flash.flash_launches = decode.decode_launches = 0
+
+
 def twin_run(name, argv):
     """Phase 20: ``main(argv)`` of ``examples/<name>_torch.py`` on the card,
     every launch counter set to 0 just before and read just after; returns
@@ -4424,24 +4437,19 @@ def twin_run(name, argv):
 
     import torch
 
-    kernels = importlib.import_module("repro_torch.kernels.provision_scan")
-    flash = importlib.import_module("repro_torch.kernels.flash_attention")
-    decode = importlib.import_module("repro_torch.kernels.decode_attention")
     spec = importlib.util.spec_from_file_location(
         f"{name}_torch", os.path.join(ROOT, "examples", f"{name}_torch.py"))
     twin = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = twin
     spec.loader.exec_module(twin)
     buf = io.StringIO()
-    kernels.launches = kernels.stream_launches = 0
-    flash.flash_launches = decode.decode_launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = twin.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"K1": kernels.launches, "K2": kernels.stream_launches,
-              "K3": flash.flash_launches, "K4": decode.decode_launches}
+    counts = launch_counts()
     out = buf.getvalue()
     for line in out.splitlines():
         print(f"examples: {name}: {line}", flush=True)
@@ -4646,6 +4654,114 @@ def examples_phase(smi):
     return {"launches": launches, "errs": errs}
 
 
+# phase 21: the rows ``benchmarks/run.py`` prints on a TPU, in order, with
+# ``kernel_bench``'s long traces at full size (its standalone run's), as the
+# reference names them; the port renames the route words
+# (``repro_torch.bench.provision_bench.route_name``)
+BENCH_REFERENCE_ROWS = (
+    [f"fig3_{p}_w{w}" for p in ("A1", "A2", "A3") for w in range(6)]
+    + ["fig4b_offline"] + [f"fig4b_{p}_w{w}" for p in ("A1", "A2", "A3") for w in range(11)]
+    + [f"fig4b_LCP_w{w}" for w in range(1, 11)] + ["fig4b_DELAYEDOFF"]
+    + [f"fig4c_A1_w{w}_std{s}" for s in (0, 10, 25, 50) for w in (2, 4)]
+    + [f"fig4d_pmr{p}" for p in (2, 3, 4, 6, 8, 10)]
+    + [f"jax_provision_levels{n}" for n in (64, 512, 4096)]
+    + [f"batched_sweep_{p}_b32_w6_n256" for p in ("A1", "A3")]
+    + ["provision_homog_n256", "provision_hetero_n256", "provision_untyped_delayedoff_n256",
+       "provision_typed2_AQ-det_n256", "pallas_scan_tpu_levels512", "pallas_scan_tpu_levels4096",
+       "mesh_grid_pallas_tpu_s2_w4_b8_n256", "mesh_grid_lax_scan_s2_w4_b8_n256"]
+    + [f"deferral_slack{s}_n256" for s in (0, 2, 6, 12)]
+    + ["brick_sim_6078jobs", "jit_cache_repricing", "mesh_grid_compiles", "telemetry_overhead",
+       "flash_roofline_s4096", "flash_roofline_s32768", "decode_roofline_s32768",
+       "decode_roofline_s524288", "flash_interpret_256", "provision_grid_pallas_tpu_s2w3b2n128",
+       "provision_grid_lax_scan_s2w3b2n128", "provision_grid_contig_tpu_w2b2n64",
+       "provision_grid_routed_tpu_w2b2n80", "provision_long_mono_tpu_t65536n128",
+       "provision_long_stream_tpu_t65536n128", "provision_long_stream_tpu_long_t1000000n128",
+       "provision_long_stream_tpu_wide_t8192n10000"]
+)
+# phase 21: (K1, K2, K3, K4) launches of each benchmark function in this
+# process (the mesh rows' ranks count their own, which the bench checks); the
+# held timer's are at least these (a call that outran its hold is repeated)
+BENCH_LAUNCHES = {
+    "fig3_competitive_ratios": (0, 12, 0, 0), "fig4b_cost_reduction_vs_window": (0, 16, 0, 0),
+    "fig4c_prediction_error": (0, 2, 0, 0), "fig4d_pmr_sweep": (0, 0, 0, 0),
+    "jax_provisioner_throughput": (0, 18, 0, 0), "batched_sweep_throughput": (0, 8, 0, 0),
+    "heterogeneous_throughput": (0, 12, 0, 0), "typed_fleet_throughput": (0, 12, 0, 0),
+    "pallas_scan_throughput": (8, 0, 0, 0), "mesh_grid_throughput": (0, 0, 0, 0),
+    "deferral_cost_vs_slack": (0, 16, 0, 0), "brick_simulator_throughput": (0, 0, 0, 0),
+    "jit_cache_reuse": (0, 5, 0, 0), "mesh_grid_compile_gate": (0, 0, 0, 0),
+    "telemetry_overhead": (1, 2, 0, 0), "flash_roofline": (0, 0, 0, 0),
+    "decode_roofline": (0, 0, 0, 0), "interpret_correctness": (0, 0, 3, 0),
+    "provision_grid_vs_lax_scan": (5, 0, 0, 0), "provision_grid_routed": (10, 0, 0, 0),
+    "provision_stream_long": (5, 9, 0, 0), "kernel_held_times": (21, 21, 21, 42),
+}
+
+
+def bench_phase(smi):
+    """Phase 21: ``repro_torch.bench`` in full on the card, in this process,
+    function by function, each with every launch counter set to 0 just
+    before and read just after; every check of the twins (they raise); the
+    rows' names == the reference's under the route mapping; the figure
+    functions again with ``kernel=False`` (the plain scan, timed with one
+    call a sweep), whose rows must print the same numbers.  Returns the
+    launches of K1 to K4."""
+    import torch
+
+    from repro_torch.bench import __main__ as bench
+    from repro_torch.bench import kernel_bench, paper_figs, provision_bench
+
+    t_phase = time.perf_counter()
+    rows, launches = [], [0, 0, 0, 0]
+    for name, fn in bench.sections(smoke=False, device="cuda"):
+        reset_launches()
+        t0, first = time.perf_counter(), len(rows)
+        fn(rows)
+        torch.cuda.synchronize()
+        counts = tuple(launch_counts().values())
+        want = BENCH_LAUNCHES[name]
+        if name == "kernel_held_times":
+            check(all(c >= w for c, w in zip(counts, want)),
+                  f"bench: {name} launched {counts}, expected at least {want}")
+        else:
+            check(counts == want, f"bench: {name} launched {counts}, expected {want}")
+        launches = [a + b for a, b in zip(launches, counts)]
+        print(f"bench: {name}: {len(rows) - first} rows, launches K1 {counts[0]} K2 "
+              f"{counts[1]} K3 {counts[2]} K4 {counts[3]}, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    for row in rows:
+        print(f"bench: {row}", flush=True)
+    names = [r.split(",")[0] for r in rows]
+    want = ([provision_bench.route_name(n, "cuda") for n in BENCH_REFERENCE_ROWS]
+            + [f"kernel_held_{k}_{v}" for k, v in kernel_bench.HELD_SHAPES.items()])
+    check(names == want, "bench: the rows are not the reference's under the route mapping: "
+          f"{sorted(set(names) ^ set(want))}")
+    print(f"bench: {len(rows)} rows, the reference's {len(BENCH_REFERENCE_ROWS)} under the "
+          "route mapping and the 4 held rows", flush=True)
+
+    # the figures on the plain scan: the same draws (the generators are
+    # seeded alike), so every row must print the same numbers
+    t0 = time.perf_counter()
+    timed, paper_figs.TIMED_CALLS = paper_figs.TIMED_CALLS, 1
+    try:
+        reset_launches()
+        plain = []
+        for _, fn in paper_figs.sections(device="cuda", kernel=False):
+            fn(plain)
+        torch.cuda.synchronize()
+    finally:
+        paper_figs.TIMED_CALLS = timed
+    check(not any(launch_counts().values()),
+          f"bench: the plain figures launched {launch_counts()}")
+    derived = {r.split(",")[0]: r.split(",", 2)[2] for r in rows}
+    for row in plain:
+        name, _, value = row.split(",", 2)
+        check(derived[name] == value,
+              f"bench: {name}: {derived[name]} on K2, {value} on the plain scan")
+    print(f"bench: the {len(plain)} figure rows equal the plain scan's on the card "
+          f"({time.perf_counter() - t0:.1f} s, one timed call a sweep)", flush=True)
+    print(f"bench: phase 21 took {time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    return dict(zip(("K1", "K2", "K3", "K4"), launches))
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -4771,13 +4887,14 @@ def main() -> int:
             return kernels.provision_scan_grid(**inputs, record=record, codes=record)
 
         ms = kernel_ms(k1, KERNEL_REPS)
+        held = held_ms(k1, KERNEL_REPS)
         call = cuda_ms(k1, KERNEL_REPS)
         plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(
             **inputs, record=record, codes=record), PLAIN_REPS)
         bound, bound_by, bound_old = bound_ms(inputs, record, want[0])
-        measured[name] = (ms, plain, bound, bound_by)
+        measured[name] = (ms, plain, bound, bound_by, held)
         print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
-              f"codes={record} equal=True kernel_ms={ms:.4f} call_ms={call:.4f} "
+              f"codes={record} equal=True kernel_ms={ms:.4f} held_ms={held:.4f} call_ms={call:.4f} "
               f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
               f"counting every update) launches={kernels.launches - launched_before} "
               f"(check and timing); {path_shares(paths)} [{smi}]", flush=True)
@@ -5036,6 +5153,7 @@ def main() -> int:
                       f"{path_shares(paths)}", flush=True)
                 continue
             ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
+            held = held_ms(k2, KERNEL_REPS)
             extra = ""          # the table route to the same waits, timed beside it
             if drawn is not table:
                 table_ms = kernel_ms(lambda: k2(table), KERNEL_REPS, name="stream_scan_kernel")
@@ -5043,12 +5161,12 @@ def main() -> int:
             call = cuda_ms(k2, KERNEL_REPS)
             bound, bound_by, bound_old = bound_ms(drawn, record, ons, stream=True)
             if t_chunk == STREAM_T_CHUNK:
-                k2_measured[name] = (ms, plain, bound, bound_by)
+                k2_measured[name] = (ms, plain, bound, bound_by, held)
             route = "uniforms" if drawn is not table else "table" \
                 if table["thresholds"].shape[1] != 1 else "constant row"
             print(f"stream kernel: K2 {name} t_chunk={t_chunk} ({route} route): "
                   f"G={want[0].shape[0]} T={N_SLOTS} N={N_LEVELS} horizon={table['horizon']} "
-                  f"equal=True kernel_ms={ms:.4f}{extra} call_ms={call:.4f} "
+                  f"equal=True kernel_ms={ms:.4f} held_ms={held:.4f}{extra} call_ms={call:.4f} "
                   f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
                   f"counting every update); {path_shares(paths)} [{smi}]", flush=True)
         print(f"stream kernel: K2 {name}: launches={kernels.stream_launches - launched_before} "
@@ -5262,6 +5380,9 @@ def main() -> int:
     # 20. the port's lint and the example twins (after phase 19)
     twins = examples_phase(smi)
 
+    # 21. the reference's benchmarks/ entry points as repro_torch.bench (after phase 20)
+    bench_launches = bench_phase(smi)
+
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
@@ -5269,12 +5390,13 @@ def main() -> int:
         entry["launches"] += train_k3 if kernel == "K3" else 0
         entry["launches"] += families["launches"][kernel] + vlm_encdec["launches"][kernel]
         entry["launches"] += steps_launches[kernel] + twins["launches"][kernel]
+        entry["launches"] += bench_launches[kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
                                    families["errs"][kernel], vlm_encdec["errs"][kernel],
                                    twins["errs"][kernel])
 
-    ms, plain, bound, bound_by = measured["A2+record"]
-    k2_ms_a2, k2_plain, k2_bound, k2_bound_by = k2_measured["A2"]
+    ms, plain, bound, bound_by, held = measured["A2+record"]
+    k2_ms_a2, k2_plain, k2_bound, k2_bound_by, k2_held = k2_measured["A2"]
     print(f"chip_smoke: the whole run took {time.perf_counter() - T_START:.1f} s [{smi}]",
           flush=True)
     print(f"device: {smi}")
@@ -5283,9 +5405,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan.cu",
         "replaces": "src/repro/kernels/provision_scan.py:184",
-        "launches": main_k1,
+        "launches": main_k1 + bench_launches["K1"],
         "max_abs_err": max_err,
         "ms": ms,
+        "held_ms": held,
         "plain_ms": plain,
         "bound_ms": bound,
         "bound_by": bound_by,
@@ -5296,9 +5419,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
         "launches": (main_k2 + stream_main_launches + eval_launches + stepper_launches
-                     + mesh_launches + twins["launches"]["K2"]),
+                     + mesh_launches + twins["launches"]["K2"] + bench_launches["K2"]),
         "max_abs_err": k2_err,
         "ms": k2_ms_a2,
+        "held_ms": k2_held,
         "plain_ms": k2_plain,
         "bound_ms": k2_bound,
         "bound_by": k2_bound_by,

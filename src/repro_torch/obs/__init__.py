@@ -7,7 +7,9 @@ alone, and the port's counterpart of its JAX watcher:
   timers with Chrome-trace and JSON-lines exports; no-op by default.
 * :mod:`repro_torch.obs.torchwatch` — :class:`CompileWatcher` over the
   kernel-library builds (the port's compile step), build-duration
-  forwarding, and the ``--profile`` hook on ``torch.profiler``.
+  forwarding, the ``--profile`` hook on ``torch.profiler``, and
+  :func:`~repro_torch.obs.torchwatch.held_ms`, the one timer of a kernel
+  call's device time.
 * :mod:`repro_torch.obs.provenance` — per-slot decision reason-code bitmask
   (demand-rise / wait-expired / peek-fired / toggle-off) and the
   schedule-reconstruction helpers that make the codes checkable.
@@ -28,6 +30,7 @@ from .provenance import (
 from .torchwatch import (
     CompileWatcher,
     engine_cache_size,
+    held_ms,
     install_monitoring,
     profile_to,
 )
@@ -54,6 +57,7 @@ __all__ = [
     "engine_cache_size",
     "explain_slot",
     "get_telemetry",
+    "held_ms",
     "install_monitoring",
     "profile_to",
     "reconstruct_schedule",

@@ -15,11 +15,14 @@ observable: ``available`` is True and ``added`` is never -1 after a region.
 :class:`~repro_torch.obs.telemetry.Telemetry` registry, and
 :func:`profile_to` wraps a region in ``torch.profiler`` and writes a Chrome
 trace — the hook behind ``python -m repro_torch.eval --profile DIR``.
+:func:`held_ms` is the one timer of a kernel call's device time: CUDA
+events around the call on a stream held until the host has queued it.
 """
 from __future__ import annotations
 
 import contextlib
 import pathlib
+import statistics
 
 from .telemetry import Telemetry, get_telemetry
 
@@ -142,3 +145,40 @@ def profile_to(directory=None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+#: the first hold of :func:`held_ms` (about 1 ms at 1.98 GHz) and the most
+#: times it may double
+HOLD_CYCLES, HOLD_DOUBLINGS = 1 << 21, 6
+
+
+def held_ms(fn, reps):
+    """Median device milliseconds of one ``fn()`` call over ``reps`` calls,
+    each between a pair of CUDA events while a spinning kernel
+    (``torch.cuda._sleep``) holds the stream until the host has queued the
+    whole call: the device span of the call's launches, without the host's
+    launch overhead between them.  A call is kept only if its start event
+    was still pending when the host had queued its end event; else the hold
+    doubles, up to ``HOLD_CYCLES << HOLD_DOUBLINGS``, and a call that still
+    outruns it (one that waits for the card) raises ``RuntimeError``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = HOLD_CYCLES, []
+    while len(times) < reps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            times.append(start.elapsed_time(end))
+            continue
+        cycles *= 2
+        if cycles > HOLD_CYCLES << HOLD_DOUBLINGS:
+            raise RuntimeError(f"held stream: the host had not queued the call after a "
+                               f"hold of {cycles // 2} cycles")
+    return statistics.median(times)
