@@ -90,17 +90,34 @@ Phases, one line or more each:
    ``repro_torch.eval.evaluate`` on the card: (a) the reference CLI's
    smoke grid (144 cells: 6 scenarios, A1/A2/A3 at noise 0 and 0.2 and
    windows 0, 2, 4, AQ-det/AQ-rand on a two-type fleet, A1 deferred at
-   slacks 0, 2, 6, 12), whose 48 cells that draw nothing (A1 at noise 0,
-   AQ-det, the deferral cells) must equal ``BENCH_provision.json`` (read
-   as JSON) on every field but ``wall_ms`` and ``compiles``; (b) its full
-   grid (a week of 10-minute slots, 16 traces, noise 0 to 0.5, windows
-   0..5: G = 384 cells per online block, 468 cells); both must pass the
+   slacks 0, 2, 6, 12) on the card's own draws, whose 48 cells that draw
+   nothing (A1 at noise 0, AQ-det, the deferral cells) must equal
+   ``BENCH_provision.json`` (read as JSON) on every field but ``wall_ms``
+   and ``compiles``, and which the twin of ``bench_diff.py``
+   (``repro_torch.bench.bench_diff``) diffs against that file for
+   information (another JAX's streams: it exits 1 and names the drawn
+   cells); (a') the smoke grid again on the reference's own random streams
+   (``ReferenceDraws``: its Threefry uniforms drawn on the card, its
+   normals from ``tests/fixtures/ref_eval_normals_jax0.9.0.npz``), all of
+   whose 144 cells must equal ``tests/fixtures/ref_eval_smoke_jax0.9.0.json``
+   on every field but ``wall_ms`` and ``compiles``, the twin exiting 0
+   against it; then four planted faults that must be rejected (the card's
+   report with a mean CR raised by 1e-3, a cell removed, a ``bound_ok``
+   turned false: the twin exits 1; ``ReferenceDraws`` at seed + 1: cells
+   differ); (b) the full grid (a week of 10-minute slots, 16 traces, noise
+   0 to 0.5, windows 0..5: G = 384 cells per online block, 468 cells) on
+   the reference's streams: the twin must exit 0 against
+   ``ref_eval_full_jax0.9.0.json``, every A1, AQ-det and deferral cell
+   must equal it on every field but the runtime ones, and the A2, A3 and
+   AQ-rand cells that are not bit-equal (K2's ``log1pf`` against XLA's
+   ``log1p``) are counted and printed; the wall time of the card's draws
+   and of each grid; all three grids must pass the
    CLI's gates (every cell ``bound_ok``, every deferral cell ``slo_ok``,
    the AQ-det 2d bound, the deferral cell count, the widest slack no
    dearer than rigid); in each grid, one online block per policy (A1,
    A2, A3; N = 149, G = 24 and 384), one typed AQ-rand cell (N = 192) and
-   the slack-12 deferral cell, rebuilt by the eval's spec builders from
-   the grid's seed, must give the same leaves (x, costs, ``group_cost``,
+   the slack-12 deferral cell, rebuilt by the eval's spec builders with
+   the run's draws, must give the same leaves (x, costs, ``group_cost``,
    the queue fields) through K2 as through the plain route, and K2's mean
    costs must equal the report's; (c) 54 K2 launches and no K1 launch per
    ``evaluate`` (the module counters and the telemetry counter), the wall
@@ -958,21 +975,37 @@ def attention_phases(smi):
 EVAL_SLACK = 6                   # phase 11 (d): the deferral check's slack
 EVAL_KINDS = (("policy", "eval/policy_block"), ("typed", "eval/typed_cell"),
               ("deferral", "eval/deferral_cell"), ("offline", "eval/offline_baseline"))
+# phase 11 (a') and (b): the reference's reports of the smoke and full grids and
+# its normals, made by repro.eval under this JAX version
+EVAL_FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+EVAL_JAX = "0.9.0"
+# phase 11 (b): the policies whose waits K2 draws from the uniforms with log1pf,
+# where XLA's log1p on the CPU may round otherwise; on the full grid only, the
+# twin's gate decides for their cells
+EVAL_DRAWN = ("A2", "A3", "AQ-rand")
+EVAL_RUNTIME = ("wall_ms", "compiles")
 
 
 def eval_phase(smi, counted, ab, dev):
-    """Phase 11: the competitive-ratio eval on the card — the smoke grid
-    held to ``BENCH_provision.json`` where it draws nothing, the full grid
-    through the CLI's gates, K2's launches per ``evaluate``, the wall time
-    of each block kind and the deferral layer's share, then deferred
-    ``provision()`` against its plain route.  Returns K2's launches on the
-    eval's main path (both grids)."""
+    """Phase 11: the competitive-ratio eval on the card — the smoke grid on
+    the card's own draws held to ``BENCH_provision.json`` where it draws
+    nothing, then the smoke and full grids on the reference's own random
+    streams (``ReferenceDraws``, drawn on the card) held cell for cell to
+    the reference's reports by the twin of ``bench_diff.py``, all through
+    the CLI's gates; K2's launches per ``evaluate``, the wall time of each
+    block kind and the deferral layer's share, four planted faults, then
+    deferred ``provision()`` against its plain route.  Returns K2's
+    launches on the eval's main path (the three grids)."""
+    import contextlib
     import dataclasses
+    import io
 
+    import numpy as np
     import torch
 
     from repro_torch import PAPER_COSTS, DeferralSpec, PolicySpec, ProvisionSpec, Workload
-    from repro_torch.eval import evaluate, harness
+    from repro_torch.bench import bench_diff
+    from repro_torch.eval import EvalReport, ReferenceDraws, evaluate, harness
     from repro_torch.eval.__main__ import FULL_GRID, SMOKE_GRID, check_gates
     from repro_torch.kernels import provision_scan as kernels
     from repro_torch.obs import telemetry_session
@@ -984,11 +1017,12 @@ def eval_phase(smi, counted, ab, dev):
     def key(c):
         return (c["policy"], c["scenario"], c["noise_std"], c["window"], c["slack"], c["rule"])
 
-    def run(name, grid):
-        """``evaluate(grid)`` on the card, counted and traced: the report, the
-        K2 launches, and the summed wall ms of each block kind's spans."""
+    def run(name, grid, draws=None):
+        """``evaluate(grid, draws=draws)`` on the card, counted and traced: the
+        report, the K2 launches, and the summed wall ms of each block kind's
+        spans."""
         with telemetry_session() as tel:
-            report, n1, n2 = counted(lambda: evaluate(grid))
+            report, n1, n2 = counted(lambda: evaluate(grid, draws=draws))
         k2_counter = tel.counter_value("kernels/provision_scan_stream_launches")
         spans = {r["name"]: r["sum"] for r in tel.metrics_records() if r["type"] == "histogram"}
         n_blocks = len(grid.policies) * len(grid.scenarios)
@@ -1035,12 +1069,12 @@ def eval_phase(smi, counted, ab, dev):
                   f"{what}: {f} differs between K2 and the plain route")
         return got
 
-    def hold(name, grid, report):
+    def hold(name, grid, report, draws=None):
         """One online block per policy, one typed AQ-rand cell and the widest
         slack's deferral cell of ``grid``, rebuilt by the eval's own spec
-        builders from the grid's seed (so with the same draws): K2 must equal
-        the plain route on every leaf, and K2's mean costs the report's, which
-        makes them the cells the eval ran."""
+        builders with the run's ``draws`` (None: the grid's seed): K2 must
+        equal the plain route on every leaf, and K2's mean costs the
+        report's, which makes them the cells the eval ran."""
         device = torch.device(grid.device)
         labels = harness._scenario_labels(grid.scenarios)
         demands = [generate(sc, grid.n_traces, grid.n_slots) for sc in grid.scenarios]
@@ -1061,8 +1095,8 @@ def eval_phase(smi, counted, ab, dev):
             si = pi % len(grid.scenarios)
             got = same(f"eval {name} {policy} block on {labels[si]}",
                        lambda pi=pi, si=si: harness._block_spec(
-                           grid, None, device, pi, on_card(si),
-                           harness._noise(grid, None, device, si, shape), n_levels))
+                           grid, draws, device, pi, on_card(si),
+                           harness._noise(grid, draws, device, si, shape), n_levels))
             for s, std in enumerate(grid.noise_stds):
                 for w, window in enumerate(grid.windows):
                     mean_is((policy, labels[si], std, window, None, None),
@@ -1070,21 +1104,74 @@ def eval_phase(smi, counted, ab, dev):
             held.append(f"{policy} on {labels[si]} (G={got.cost.numel()}, N={n_levels})")
         pi, si = grid.typed_policies.index("AQ-rand"), 3 % len(grid.scenarios)
         got = same(f"eval {name} typed AQ-rand on {labels[si]}",
-                   lambda: harness._typed_spec(grid, None, device, pi, demands[si]))
+                   lambda: harness._typed_spec(grid, draws, device, pi, demands[si]))
         mean_is(("AQ-rand", labels[si], 0.0, 0, None, None),
                 harness._numpy(got.group_cost).sum(axis=-1))
         held.append(f"AQ-rand on {labels[si]} (N={got.level_cost.shape[-1]})")
         slack, si = max(grid.deferral_slacks), 4 % len(grid.scenarios)
         policy = grid.deferral_policies[0]
         got = same(f"eval {name} deferral {policy} on {labels[si]} at slack {slack}",
-                   lambda: harness._deferral_spec(grid, None, device, 0, on_card(si), slack,
+                   lambda: harness._deferral_spec(grid, draws, device, 0, on_card(si), slack,
                                                   n_levels))
         mean_is((policy, labels[si], 0.0, 0, slack, grid.deferral_rule), harness._numpy(got.cost))
         held.append(f"deferral {policy} on {labels[si]} at slack {slack}")
         print(f"eval: {name} grid: K2 equals the plain route on every leaf, and the report's "
               f"mean costs, for " + "; ".join(held), flush=True)
 
-    # (a) the smoke grid, held to the checked-in report where nothing is drawn
+    work = os.path.join(ROOT, "build", "chip_smoke_eval")
+    os.makedirs(work, exist_ok=True)
+
+    def twin(baseline, report, label):
+        """The twin of ``bench_diff.py`` on ``baseline`` and ``report`` (a
+        report, or a dict of one, written under ``build/``): its exit code and
+        stdout lines."""
+        path = os.path.join(work, f"{label}.json")
+        if isinstance(report, dict):
+            with open(path, "w") as f:
+                json.dump(report, f)
+        else:
+            report.save(path)
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench_diff.main([baseline, path])
+        return rc, out.getvalue().splitlines()
+
+    def differing(got, want):
+        """The non-runtime fields on which two cells differ."""
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        return {f: (got[f], want[f]) for f in want if f not in EVAL_RUNTIME and got[f] != want[f]}
+
+    def fixture(kind):
+        return os.path.join(EVAL_FIXTURES, f"ref_eval_{kind}_jax{EVAL_JAX}.json")
+
+    normals = np.load(os.path.join(EVAL_FIXTURES, f"ref_eval_normals_jax{EVAL_JAX}.npz"))
+
+    class TimedDraws:
+        """``ReferenceDraws`` on the card, each draw waited for and timed."""
+
+        def __init__(self, seed, kind):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.draws = ReferenceDraws(seed, normals[kind], device="cuda")
+            torch.cuda.synchronize()
+            self.ms, self.calls = (time.perf_counter() - t0) * 1e3, 0
+
+        def normals(self, scenario_index, shape):
+            return self.draws.normals(scenario_index, shape)
+
+        def uniforms(self, stream, policy_index, shape):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.draws.uniforms(stream, policy_index, shape)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            check(all(u.is_cuda and u.dtype == torch.float32 and tuple(u.shape) == tuple(shape)
+                      for u in out), f"ReferenceDraws: uniforms of {shape} not on the card")
+            return out
+
+    # (a) the smoke grid on the card's own draws, held to the checked-in
+    # report where nothing is drawn
     smoke_grid = dataclasses.replace(SMOKE_GRID, device="cuda")
     smoke, n_smoke = run("smoke", smoke_grid)
     hold("smoke", smoke_grid, smoke)
@@ -1104,17 +1191,93 @@ def eval_phase(smi, counted, ab, dev):
         diff = {f: (got[f], want[f]) for f in want if got[f] != want[f]}
         check(not diff, f"eval smoke: cell {k} differs from BENCH_provision.json: {diff}")
     also = sum(1 for k in stored if k not in drawfree
-               and {f: v for f, v in ours[k].items() if f not in ("wall_ms", "compiles")}
-               == {f: v for f, v in stored[k].items() if f not in ("wall_ms", "compiles")})
+               and {f: v for f, v in ours[k].items() if f not in EVAL_RUNTIME}
+               == {f: v for f, v in stored[k].items() if f not in EVAL_RUNTIME})
     print(f"eval: smoke grid: the 48 cells that draw nothing (A1 at noise 0, AQ-det, deferral "
           f"A1) equal BENCH_provision.json on every field but wall_ms and compiles; "
           f"{also} of the other 96 equal it too (not required: their draws are the card's)",
           flush=True)
+    rc, lines = twin(os.path.join(ROOT, "BENCH_provision.json"), smoke, "smoke_own_draws")
+    flagged = [line for line in lines if line.startswith("REGRESSION")]
+    print(f"eval: smoke grid on the card's draws: the twin of bench_diff.py against "
+          f"BENCH_provision.json (another JAX's streams, informational) exits {rc}, "
+          f"{len(flagged)} cells flagged" + "".join(f"\n  {line}" for line in flagged),
+          flush=True)
 
-    # (b) and (c) the full grid
+    # (a') the smoke grid on the reference's streams, drawn on the card: every
+    # cell equals the reference's report
+    draws = TimedDraws(smoke_grid.seed, "smoke")
+    smoke_ref, n_smoke_ref = run("smoke (reference draws)", smoke_grid, draws)
+    hold("smoke (reference draws)", smoke_grid, smoke_ref, draws.draws)
+    want = EvalReport.load(fixture("smoke"))
+    check(len(want.cells) == len(smoke_ref.cells) == 144,
+          f"eval smoke, reference draws: {len(smoke_ref.cells)} cells, the reference "
+          f"{len(want.cells)}")
+    for got, ref in zip(smoke_ref.cells, want.cells):
+        diff = differing(got, ref)
+        check(not diff, f"eval smoke, reference draws: cell {key(dataclasses.asdict(ref))} "
+                        f"differs from the reference's report: {diff}")
+    rc, lines = twin(fixture("smoke"), smoke_ref, "smoke_reference_draws")
+    check(rc == 0, f"eval smoke, reference draws: the twin exits {rc}: {lines}")
+    print(f"eval: smoke grid on the reference's draws: all 144 cells equal "
+          f"ref_eval_smoke_jax{EVAL_JAX}.json on every field but wall_ms and compiles, and "
+          f"the twin of bench_diff.py exits 0; the card's draws {draws.calls} uniforms calls "
+          f"in {draws.ms:.1f} ms, the grid {smoke_ref.elapsed_s * 1e3:.1f} ms [{smi}]",
+          flush=True)
+
+    # the planted faults: each must make the twin exit 1 or the cells differ
+    base = json.loads(json.dumps(smoke_ref.to_dict()))
+    for label, edit in (
+            ("mean_cr raised by 1e-3", lambda d: d["cells"][40].update(
+                mean_cr=d["cells"][40]["mean_cr"] + 1e-3)),
+            ("a cell removed", lambda d: d["cells"].pop(77)),
+            ("a bound_ok turned false", lambda d: d["cells"][100].update(bound_ok=False))):
+        planted = json.loads(json.dumps(base))
+        edit(planted)
+        rc, lines = twin(fixture("smoke"), planted, "planted")
+        check(rc == 1 and any(line.startswith("REGRESSION") for line in lines),
+              f"eval: planted fault ({label}): the twin exits {rc}")
+        print(f"eval: planted fault ({label}) rejected: the twin exits 1 "
+              f"({[line for line in lines if line.startswith('REGRESSION')][0]})", flush=True)
+    # (without the deferral block, which draws nothing and takes most of the time)
+    wrong = ReferenceDraws(smoke_grid.seed + 1, normals["smoke"], device="cuda")
+    off = evaluate(dataclasses.replace(smoke_grid, deferral_slacks=None), draws=wrong)
+    refs = {key(dataclasses.asdict(c)): c for c in want.cells}
+    moved = sum(1 for got in off.cells if differing(got, refs[key(dataclasses.asdict(got))]))
+    drawn = sum(1 for c in want.cells if c.policy in EVAL_DRAWN)
+    check(0 < moved <= drawn,
+          f"eval: planted fault (ReferenceDraws at seed + 1): {moved} cells differ")
+    print(f"eval: planted fault (ReferenceDraws at seed + 1) rejected: {moved} of the "
+          f"{drawn} drawn cells differ from the reference's report", flush=True)
+
+    # (b) and (c) the full grid on the reference's streams, drawn on the card
     full_grid = dataclasses.replace(FULL_GRID, device="cuda")
-    full, n_full = run("full", full_grid)
-    hold("full", full_grid, full)
+    draws = TimedDraws(full_grid.seed, "full")
+    full, n_full = run("full (reference draws)", full_grid, draws)
+    hold("full (reference draws)", full_grid, full, draws.draws)
+    want = EvalReport.load(fixture("full"))
+    check(len(want.cells) == len(full.cells) == 468,
+          f"eval full: {len(full.cells)} cells, the reference {len(want.cells)}")
+    rc, lines = twin(fixture("full"), full, "full_reference_draws")
+    check(rc == 0, f"eval full, reference draws: the twin exits {rc}: "
+                   + "; ".join(line for line in lines if line.startswith("REGRESSION")))
+    equal, apart = 0, []
+    for got, ref in zip(full.cells, want.cells):
+        diff = differing(got, ref)
+        check(not diff or ref.policy in EVAL_DRAWN,
+              f"eval full: cell {key(dataclasses.asdict(ref))} differs from the reference's "
+              f"report: {diff}")
+        if diff:
+            apart.append(f"{key(dataclasses.asdict(ref))}: {diff}")
+        else:
+            equal += ref.policy in EVAL_DRAWN
+    drawn = sum(1 for c in want.cells if c.policy in EVAL_DRAWN)
+    print(f"eval: full grid on the reference's draws: the twin of bench_diff.py exits 0 "
+          f"against ref_eval_full_jax{EVAL_JAX}.json; every A1, AQ-det and deferral cell "
+          f"equals it on every field but wall_ms and compiles, and {equal} of the {drawn} "
+          f"A2, A3 and AQ-rand cells; the card's draws {draws.calls} uniforms calls in "
+          f"{draws.ms:.1f} ms, the grid {full.elapsed_s * 1e3:.1f} ms [{smi}]"
+          + "".join(f"\n  not bit-equal: {line}" for line in apart), flush=True)
 
     # (d) deferred provision() on the card against its plain route, every leaf
     for p in ("A1", "A2"):
@@ -1141,7 +1304,7 @@ def eval_phase(smi, counted, ab, dev):
               f"costs, backlog, max_delay, p99_delay, deadline_misses, unserved) equals the "
               f"plain route's; p99 delay {int(got.p99_delay.max())} slots", flush=True)
     print(f"eval: phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return n_smoke + n_full
+    return n_smoke + n_smoke_ref + n_full
 
 
 STEP_CHUNKS = (1, 64, 1024)      # phase 12: the serving loop's chunk sizes

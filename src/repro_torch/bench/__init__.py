@@ -8,7 +8,10 @@ scripts, run on the card (or with ``--device cpu`` on the CPU).
 * :mod:`repro_torch.bench.kernel_bench` — the kernels K1-K4 against their
   plain versions, the long traces of K2, the H100 rooflines and the held
   timer of each kernel (``benchmarks/kernel_bench.py``);
-* ``python -m repro_torch.bench`` — the CSV runner (``benchmarks/run.py``).
+* ``python -m repro_torch.bench`` — the CSV runner (``benchmarks/run.py``);
+* :mod:`repro_torch.bench.bench_diff` — the cell-by-cell regression gate of
+  two eval reports (``benchmarks/bench_diff.py``), run as
+  ``python -m repro_torch.bench.bench_diff BASELINE NEW``.
 
 Each module keeps the reference's function names and row names (but for
 the route word, ``provision_bench.ROUTE_WORDS``) and its checks: a failed
@@ -52,3 +55,12 @@ def generator(device, seed: int) -> torch.Generator:
     """A generator on ``device`` seeded with ``seed`` (one per call: a call
     consumes it, and a fresh one repeats the draws)."""
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def __getattr__(name: str):
+    """``BenchDiff`` and ``diff_reports`` of :mod:`.bench_diff`, imported on
+    first use (so ``python -m repro_torch.bench.bench_diff`` finds the
+    module unimported)."""
+    if name in ("BenchDiff", "diff_reports"):
+        return getattr(importlib.import_module(f"{__name__}.bench_diff"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

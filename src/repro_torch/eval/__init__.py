@@ -5,9 +5,13 @@ EvalReport``: empirical CR of every policy × scenario × noise-std × window
 cell — plus the typed-fleet and deferral blocks — against the offline
 optimum, checked against the paper's bounds, on the card by default.  The
 report has the reference's schema (``repro.eval/v5``);
-``python -m repro_torch.eval`` writes it.
+``python -m repro_torch.eval`` writes it.  ``evaluate(grid,
+draws=ReferenceDraws(...))`` draws the reference's own random streams
+(:mod:`.reference_draws`), so a report can equal the reference's cell for
+cell.
 """
 from .harness import TYPED_POLICIES, Draws, EvalGrid, evaluate
+from .reference_draws import ReferenceDraws
 from .report import (
     CR_QUANTILES,
     SCHEMA,
@@ -32,6 +36,7 @@ __all__ = [
     "Draws",
     "EvalGrid",
     "EvalReport",
+    "ReferenceDraws",
     "StreamingRow",
     "evaluate",
 ]

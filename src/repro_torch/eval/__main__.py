@@ -2,8 +2,8 @@
 
 Runs :func:`repro_torch.eval.evaluate` over the scenario library on the
 card and writes the :class:`~repro_torch.eval.report.EvalReport` (the
-reference's ``repro.eval/v5`` schema, so ``benchmarks/bench_diff.py`` diffs
-it against ``BENCH_provision.json``)::
+reference's ``repro.eval/v5`` schema, so
+``python -m repro_torch.bench.bench_diff`` diffs it against ``BENCH_provision.json``)::
 
     PYTHONPATH=src python -m repro_torch.eval --smoke              # the card
     PYTHONPATH=src python -m repro_torch.eval --smoke --device cpu  # the CPU

@@ -2,8 +2,9 @@
 
 ``EvalReport`` is the serialized deliverable of
 :func:`repro_torch.eval.evaluate` — the same schema as the reference's
-``BENCH_provision.json``, so ``benchmarks/bench_diff.py`` reads the port's
-reports unchanged.  A copy of ``repro.eval.report`` (stdlib only).  It is plain
+``BENCH_provision.json``, so :mod:`repro_torch.bench.bench_diff` (and the
+reference's ``benchmarks/bench_diff.py``) reads the port's reports
+unchanged.  A copy of ``repro.eval.report`` (stdlib only).  It is plain
 dataclasses + ``json`` so the artifact diffs cleanly across PRs and loads
 without JAX: every (policy, scenario, noise_std, window) grid cell carries
 its empirical competitive-ratio statistics against the offline optimum and

@@ -12,6 +12,7 @@ too.
 """
 import dataclasses
 import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -27,12 +28,16 @@ import repro_torch.eval as peval  # noqa: E402
 from benchmarks import bench_diff  # noqa: E402
 from benchmarks.cr_eval import SMOKE_GRID as REF_SMOKE  # noqa: E402
 from repro.core.jax_provision import _uniforms as ref_uniforms  # noqa: E402
+from repro_torch.bench import bench_diff as twin_diff  # noqa: E402
 from repro_torch.eval import __main__ as cli  # noqa: E402
 from repro_torch.eval import harness  # noqa: E402
 from repro_torch.obs import telemetry_session  # noqa: E402
 from repro_torch.scenarios import Scenario  # noqa: E402
 
 RUNTIME = ("wall_ms", "compiles")
+FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
+SMOKE_FIXTURE = FIXTURES / "ref_eval_smoke_jax0.9.0.json"
+NORMALS = FIXTURES / "ref_eval_normals_jax0.9.0.npz"
 
 
 class ReferenceDraws:
@@ -121,6 +126,46 @@ def test_bench_diff_passes_between_the_two_reports(smoke_pair, tmp_path, capsys)
     assert _cells(reval.EvalReport.load(new)) == _cells(got)
     assert bench_diff.main([str(base), str(new)]) == 0
     assert "bench_diff: ok" in capsys.readouterr().err
+
+
+def test_smoke_fixture_equals_the_reference_report(smoke_pair):
+    """``tests/fixtures/ref_eval_smoke_jax0.9.0.json`` is
+    ``repro.eval.evaluate(SMOKE_GRID)``'s report: every cell but the runtime
+    columns, and the grid."""
+    want, _, _ = smoke_pair
+    stored = reval.EvalReport.load(SMOKE_FIXTURE)
+    assert stored.schema == want.schema
+    assert _cells(stored) == _cells(want)
+    assert stored.grid == json.loads(json.dumps(want.grid))
+    assert stored.streaming is None and want.streaming is None
+
+
+def test_reference_draws_are_jax_draws_on_every_smoke_call(smoke_pair, tmp_path, capsys):
+    """The port's own ``ReferenceDraws`` answers every draw the smoke grid
+    asked of jax's with the same bits, so its smoke report is the one above:
+    every cell equals the fixture's, and the twin of ``bench_diff.py`` exits
+    0 on the two."""
+    _, got, draws = smoke_pair
+    normals = np.load(NORMALS)["smoke"]
+    mine = peval.ReferenceDraws(REF_SMOKE.seed, normals, device="cpu")
+    jaxs = ReferenceDraws(REF_SMOKE.seed)
+    calls = sorted(set(draws.calls))
+    assert len(calls) == 6 + 3
+    for call in calls:
+        if call[0] == "normals":
+            pairs = [(mine.normals(*call[1:]), jaxs.normals(*call[1:]))]
+        else:
+            pairs = zip(mine.uniforms(*call[1:]), jaxs.uniforms(*call[1:]))
+        for m, j in pairs:
+            assert m.dtype == torch.float32 and m.device.type == "cpu"
+            assert np.array_equal(m.numpy().view(np.uint32),
+                                  np.asarray(j, np.float32).view(np.uint32)), call
+    fixture = peval.EvalReport.load(SMOKE_FIXTURE)
+    assert got.cells == fixture.cells
+    new = tmp_path / "port.json"
+    got.save(new)
+    assert twin_diff.main([str(SMOKE_FIXTURE), str(new)]) == 0
+    assert capsys.readouterr().err.splitlines() == ["bench_diff: ok"]
 
 
 def test_draws_are_asked_once_per_block(smoke_pair):
