@@ -16,7 +16,9 @@ llama4-scout-17b-a16e, xlstm-1.3b), the vlm and encoder-decoder ones
 elastic restore (``reshard_restore``, llama3.2-1b at full width across
 four ranks), the sharded steps (``launch.steps``, the same model and
 hymba-1.5b on a (2, 2) mesh), the four example twins
-(``examples/*_torch.py``) and the benchmarks (``repro_torch.bench``) of
+(``examples/*_torch.py``), the benchmarks (``repro_torch.bench``), and
+yi-9b and qwen3-moe-30b-a3b served whole (48 layers each) through the
+engine and the launcher ``repro_torch.launch.serve`` of
 ``repro_torch``; the first
 two at the size of the largest fleet of ``benchmarks/provision_bench.py``:
 N = 4096 levels (servers), T = 1008 ten-minute slots (one week), B = 8 synthetic
@@ -229,8 +231,9 @@ Phases, one line or more each:
    distances and their routing flips (top-k sets that differ between the
    routes) printed, the launch counts, prefill-then-decode == ``logits_fn``
    in float32 with dropless capacity (as the reference's consistency test),
-   the bench, and for llama4-scout K3 (B 4, S 192, 40/8 heads of 128) and
-   K4 (200 slots at 193) timed as in (a).  (c) xlstm-1.3b whole (48 layers,
+   for llama4-scout the bench (qwen3-moe's runs whole in phase 22) and K3
+   (B 4, S 192, 40/8 heads of 128) and K4 (200 slots at 193) timed as in
+   (a).  (c) xlstm-1.3b whole (48 layers,
    every 8th an sLSTM; 5,845,649,792 parameters), B 2, prompt 192, 16 new
    tokens: no K3 or K4 launch in the whole part, prefill-then-decode ==
    ``logits_fn`` within 1e-4 in float32, ``generate`` and the bench.  Each
@@ -337,9 +340,9 @@ Phases, one line or more each:
    launches on every rank as without it, and one float32 train step held
    as above; its prefill and train ms per rank printed beside the others;
    (e) in the same
-   world after (b), hymba-1.5b at full width, 8 of its 32 layers, by the
+   world after (b), hymba-1.5b at full width, 4 of its 32 layers, by the
    same rules on B 2, a prompt of 2304 tokens (past its
-   2048-token window and even: the ring wraps, the sequence splits) and 4
+   2048-token window and even: the ring wraps, the sequence splits) and 2
    decode steps: its 25 query and 5 KV heads do not divide ``"model"``, so
    attention takes the sequence layout with K3 under the window on each
    rank's batch rows and K4 over the ring's valid slots gathered to the
@@ -393,6 +396,43 @@ Phases, one line or more each:
    rows' names must be the reference's under the route mapping, and the
    figures run again on the plain scan (``kernel=False``) must print the
    same numbers; the phase's wall seconds.
+22. whole (run last, after 9 and 10, when no tensor of an earlier phase is
+   left: each part fails if more than 1 GB is still allocated, naming the
+   live tensors) — two published models served whole, random weights from
+   ``SEED``, bf16 serving, the card's free memory printed first: (a)
+   yi-9b (48 layers, d 4096, 32/4 heads of 128; 8,829,407,232 parameters),
+   its float32 tree and the served tree from it (52 GB together), B 1, a
+   prompt of 4096 and 16 new tokens (K3 at phase 9's headline shape in
+   every layer) by phase 13's rules (float32 kernel route == plain route
+   within 1e-4 per row and greedy tokens equal; bf16 kernel route no
+   farther from the float32 model than 1.25 times the plain route, tokens
+   equal where the plain top-2 margin exceeds 2e-2), 48 K3 launches per
+   prefill and 96 K4 per decode step, the engine bench, and K3 and K4 on
+   layer 0's projections at the stream's shapes held to their plain
+   versions and timed (``held_ms``) beside phases 9's and 10's
+   alone-times, their bounds and SDPA; (b) qwen3-moe-30b-a3b, all 48
+   layers, its served tree drawn directly (``init_served_params``; no
+   float32 copy can exist), whose peak while drawn must stay within the
+   tree plus 3 GB and whose experts' ``.to(bf16)`` must be a no-op; phase
+   15 (b)'s stream (B 4, prompt 192, 8 new tokens) teacher-forced layer by
+   layer (``repro_torch.serving.layer_hold.layers_held``: each layer fed
+   the plain route's residual stream on both routes, the kernel route's
+   attention output within 2e-2 of each row's largest value on every row,
+   its layer output on the rows whose routing is the same, the rest
+   counted), two planted faults that
+   the hold must reject (one layer's K3 given the next layer's keys and
+   values; K4 given lengths one short), the whole stream on both routes
+   (the logits' distance, the routing flips and the token agreement
+   printed, not held), 48 K3 launches per prefill and 96 K4 per decode
+   step, and the bench; (c) the launcher ``repro_torch.launch.serve.main``
+   in this process: ``--arch qwen3-moe-30b-a3b --real-tokens --slots 4``
+   must print the report of the run without ``--real-tokens``, with tokens,
+   48 K3 launches per session and 96 K4 per decode step, and peak within
+   what its fit check counts; its fit check told the card has 60 GB free
+   must refuse the arch; deepseek-67b, llama4-scout-17b-a16e and
+   command-r-plus-104b must exit 2, naming the bytes needed and free,
+   with nothing allocated.  Each part's peak memory and seconds, and the
+   phase's wall seconds, are printed.
 
 9. flash — kernel K3 through the public wrapper
    ``repro_torch.kernels.ops.flash_attention`` (default blocks 512/512) at
@@ -432,7 +472,8 @@ The line before the last is a JSON object with K1's to K4's numbers (K2's
 launches include the eval's, the stepper's and every rank's of phase 17, K3's and K4's the serving
 paths' of phases 13, 15 and 16 and rank 0's bf16 main paths of phase 19,
 K3's the no-grad losses of phases 14 and 16, all three the twins' of
-phase 20, and all four the bench's of phase 21) and, beside the CUPTI
+phase 20, all four the bench's of phase 21, and K3's and K4's the whole
+models' main paths and the launcher's engines of phase 22) and, beside the CUPTI
 ``ms``, each kernel's ``held_ms`` at the same shapes (``repro_torch.obs.
 torchwatch.held_ms``: CUDA events on a stream held until the host has
 queued the call, the one timer comparable across runs); the
@@ -2107,21 +2148,14 @@ def family_weights(cfg, dev, tag="families"):
     served bf16 copy; prints their size."""
     import torch
 
-    from repro_torch.models import init_params, param_count
+    from repro_torch.models import init_params, param_count, param_leaves
     from repro_torch.serving.engine import serving_params
 
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     shared = serving_params(params, cfg, dev)
     torch.cuda.synchronize()
-
-    def leaves(tree):
-        if isinstance(tree, torch.Tensor):
-            return [tree]
-        items = tree.values() if isinstance(tree, dict) else tree
-        return [x for v in items for x in leaves(v)]
-
-    n = sum(x.numel() for x in leaves(params))
+    n = sum(x.numel() for _, x in param_leaves(params))
     check(n == param_count(cfg), f"{tag}: {cfg.name} parameter count {n}")
     print(f"{tag}: {cfg.name} (layers={cfg.n_layers} d={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} "
@@ -2468,13 +2502,14 @@ def k3_timed(q, k, v, causal, what, smi, tag, window=0):
     nbytes = q.element_size() * 2 * b * hd * (s_q * h + s_kv * kvh)   # q, k, v read; out written
     bound, bound_by = attention_bound_ms(flops, nbytes, dt)
     m = dict(err=err, ms=kernel_ms(run, KERNEL_REPS, name=flash.k3_instance(q.dtype, hd)[0]),
-             call=cuda_ms(run, KERNEL_REPS), plain=cuda_ms(plain, PLAIN_REPS),
-             library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
+             held=held_ms(run, KERNEL_REPS), call=cuda_ms(run, KERNEL_REPS),
+             plain=cuda_ms(plain, PLAIN_REPS), library=cuda_ms(library, KERNEL_REPS),
+             bound=bound, bound_by=bound_by)
     print(f"{tag}: K3 {what}: B={b} S_q={s_q} S_kv={s_kv} H={h} KVH={kvh} hd={hd} "
           f"causal={causal} window={window}: close=True max_abs_err={err:.3e} "
           f"max_row_rel_err={rel:.3e} "
-          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
-          "bound_ms={bound:.4f} ({bound_by})".format(**m)
+          "kernel_ms={ms:.4f} held_ms={held:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
+          "library_ms={library:.4f} bound_ms={bound:.4f} ({bound_by})".format(**m)
           + f" ({flops / 1e9:.2f} GFLOP, {flops / m['ms'] / 1e9:.1f} TFLOP/s; SDPA "
           f"{flops / m['library'] / 1e9:.1f}) [{smi}]", flush=True)
     return m, want
@@ -2508,19 +2543,19 @@ def k4_timed(q, kc, vc, lengths, what, smi, tag):
     bound, bound_by = attention_bound_ms(4 * h * hd * valid, nbytes, dt)
     m = dict(err=err, ms=kernel_ms(run, KERNEL_REPS, name=("decode_split",
                                                             "decode_combine_kernel")),
-             call=cuda_ms(run, KERNEL_REPS),
+             held=held_ms(run, KERNEL_REPS), call=cuda_ms(run, KERNEL_REPS),
              plain=cuda_ms(lambda: decode.decode_attention_plain(q, kc, vc, lengths),
                            PLAIN_REPS),
              library=cuda_ms(library, KERNEL_REPS), bound=bound, bound_by=bound_by)
     print(f"{tag}: K4 {what}: B={b} slots={slots} lengths={sorted(set(lengths.tolist()))} "
           f"H={h} KVH={kvh} hd={hd}: close=True max_abs_err={err:.3e} max_row_rel_err={rel:.3e} "
-          "kernel_ms={ms:.4f} call_ms={call:.4f} plain_ms={plain:.4f} library_ms={library:.4f} "
-          "bound_ms={bound:.4f} ({bound_by})".format(**m)
+          "kernel_ms={ms:.4f} held_ms={held:.4f} call_ms={call:.4f} plain_ms={plain:.4f} "
+          "library_ms={library:.4f} bound_ms={bound:.4f} ({bound_by})".format(**m)
           + f" ({nbytes / 1e6:.2f} MB) [{smi}]", flush=True)
     return m
 
 
-def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
+def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out, tag="families"):
     """K3 at a prefill of (b, s) and K4 over ``slots`` cache slots at
     ``lengths``, on layer 0's own projections, against their plain versions
     (bf16), timed beside their bounds, plain versions and SDPA
@@ -2544,12 +2579,11 @@ def family_kernels(cfg, shared, b, s, slots, lengths, dev, smi, what, out):
         return attention._qkv(h, shared["blocks"][0]["attn"], cfg, pos)
 
     q, k, v = projections(s)
-    measured = {"K3": k3_timed(q, k, v, True, f"{what} prefill", smi, "families",
+    measured = {"K3": k3_timed(q, k, v, True, f"{what} prefill", smi, tag,
                                window=attn_window(cfg))[0]}
     q, kc, vc = projections(slots)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    measured["K4"] = k4_timed(q[:, -1].contiguous(), kc, vc, lens, f"{what} decode", smi,
-                              "families")
+    measured["K4"] = k4_timed(q[:, -1].contiguous(), kc, vc, lens, f"{what} decode", smi, tag)
     out["times"][what] = measured
     for kernel, m in measured.items():
         out["errs"][kernel] = max(out["errs"][kernel], m["err"])
@@ -2701,8 +2735,8 @@ def moe_part(smi, dev, rng, out):
               f"{flips} tokens' expert sets differ between the two (near-ties), the "
               f"{exempt} rows from each one's first on not held", flush=True)
         del k32
-        family_bench(cfg, shared, prompt, MOE_NEW, dev, smi, arch)
-        if arch.startswith("llama4"):
+        if arch.startswith("llama4"):       # qwen3-moe's bench runs whole in phase 22 (b)
+            family_bench(cfg, shared, prompt, MOE_NEW, dev, smi, arch)
             family_kernels(cfg, shared, MOE_BATCH, MOE_PROMPT, MOE_PROMPT + MOE_NEW,
                            (MOE_PROMPT + 1,) * MOE_BATCH, dev, smi, arch, out)
         family_done(arch, resident, t0)
@@ -3724,10 +3758,11 @@ STEPS_ARCH = "llama3.2-1b"       # phase 19 (b), (c): full width, random from SE
 STEPS_HYBRID = "hymba-1.5b"
 STEPS_WORLD, STEPS_MESH, STEPS_AXES = 4, (2, 2), ("data", "model")
 # (b), (c), (e): each model's depth, cut from 16 and 32 layers so that the
-# whole script stays in its time on a slow host (every check stands)
-STEPS_LAYERS = {STEPS_ARCH: 8, STEPS_HYBRID: 8}
-# (b), (e): the prefill's token and 8 (hymba: 4) decode steps
-STEPS_NEW = {STEPS_ARCH: 9, STEPS_HYBRID: 5}
+# whole script stays in its time on a slow host (every check stands; hymba's
+# cut to 4 to pay for phase 22's whole models)
+STEPS_LAYERS = {STEPS_ARCH: 8, STEPS_HYBRID: 4}
+# (b), (e): the prefill's token and 8 (hymba: 2) decode steps
+STEPS_NEW = {STEPS_ARCH: 9, STEPS_HYBRID: 3}
 # per model: the serving stream's (batch, prompt, cache slots) and the float32
 # training's (batch, sequence, steps); llama3.2-1b's stream is phase 13's,
 # hymba-1.5b's prompt is past its 2048-token window and even, so that its ring
@@ -4925,6 +4960,314 @@ def bench_phase(smi):
     return dict(zip(("K1", "K2", "K3", "K4"), launches))
 
 
+WHOLE = "whole"                  # phase 22's lines
+WHOLE_DENSE = "yi-9b"            # (a): K3 at phase 9's headline shape in all 48 layers
+WHOLE_DENSE_STREAM = (1, 4096, 16)                  # B, prompt, new tokens
+WHOLE_MOE = "qwen3-moe-30b-a3b"  # (b): 48 layers, the served tree drawn directly
+WHOLE_MOE_STREAM = (MOE_BATCH, MOE_PROMPT, MOE_NEW)  # phase 15 (b)'s
+# (b): the draw's peak above the served tree: one leaf's float32 draw (an
+# expert block is 0.81 GB) and its cast, with room for the allocator
+WHOLE_DRAW_SLACK = 3e9
+# (b): each layer fed the plain route's residual stream on both routes, the
+# kernel route's rows within this share of the plain route's row's largest
+# value (bf16; the attention sublayer's every row, the layer's output where
+# the two routes picked the same experts)
+LAYER_TOL = 2e-2
+WHOLE_LAUNCHER_SLOTS = 4         # (c): 8 sessions of the 48-layer MoE engines
+WHOLE_TOO_BIG = ("deepseek-67b", "llama4-scout-17b-a16e", "command-r-plus-104b")
+WHOLE_FIT_FREE = 60 * 10 ** 9    # (c): the fit check told the card has this much free
+WHOLE_RESIDENT = 10 ** 9         # what earlier phases may leave allocated when phase 22 starts
+
+
+def launcher_run(argv):
+    """``repro_torch.launch.serve.main(argv)`` in this process: its exit
+    code, standard output and standard error."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = serve.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def whole_start():
+    """Phase 22's parts start on an empty card: nothing of an earlier part
+    or phase allocated beyond ``WHOLE_RESIDENT`` (the live CUDA tensors are
+    named where it is), the cache emptied, the peak reset."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    resident, t0 = family_start()
+    if resident > WHOLE_RESIDENT:
+        live = sorted(((o.numel() * o.element_size(), tuple(o.shape), str(o.dtype))
+                       for o in gc.get_objects()
+                       if isinstance(o, torch.Tensor) and o.is_cuda), reverse=True)
+        raise SmokeFailure(f"{WHOLE}: {resident / 1e9:.2f} GB still allocated when phase 22 "
+                           f"starts; the largest live tensors: {live[:12]}")
+    return resident, t0
+
+
+def whole_dense_part(smi, dev, rng, out, alone):
+    """Phase 22 (a): yi-9b whole by phase 13's rules, its bench, and K3 and
+    K4 at its serving shapes beside phases 9's and 10's alone-times."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    resident, t0 = whole_start()
+    cfg = get_config(WHOLE_DENSE)
+    params, shared = family_weights(cfg, dev, tag=WHOLE)
+    b, s, n_new = WHOLE_DENSE_STREAM
+    prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    what = f"{WHOLE_DENSE} whole ({cfg.n_layers} layers) B={b} prompt={s} new={n_new}"
+    _, k32, k3, k4 = routes_held(cfg, params, shared, prompt, n_new, dev, smi, what, tag=WHOLE)
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    del k32, params
+    family_bench(cfg, shared, prompt, n_new, dev, smi, what, tag=WHOLE)
+    family_kernels(cfg, shared, b, s, s + n_new, (s + 1,) * b, dev, smi, WHOLE_DENSE, out,
+                   tag=WHOLE)
+    for kernel, entry in zip(("K3", "K4"), alone):
+        m = out["times"][WHOLE_DENSE][kernel]
+        print(f"{WHOLE}: {kernel} at {WHOLE_DENSE}'s serving shape held_ms={m['held']:.4f} "
+              f"(bound {m['bound']:.4f}, {m['bound_by']}; SDPA {m['library']:.4f}); alone in "
+              f"phase {9 if kernel == 'K3' else 10} at its headline shape held_ms="
+              f"{entry['held_ms']:.4f} (bound {entry['bound_ms']:.4f}; SDPA "
+              f"{entry['library_ms']:.4f}) [{smi}]", flush=True)
+    del shared
+    family_done(WHOLE_DENSE, resident, t0, tag=WHOLE)
+
+
+def whole_moe_part(smi, dev, rng, out):
+    """Phase 22 (b): qwen3-moe-30b-a3b, all 48 layers, served tree drawn
+    directly: the draw's peak, the per-layer hold and its planted faults,
+    the whole stream on both routes (printed), the main path's launches and
+    the bench."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_served_params, served_param_bytes
+    from repro_torch.serving import InferenceEngine
+    from repro_torch.serving.layer_hold import LayerHoldError, layers_held
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    resident, t0 = whole_start()
+    cfg = get_config(WHOLE_MOE)
+    tree = served_param_bytes(cfg)
+    t1 = time.perf_counter()
+    shared = init_served_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t1
+    held = torch.cuda.memory_allocated() - resident
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(tree <= held and peak <= tree + WHOLE_DRAW_SLACK,
+          f"{WHOLE}: {WHOLE_MOE}'s served tree of {tree / 1e9:.2f} GB holds {held / 1e9:.2f} GB "
+          f"and peaked at {peak / 1e9:.2f} GB while drawn, above {WHOLE_DRAW_SLACK / 1e9:.0f} "
+          "GB more")
+    experts = shared["blocks"][0]["moe"]["wi"]
+    check(experts.dtype == cfg.compute_dtype and experts.to(cfg.compute_dtype) is experts,
+          f"{WHOLE}: {WHOLE_MOE}'s experts are not stored in the compute dtype")
+    print(f"{WHOLE}: {WHOLE_MOE} ({cfg.n_layers} layers, d={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} hd={cfg.head_dim} experts={cfg.n_experts} "
+          f"top_k={cfg.top_k} moe_d_ff={cfg.moe_d_ff} vocab={cfg.vocab_size}): served tree drawn "
+          f"leaf by leaf in {draw_s:.2f} s, {held / 1e9:.3f} GB allocated ({tree / 1e9:.3f} GB "
+          f"by served_param_bytes), peak while drawn {peak / 1e9:.3f} GB (held: <= the tree + "
+          f"{WHOLE_DRAW_SLACK / 1e9:.0f} GB; the float32 tree would be 120.32 GB); the "
+          f"experts' .to(bf16) is a no-op [{smi}]", flush=True)
+    b, s, n_new = WHOLE_MOE_STREAM
+    prompt = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    what = f"{WHOLE_MOE} whole ({cfg.n_layers} layers) B={b} prompt={s} new={n_new}"
+
+    # the per-layer hold, teacher-forced, then its planted faults
+    t1 = time.perf_counter()
+    stats = layers_held(cfg, shared, prompt, n_new, dev, LAYER_TOL, what)
+    print(f"{WHOLE}: {what} bf16, each layer fed the plain route's residual stream on both "
+          f"routes ({cfg.n_layers} layers x (prefill + {n_new - 1} decode steps)): the kernel "
+          f"route's attention output max_row_rel_err={stats['attn']:.3e} on every row, its "
+          f"layer output {stats['out']:.3e} on {stats['rows'] - stats['left_out']} of "
+          f"{stats['rows']} rows (tol {LAYER_TOL}); {stats['left_out']} rows left out whose "
+          f"routing (the top-k set, or which of its picks the capacity keeps) differs between "
+          f"the routes; {time.perf_counter() - t1:.1f} s "
+          f"[{smi}]", flush=True)
+    target = cfg.n_layers // 2
+    nxt = shared["blocks"][target + 1]["attn"]
+
+    def next_kv(kind, step, layer, p):
+        if kind != "prefill" or layer != target:
+            return p
+        return dict(p, attn=dict(p["attn"], wk=nxt["wk"], wv=nxt["wv"]))
+
+    decode_attention = ops.decode_attention
+
+    def one_short(q, k, v, lengths, **kw):
+        return decode_attention(q, k, v, lengths - 1, **kw)
+
+    rejected, t1 = [], time.perf_counter()
+    # (fault, its kernel route's params, the run's tokens, where the hold must fail)
+    for name, fault, steps, where in (
+            (f"layer {target}'s K3 given layer {target + 1}'s keys and values", next_kv, 1,
+             f"prefill step 0 layer {target}: "),
+            ("K4 given lengths one short", None, 2, "decode step 0 layer ")):
+        try:
+            if fault is None:
+                ops.decode_attention = one_short
+            layers_held(cfg, shared, prompt, steps, dev, LAYER_TOL, what, fault=fault)
+        except LayerHoldError as e:
+            check(where in str(e) and "the kernel route's attention output is" in str(e),
+                  f"{WHOLE}: the planted fault {name} failed elsewhere: {e}")
+            rejected.append(f"{name} ({str(e).split(' is ')[-1].split(' from ')[0]})")
+        else:
+            raise SmokeFailure(f"{WHOLE}: the per-layer hold took the planted fault: {name}")
+        finally:
+            ops.decode_attention = decode_attention
+    print(f"{WHOLE}: {WHOLE_MOE}: planted faults rejected by the per-layer hold: "
+          + "; ".join(rejected) + f"; {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # the whole stream on both routes, printed; the kernel route counted
+    routes, t1 = MoeRoutes(), time.perf_counter()
+    with routes.installed():
+        routes.open()
+        picks, plain = InferenceEngine(cfg, shared, max_batch=b, max_seq=s + n_new, device=dev,
+                                       kernel=False)._generate(prompt, n_new, keep_logits=True)
+        routes.close()
+        torch.cuda.synchronize()
+        flash.flash_launches = decode.decode_launches = 0
+        routes.open()
+        kernel_picks, kernel = InferenceEngine(cfg, shared, max_batch=b, max_seq=s + n_new,
+                                               device=dev)._generate(
+            prompt, n_new, forced=picks, keep_logits=True)
+        routes.close()
+        torch.cuda.synchronize()
+        k3, k4 = flash.flash_launches, decode.decode_launches
+    per_prefill, per_step = attention_launches(cfg)
+    check(k3 == per_prefill and k4 == per_step * (n_new - 1),
+          f"{WHOLE}: {what} bf16 main path launched K3 {k3} and K4 {k4} times for one prefill "
+          f"and {n_new - 1} decode steps, not {per_prefill} and {per_step} per step")
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    between, agreed, _ = logits_held(kernel, kernel_picks, plain, picks, math.inf, math.inf,
+                                     (b, cfg.vocab_size), f"{WHOLE}: {what} bf16")
+    flips = sum(int((x != y).any(-1).sum()) for x, y in zip(*routes.runs))
+    tokens = sum(x.shape[0] * x.shape[1] for x in routes.runs[0])
+    print(f"{WHOLE}: {what} bf16 (served), whole stream: kernel route vs plain route "
+          f"max_row_rel_err={between:.3e}; greedy tokens agree in {agreed} of {b * n_new}; "
+          f"{flips} of {tokens} (layer, token) routings differ between the routes (printed, "
+          f"not held); main path K3 launches={k3} ({k3} per prefill) K4 launches={k4} "
+          f"({k4 // (n_new - 1)} per decode step); {time.perf_counter() - t1:.1f} s [{smi}]",
+          flush=True)
+    del plain, kernel, routes
+    family_bench(cfg, shared, prompt, n_new, dev, smi, what, tag=WHOLE)
+    del shared
+    family_done(WHOLE_MOE, resident, t0, tag=WHOLE)
+
+
+def whole_launcher_part(smi, dev, out):
+    """Phase 22 (c): ``repro_torch.launch.serve.main`` in this process:
+    qwen3-moe-30b-a3b's engines whole (the report == the run without
+    engines), the three archs one card cannot hold refused with nothing
+    allocated, and the fit check told the card has 60 GB free."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    flash = importlib.import_module("repro_torch.kernels.flash_attention")
+    decode = importlib.import_module("repro_torch.kernels.decode_attention")
+    resident, t0 = whole_start()
+    cfg = get_config(WHOLE_MOE)
+    need = serve.serving_need(cfg)
+    refusal = serve.fit_refusal(WHOLE_MOE, need, WHOLE_FIT_FREE)
+    check(refusal is not None and f"{need['total']:,} bytes" in refusal,
+          f"{WHOLE}: the fit check took {WHOLE_MOE} on {WHOLE_FIT_FREE / 1e9:.0f} GB free")
+    free = torch.cuda.mem_get_info()[0]
+    print(f"{WHOLE}: launcher: {WHOLE_MOE} needs {need['total'] / 1e9:.2f} GB (served "
+          f"weights {need['weights'] / 1e9:.2f}, cache {need['cache'] / 1e9:.4f}, draw "
+          f"{need['draw'] / 1e9:.2f}, reserve {need['reserve'] / 1e9:.2f}); the fit check "
+          f"refuses it on {WHOLE_FIT_FREE / 1e9:.0f} GB free; the card has {free / 1e9:.2f} GB "
+          f"free [{smi}]", flush=True)
+    argv = ["--arch", WHOLE_MOE, "--slots", str(WHOLE_LAUNCHER_SLOTS)]
+    rc, want, _ = launcher_run(argv)
+    check(rc == 0, f"{WHOLE}: the launcher without engines exited {rc}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.flash_launches = decode.decode_launches = 0
+    t1 = time.perf_counter()
+    rc, got, err = launcher_run(argv + ["--real-tokens"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    k3, k4 = flash.flash_launches, decode.decode_launches
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(rc == 0, f"{WHOLE}: the launcher with engines exited {rc}: {err[-2000:]}")
+    head, _, tail = got.rstrip("\n").partition(" tokens=")
+    tokens = int(tail.split()[0]) if tail else 0
+    check(head == want.rstrip("\n") and tokens > 0,
+          f"{WHOLE}: the launcher's report with engines ({got!r}) is not the run's without "
+          f"them ({want!r}), or no token was generated")
+    sessions = int(head.split("sessions=")[1].split()[0])
+    per_prefill, per_step = attention_launches(cfg)
+    check(k3 == per_prefill * sessions and k4 == per_step * (tokens - sessions),
+          f"{WHOLE}: the launcher's engines launched K3 {k3} and K4 {k4} times for {sessions} "
+          f"sessions and {tokens} tokens")
+    check(peak <= need["total"], f"{WHOLE}: the launcher peaked at {peak / 1e9:.2f} GB, above "
+          f"the {need['total'] / 1e9:.2f} GB its fit check counts")
+    out["launches"]["K3"] += k3
+    out["launches"]["K4"] += k4
+    print(f"{WHOLE}: launcher --arch {WHOLE_MOE} --real-tokens --slots {WHOLE_LAUNCHER_SLOTS}: "
+          f"{got.strip()}; report == the run without engines; {sessions} sessions, {tokens} "
+          f"tokens in {run_s:.1f} s ({tokens / run_s:.1f} tokens/s, the draw included); K3 "
+          f"launches={k3} K4 launches={k4}; peak {peak / 1e9:.2f} GB (the fit check counts "
+          f"{need['total'] / 1e9:.2f}) [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    for arch in WHOLE_TOO_BIG:
+        before = torch.cuda.memory_allocated()
+        rc, got, err = launcher_run(["--arch", arch, "--real-tokens"])
+        after = torch.cuda.memory_allocated()
+        need = serve.serving_need(get_config(arch))
+        check(rc == 2 and not got and f"{need['total']:,} bytes" in err and "free" in err
+              and "repro_torch.launch.steps" in err and after == before,
+              f"{WHOLE}: the launcher did not refuse {arch} with nothing allocated: exit {rc}, "
+              f"{after - before} bytes allocated, {err.strip()!r}")
+        print(f"{WHOLE}: launcher --arch {arch} --real-tokens: exit 2, nothing allocated: "
+              f"{err.strip()}", flush=True)
+    family_done("launcher", resident, t0, tag=WHOLE)
+
+
+def whole_phase(smi, alone):
+    """Phase 22: yi-9b and qwen3-moe-30b-a3b whole on the card, bf16
+    serving, and the launcher; ``alone``: phases 9's and 10's kernel
+    entries, whose headline times (a)'s are printed beside.  Returns K3's
+    and K4's launches on the main paths, their largest errors and times."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {"launches": {"K3": 0, "K4": 0}, "errs": {"K3": 0.0, "K4": 0.0}, "times": {}}
+    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{WHOLE}: free on the card at the start: {free / 1e9:.2f} GB of {total / 1e9:.2f} "
+          f"(this process's allocator holds {torch.cuda.memory_reserved() / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of it allocated) [{smi}]", flush=True)
+    whole_dense_part(smi, dev, rng, out, alone)
+    whole_moe_part(smi, dev, rng, out)
+    whole_launcher_part(smi, dev, out)
+    torch.cuda.empty_cache()
+    print(f"{WHOLE}: phase 22 took {time.perf_counter() - t_phase:.1f} s [{smi}]", flush=True)
+    return out
+
+
 def engine_cache(engine, batch, src_len=0):
     """A fresh cache for ``engine``, as its ``generate`` makes one for a
     prompt of ``src_len`` tokens (the encoder-decoder's source frames)."""
@@ -4981,543 +5324,554 @@ def main() -> int:
           f"K3's flash_wgmma_kernel, and an asynchronous load in all {n_split} of K4's split "
           "pass", flush=True)
 
-    demand = np.stack([
-        msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
-                       mean_jobs=N_LEVELS / 4.0)
-        for b in range(N_TRACES)
-    ])
-    ab = torch.as_tensor(demand, device=dev).to(torch.int32)
-    straddle = torch.as_tensor(straddle_demand(), device=dev)
+    def scan_phases():
+        """Phases 3 to 8, 11 and 12, whose tensors die with this frame:
+        the numbers of K1's and K2's entries in the kernels line."""
+        demand = np.stack([
+            msr_like_trace(np.random.default_rng(SEED + b), n_slots=N_SLOTS,
+                           mean_jobs=N_LEVELS / 4.0)
+            for b in range(N_TRACES)
+        ])
+        ab = torch.as_tensor(demand, device=dev).to(torch.int32)
+        straddle = torch.as_tensor(straddle_demand(), device=dev)
 
-    def grid_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
-        delta = torch.as_tensor(costs.delta, dtype=torch.float32,
-                                device=dev).broadcast_to((N_LEVELS,))
-        uniforms = None
-        if policy in engine.KEYED:
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            uniforms = engine._uniforms(gen, a.shape[0], a.shape[1], N_LEVELS, dev)
-        inputs, _ = engine._grid_inputs(
-            a, a[None], windows, delta, uniforms, n_levels=N_LEVELS,
-            max_h=costs.delta_slots(), policy=policy, uniform_waits=uniform_waits,
+        def grid_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
+            delta = torch.as_tensor(costs.delta, dtype=torch.float32,
+                                    device=dev).broadcast_to((N_LEVELS,))
+            uniforms = None
+            if policy in engine.KEYED:
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                uniforms = engine._uniforms(gen, a.shape[0], a.shape[1], N_LEVELS, dev)
+            inputs, _ = engine._grid_inputs(
+                a, a[None], windows, delta, uniforms, n_levels=N_LEVELS,
+                max_h=costs.delta_slots(), policy=policy, uniform_waits=uniform_waits,
+            )
+            return inputs
+
+        def new_paths():
+            return torch.zeros(3, dtype=torch.int32, device=dev)
+
+        # 3. kernel against plain version
+        typed = CostModel.from_groups(
+            ServerGroup("efficient", N_LEVELS // 2, P=1.0, beta_on=1.25, beta_off=1.25),
+            ServerGroup("legacy", N_LEVELS // 2, P=2.0, beta_on=3.0, beta_off=3.0),
         )
-        return inputs
-
-    def new_paths():
-        return torch.zeros(3, dtype=torch.int32, device=dev)
-
-    # 3. kernel against plain version
-    typed = CostModel.from_groups(
-        ServerGroup("efficient", N_LEVELS // 2, P=1.0, beta_on=1.25, beta_off=1.25),
-        ServerGroup("legacy", N_LEVELS // 2, P=2.0, beta_on=3.0, beta_off=3.0),
-    )
-    # (name, policy, costs, record, demand); record also asks K1 for the codes
-    cases = [
-        ("A1", "A1", PAPER_COSTS, False, ab),
-        ("A2", "A2", PAPER_COSTS, False, ab),
-        ("A3", "A3", PAPER_COSTS, False, ab),
-        ("delayedoff", "delayedoff", PAPER_COSTS, False, ab),
-        ("A2+record", "A2", PAPER_COSTS, True, ab),
-        ("typed A1, Δ 2.5/3.0", "A1", typed, False, ab),
-        ("straddle A1", "A1", PAPER_COSTS, False, straddle),
-        ("straddle A2+record", "A2", PAPER_COSTS, True, straddle),
-    ]
-    measured = {}
-    max_err = 0
-    plain_ons = {}              # the plain on-matrices, for the bounds of phase 6
-    for name, policy, costs, record, a in cases:
-        inputs = grid_inputs(policy, costs, a)
-        launched_before = kernels.launches
-        paths = new_paths()
-        got = kernels.provision_scan_grid(**inputs, record=record, codes=record, paths=paths)
-        want = kernels.provision_scan_grid_ref(**inputs, record=record, codes=record)
-        torch.cuda.synchronize()
-        got, want = (got, want) if record else ((got,), (want,))
-        for g, w in zip(got, want):
-            check(g.shape == w.shape and g.dtype == w.dtype, f"K1 {name}: shape/dtype differ")
-            max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
-            check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
-        check(got[0].any() and not got[0].all(), f"K1 {name}: degenerate on-matrix")
-        G, T, N = got[0].shape
-        plain_ons[name] = want[0]
-        if a is straddle:       # the edges of both skips: each path taken, nothing timed
-            check(all(int(v) > 0 for v in paths.tolist()),
-                  f"K1 {name}: a path of the slot loop was never taken ({paths.tolist()})")
-            print(f"kernel: K1 {name}: G={G} T={T} N={N} equal=True; {path_shares(paths)}",
-                  flush=True)
-            continue
-
-        def k1(inputs=inputs, record=record):
-            return kernels.provision_scan_grid(**inputs, record=record, codes=record)
-
-        ms = kernel_ms(k1, KERNEL_REPS)
-        held = held_ms(k1, KERNEL_REPS)
-        call = cuda_ms(k1, KERNEL_REPS)
-        plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(
-            **inputs, record=record, codes=record), PLAIN_REPS)
-        bound, bound_by, bound_old = bound_ms(inputs, record, want[0])
-        measured[name] = (ms, plain, bound, bound_by, held)
-        print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
-              f"codes={record} equal=True kernel_ms={ms:.4f} held_ms={held:.4f} call_ms={call:.4f} "
-              f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
-              f"counting every update) launches={kernels.launches - launched_before} "
-              f"(check and timing); {path_shares(paths)} [{smi}]", flush=True)
-        del got, want
-
-    # peeks the loop does not tabulate (the window walked, waits loaded on
-    # the chain): a horizon past its 64-slot table, and the longest horizon
-    # the card takes, held to the plain version peeking the rest of the
-    # trace (past T the peek reads 0, so the two agree)
-    long_costs = CostModel(P=1.0, beta_on=50.0, beta_off=50.0)         # Δ = 100 slots
-    scan_lib = load_provision_scan()
-
-    def whole_trace(inputs, horizon):
-        """``inputs`` with every level peeking ``horizon`` slots, and the same
-        inputs peeking exactly the rest of the trace."""
-        far, whole = dict(inputs), dict(inputs)
-        for d, h in ((far, horizon), (whole, inputs["traces"].shape[1])):
-            d["horizon"] = h
-            d["level_horizon"] = torch.full_like(inputs["level_horizon"], float(h))
-            if "delta" in inputs:
-                d["delta"] = h
-        return far, whole
-
-    k1_limit = scan_lib.repro_provision_scan_max_horizon()
-    long_inputs = grid_inputs("A2", long_costs, ab[:, :LONG_SLOTS], windows=LONG_WINDOWS)
-    far, whole = whole_trace(grid_inputs("A2", a=ab[:2, :LIMIT_SLOTS]), k1_limit)
-    for name, got_in, want_in in (("peek 100 A2+record", long_inputs, long_inputs),
-                                  ("peek at the limit A2+record", far, whole)):
-        got = kernels.provision_scan_grid(**got_in, record=True, codes=True)
-        want = kernels.provision_scan_grid_ref(**want_in, record=True, codes=True)
-        for g, w in zip(got, want):
-            max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
-            check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
-        check(bool((got[2] & 4).any()), f"K1 {name}: no peek fired")
-        print(f"kernel: K1 {name}: G={got[0].shape[0]} T={got[0].shape[1]} "
-              f"horizon={got_in['horizon']} equal=True", flush=True)
-    try:
-        kernels.provision_scan_grid(**whole_trace(far, k1_limit + 1)[0])
-    except ValueError:
-        print(f"kernel: K1 takes peeks of up to {k1_limit} slots and refuses "
-              f"{k1_limit + 1}", flush=True)
-    else:
-        raise SmokeFailure(f"K1 took a horizon of {k1_limit + 1}, past its limit")
-    del long_inputs, far, whole, got, want
-
-    # 4. provision() end to end: the main path, counted call by call
-    def spec(policy):
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        return ProvisionSpec(
-            costs=PAPER_COSTS, workload=Workload(demand=ab),
-            policy=PolicySpec(policy, windows=WINDOWS, generator=gen),
-            n_levels=N_LEVELS, device=dev,
-        )
-
-    def counted(fn):
-        """``fn()`` with the launch counters set to 0 just before it and read
-        just after: its result, K1's launches and K2's."""
-        torch.cuda.synchronize()
-        kernels.launches = kernels.stream_launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, kernels.launches, kernels.stream_launches
-
-    policies = ("A1", "A2", "offline")
-    results = {}
-    main_k2 = 0
-    for p in policies:
-        results[p], n1, n2 = counted(lambda p=p: provision(spec(p)))
-        want = (0, 0) if p == "offline" else (0, 1)
-        check((n1, n2) == want, f"provision({p}): K1 launched {n1} times and K2 {n2}, "
-              f"expected {want[0]} and {want[1]}")
-        main_k2 += n2
-    recorded, main_k1, n2 = counted(lambda: provision(spec("A2"), record_decisions=True))
-    check((main_k1, n2) == (1, 0), f"provision(A2, record_decisions=True): K1 launched "
-          f"{main_k1} times and K2 {n2}, expected 1 and 0")
-    print(f"provision: main path ran A1, A2, offline with K2 launches={main_k2} (1 per "
-          f"online call) and K1 launches=0; A2 with record_decisions with K1 "
-          f"launches={main_k1} and K2 launches=0", flush=True)
-
-    W, B = len(WINDOWS), N_TRACES
-    plain_results = {}
-    for p in policies:
-        res = results[p]
-        plain = provision_module._provision(spec(p), record_decisions=False, kernel=False)
-        plain_results[p] = plain
-        check(tuple(res.x.shape) == (W, B, N_SLOTS) and res.x.dtype == torch.int32,
-              f"provision {p}: x shape {tuple(res.x.shape)}")
-        check(bool(torch.isfinite(res.cost).all()), f"provision {p}: cost not finite")
-        for field in ("x", "level_cost", "cost"):
-            check(torch.equal(getattr(res, field), getattr(plain, field)),
-                  f"provision {p}: {field} differs from plain route")
-    plain_rec = provision_module._provision(spec("A2"), record_decisions=True, kernel=False)
-    check(recorded.decisions is not None and recorded.decisions.dtype == torch.uint8
-          and tuple(recorded.decisions.shape) == (W, B, N_SLOTS, N_LEVELS),
-          "provision(record_decisions=True): no (W, B, T, N) uint8 decisions on the card")
-    check(torch.equal(recorded.decisions, plain_rec.decisions),
-          "provision(record_decisions=True): decisions differ from the plain route's")
-    for k, v in plain_rec.decision_counts.items():
-        check(torch.equal(recorded.decision_counts[k], v),
-              f"provision(record_decisions=True): decision_counts[{k}] differs")
-    for field in ("x", "level_cost", "cost"):
-        check(torch.equal(getattr(recorded, field), getattr(plain_rec, field))
-              and torch.equal(getattr(recorded, field), getattr(results["A2"], field)),
-              f"provision(A2, record_decisions=True): {field} differs from the plain "
-              "route's or from the K2 route's")
-    print(f"provision: x, level_cost and cost equal the plain route's bit for bit for A1, "
-          f"A2, offline; A2 with record_decisions: decisions "
-          f"({int((recorded.decisions != 0).sum())} nonzero codes) and decision_counts "
-          "equal the plain route's too", flush=True)
-    del plain_rec
-    off = results["offline"].cost
-    for p in ("A1", "A2"):
-        check(bool((off <= results[p].cost).all()),
-              f"provision: offline costs more than {p} somewhere")
-
-    def wall_ms(fn):
-        fn()
-        walls = []
-        for _ in range(PROVISION_REPS):
-            t0 = time.perf_counter()
-            fn()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(walls)
-
-    for p in policies:
-        wall = wall_ms(lambda p=p: provision(spec(p)).x.sum().item())
-        print(f"provision: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) [{smi}]",
-              flush=True)
-    wall = wall_ms(lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
-    print(f"provision: A2 record_decisions median wall_ms={wall:.2f} per call [{smi}]",
-          flush=True)
-
-    # 5. where the time goes in one provision() call (torch.profiler)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def breakdown(label, fn):
-        fn()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-        rows = sorted((e for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                      key=lambda e: -e.self_device_time_total)
-        if not rows:
-            print(f"breakdown: {label} device time not measured (the profiler saw no "
-                  "device events)", flush=True)
-            return
-        busy = sum(e.self_device_time_total for e in rows) / 1e3
-        k1_ms = sum(e.self_device_time_total for e in rows if "grid_scan" in e.key) / 1e3
-        k2_ms = sum(e.self_device_time_total for e in rows if "stream_scan" in e.key) / 1e3
-        print(f"breakdown: {label} device busy {busy:.3f} ms in {len(rows)} kernels, "
-              f"K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms [{smi}]", flush=True)
-        for e in rows[:6]:
-            print(f"breakdown: {label}   {e.self_device_time_total / 1e3:8.3f} ms "
-                  f"x{e.count:<4d} {e.key[:80]}", flush=True)
-
-    for p in ("A1", "A2"):
-        breakdown(f"provision {p}", lambda p=p: provision(spec(p)).x.sum().item())
-    breakdown("provision A2 record_decisions",
-              lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
-
-    delta = float(PAPER_COSTS.delta)
-    for p, bound_of in (("A1", lambda a: 2.0 - a), ("A2", lambda a: (math.e - a) / (math.e - 1))):
-        cr = (results[p].cost / off).cpu().numpy()                   # (W, B)
-        for i, w in enumerate(WINDOWS):
-            alpha = min(1.0, (w + 1) / delta)
-            bound = bound_of(alpha)
-            mean = float(cr[i].mean())
-            print(f"provision: {p} window={w} mean_cr={mean:.4f} max_cr={cr[i].max():.4f} "
-                  f"bound={bound:.4f}", flush=True)
-            check(mean <= bound + 0.05, f"provision {p} window {w}: mean CR above bound")
-            if p == "A1":     # deterministic: the bound holds trace by trace
-                check(bool((cr[i] <= bound + 1e-6).all()), f"A1 window {w}: CR above bound")
-
-    # 6. K2 against its plain version on the card
-    # first the uniforms route's arithmetic: its waits against the table
-    # route's (PyTorch's log1p) on every entry of the smoke tables
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    u0, u = engine._uniforms(gen, N_TRACES, N_SLOTS, N_LEVELS, dev)
-    delta_lv = torch.as_tensor(PAPER_COSTS.delta, dtype=torch.float32,
-                               device=dev).broadcast_to((N_LEVELS,))
-    entries = differ = 0
-    for policy in ("A2", "A3", "AQ-rand"):
-        span, p0 = engine._wait_rows(policy, [0] if policy == "AQ-rand" else WINDOWS, delta_lv)
-        for k in range(span.shape[0]):
-            row0 = None if p0 is None else p0[k]
-            want = engine._waits(u0 if p0 is not None else None, u, span[k], row0)
-            got = kernels._uniform_waits_probe(u0 if p0 is not None else None, u, span[k],
-                                               row0)
-            torch.cuda.synchronize()
-            entries += want.numel()
-            differ += int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    del got, want, u0, u
-    print(f"stream kernel: uniforms route: {entries} wait entries of the A2, A3 and AQ-rand "
-          f"tables, {differ} differ in any bit from PyTorch's log1p route", flush=True)
-    check(differ == 0, "the uniforms route's waits differ from the table route's")
-
-    def stream_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
-        inputs = grid_inputs(policy, costs, a, uniform_waits, windows)
-        del inputs["delta"]                 # K2 examines `horizon` slots, no more
-        return inputs
-
-    def stream_diff(got, want, what):
-        """Largest difference of K2's outputs from the plain version's; they
-        must be equal."""
-        (gx, gacc, gcarry), (wx, wacc, wcarry) = got, want
-        pairs = [("x", gx, wx)] + [(k, gacc[k], wacc[k]) for k in wacc] \
-            + [(k, gcarry[k], wcarry[k]) for k in wcarry]
-        err = 0.0
-        for k, g, w in pairs:
-            check(g.shape == w.shape and g.dtype == w.dtype, f"K2 {what}: {k} shape/dtype")
-            err = max(err, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
-            check(torch.equal(g, w), f"K2 {what}: {k} differs from the plain version")
-        return err
-
-    def timed(fn):
-        """``fn()`` and its milliseconds between two CUDA events."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
-
-    k2_err = 0.0
-    k2_measured = {}
-    stream_cases = cases[:6] + [("AQ-rand", "AQ-rand", PAPER_COSTS, False, ab)] + cases[6:]
-    for name, policy, costs, record, a in stream_cases:
-        table = stream_inputs(policy, costs, a)
-        # the route the main path takes: the uniforms route for the keyed policies
-        drawn = stream_inputs(policy, costs, a, uniform_waits=True) \
-            if policy in engine.KEYED else table
-        launched_before = kernels.stream_launches
-        ons = plain_ons.get(name)
-        if ons is None:
-            ons = kernels.provision_scan_grid_ref(**grid_inputs(policy, costs, a))
-        for t_chunk in (STREAM_T_CHUNK, N_SLOTS):
-            def k2(route=drawn, t_chunk=t_chunk, paths=None):
-                return kernels.provision_scan_stream(**route, t_chunk=t_chunk, record=record,
-                                                     paths=paths)
-            want, plain = timed(lambda: kernels.provision_scan_stream_ref(
-                **table, t_chunk=t_chunk, record=record))
+        # (name, policy, costs, record, demand); record also asks K1 for the codes
+        cases = [
+            ("A1", "A1", PAPER_COSTS, False, ab),
+            ("A2", "A2", PAPER_COSTS, False, ab),
+            ("A3", "A3", PAPER_COSTS, False, ab),
+            ("delayedoff", "delayedoff", PAPER_COSTS, False, ab),
+            ("A2+record", "A2", PAPER_COSTS, True, ab),
+            ("typed A1, Δ 2.5/3.0", "A1", typed, False, ab),
+            ("straddle A1", "A1", PAPER_COSTS, False, straddle),
+            ("straddle A2+record", "A2", PAPER_COSTS, True, straddle),
+        ]
+        measured = {}
+        max_err = 0
+        plain_ons = {}              # the plain on-matrices, for the bounds of phase 6
+        for name, policy, costs, record, a in cases:
+            inputs = grid_inputs(policy, costs, a)
+            launched_before = kernels.launches
             paths = new_paths()
-            k2_err = max(k2_err, stream_diff(k2(paths=paths), want,
-                                             f"{name} t_chunk={t_chunk}"))
-            if drawn is not table:
-                k2_err = max(k2_err, stream_diff(k2(route=table), want,
-                                                 f"{name} table route t_chunk={t_chunk}"))
-            check(want[1]["up"].sum() > 0 and want[1]["down"].sum() > 0,
-                  f"K2 {name}: no level toggled")
-            if a is straddle:
+            got = kernels.provision_scan_grid(**inputs, record=record, codes=record, paths=paths)
+            want = kernels.provision_scan_grid_ref(**inputs, record=record, codes=record)
+            torch.cuda.synchronize()
+            got, want = (got, want) if record else ((got,), (want,))
+            for g, w in zip(got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype, f"K1 {name}: shape/dtype differ")
+                max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
+                check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
+            check(got[0].any() and not got[0].all(), f"K1 {name}: degenerate on-matrix")
+            G, T, N = got[0].shape
+            plain_ons[name] = want[0]
+            if a is straddle:       # the edges of both skips: each path taken, nothing timed
                 check(all(int(v) > 0 for v in paths.tolist()),
-                      f"K2 {name}: a path of the slot loop was never taken ({paths.tolist()})")
-                print(f"stream kernel: K2 {name} t_chunk={t_chunk}: equal=True; "
-                      f"{path_shares(paths)}", flush=True)
+                      f"K1 {name}: a path of the slot loop was never taken ({paths.tolist()})")
+                print(f"kernel: K1 {name}: G={G} T={T} N={N} equal=True; {path_shares(paths)}",
+                      flush=True)
                 continue
-            ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
-            held = held_ms(k2, KERNEL_REPS)
-            extra = ""          # the table route to the same waits, timed beside it
-            if drawn is not table:
-                table_ms = kernel_ms(lambda: k2(table), KERNEL_REPS, name="stream_scan_kernel")
-                extra = f" table_route_ms={table_ms:.4f}"
-            call = cuda_ms(k2, KERNEL_REPS)
-            bound, bound_by, bound_old = bound_ms(drawn, record, ons, stream=True)
-            if t_chunk == STREAM_T_CHUNK:
-                k2_measured[name] = (ms, plain, bound, bound_by, held)
-            route = "uniforms" if drawn is not table else "table" \
-                if table["thresholds"].shape[1] != 1 else "constant row"
-            print(f"stream kernel: K2 {name} t_chunk={t_chunk} ({route} route): "
-                  f"G={want[0].shape[0]} T={N_SLOTS} N={N_LEVELS} horizon={table['horizon']} "
-                  f"equal=True kernel_ms={ms:.4f} held_ms={held:.4f}{extra} call_ms={call:.4f} "
+
+            def k1(inputs=inputs, record=record):
+                return kernels.provision_scan_grid(**inputs, record=record, codes=record)
+
+            ms = kernel_ms(k1, KERNEL_REPS)
+            held = held_ms(k1, KERNEL_REPS)
+            call = cuda_ms(k1, KERNEL_REPS)
+            plain = cuda_ms(lambda: kernels.provision_scan_grid_ref(
+                **inputs, record=record, codes=record), PLAIN_REPS)
+            bound, bound_by, bound_old = bound_ms(inputs, record, want[0])
+            measured[name] = (ms, plain, bound, bound_by, held)
+            print(f"kernel: K1 {name}: G={G} T={T} N={N} horizon={inputs['horizon']} "
+                  f"codes={record} equal=True kernel_ms={ms:.4f} held_ms={held:.4f} "
+                  f"call_ms={call:.4f} "
                   f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
-                  f"counting every update); {path_shares(paths)} [{smi}]", flush=True)
-        print(f"stream kernel: K2 {name}: launches={kernels.stream_launches - launched_before} "
-              "(check and timing)", flush=True)
-        del table, drawn, ons, want
-    del plain_ons
+                  f"counting every update) launches={kernels.launches - launched_before} "
+                  f"(check and timing); {path_shares(paths)} [{smi}]", flush=True)
+            del got, want
 
-    # the chained case: a trace cut mid-tile and mid-wait, the carry threaded
-    inputs = stream_inputs("A2")
+        # peeks the loop does not tabulate (the window walked, waits loaded on
+        # the chain): a horizon past its 64-slot table, and the longest horizon
+        # the card takes, held to the plain version peeking the rest of the
+        # trace (past T the peek reads 0, so the two agree)
+        long_costs = CostModel(P=1.0, beta_on=50.0, beta_off=50.0)         # Δ = 100 slots
+        scan_lib = load_provision_scan()
 
-    def halves(sl):
-        part = dict(inputs)
-        for k in ("traces", "predicted", "thresholds"):
-            part[k] = inputs[k][:, sl]
-        return part
+        def whole_trace(inputs, horizon):
+            """``inputs`` with every level peeking ``horizon`` slots, and the same
+            inputs peeking exactly the rest of the trace."""
+            far, whole = dict(inputs), dict(inputs)
+            for d, h in ((far, horizon), (whole, inputs["traces"].shape[1])):
+                d["horizon"] = h
+                d["level_horizon"] = torch.full_like(inputs["level_horizon"], float(h))
+                if "delta" in inputs:
+                    d["delta"] = h
+            return far, whole
 
-    first, second = halves(slice(None, CUT)), halves(slice(CUT, None))
-    chained = {}
-    for route, fn in (("kernel", kernels.provision_scan_stream),
-                      ("plain", kernels.provision_scan_stream_ref)):
-        one = fn(**first, t_chunk=STREAM_T_CHUNK, record=True)
-        two = fn(**second, t_chunk=STREAM_T_CHUNK, record=True, carry=one[2])
-        chained[route] = (one, two)
-    k2_err = max(k2_err, stream_diff(chained["kernel"][0], chained["plain"][0],
-                                     f"chained first {CUT} slots"))
-    k2_err = max(k2_err, stream_diff(chained["kernel"][1], chained["plain"][1],
-                                     "chained rest"))
-    mid = chained["kernel"][0][2]
-    mid_wait = int((mid["on"] & (mid["r"] > 0)).sum())
-    check(mid_wait > 0, "K2 chained: no lane is mid-wait at the cut")
-    print(f"stream kernel: K2 A2+record cut at slot {CUT} (t_chunk={STREAM_T_CHUNK}), "
-          f"carry threaded: equal=True, {mid_wait} lanes mid-wait at the cut", flush=True)
-
-    # phase 3's untabulated peeks, on A3's uniforms route (two rings when
-    # tabulated); the longest horizon is the largest with a tile of 1 slot
-    lo, hi = 0, 1 << 22
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        fits = scan_lib.repro_provision_scan_stream_max_tile(mid, 3) >= 1
-        lo, hi = (mid, hi) if fits else (lo, mid)
-    k2_limit = lo
-    long_drawn = stream_inputs("A3", long_costs, ab[:, :LONG_SLOTS], uniform_waits=True,
-                               windows=LONG_WINDOWS)
-    far, whole = whole_trace(stream_inputs("A3", a=ab[:2, :LIMIT_SLOTS], uniform_waits=True),
-                             k2_limit)
-    for name, got_in, want_in, t_chunk in (
-            ("peek 100 A3+record", long_drawn, long_drawn, 128),
-            ("peek at the limit A3+record", far, whole, LIMIT_SLOTS)):
-        want = kernels.provision_scan_stream_ref(**want_in, t_chunk=t_chunk, record=True)
-        k2_err = max(k2_err, stream_diff(
-            kernels.provision_scan_stream(**got_in, t_chunk=t_chunk, record=True), want,
-            f"{name} t_chunk={t_chunk}"))
-        check(int(want[1]["peek_fired"].sum()) > 0, f"K2 {name}: no peek fired")
-        print(f"stream kernel: K2 {name} t_chunk={t_chunk}: G={want[0].shape[0]} "
-              f"T={want[0].shape[1]} horizon={got_in['horizon']} equal=True", flush=True)
-    try:
-        kernels.provision_scan_stream(**whole_trace(far, k2_limit + 1)[0])
-    except ValueError:
-        print(f"stream kernel: K2 takes peeks of up to {k2_limit} slots on A3's uniforms "
-              f"route and refuses {k2_limit + 1}", flush=True)
-    else:
-        raise SmokeFailure(f"K2 took a horizon of {k2_limit + 1}, past its limit")
-    del long_drawn, far, whole, want
-
-    # 7. provision_stream() end to end: the main path, counted
-    stream_runs = (("A1", False), ("A2", False), ("A2", True))
-    want = {(p, rec): provision(spec(p), record_decisions=rec) for p, rec in stream_runs}
-    got, k1_in_stream, stream_main_launches = counted(
-        lambda: {(p, rec): provision_stream(spec(p), record_decisions=rec)
-                 for p, rec in stream_runs})
-    check(stream_main_launches == len(stream_runs) and k1_in_stream == 0,
-          f"provision_stream(): K2 launched {stream_main_launches} times and K1 "
-          f"{k1_in_stream}, expected {len(stream_runs)} and 0")
-    print(f"provision_stream: main path ran A1, A2, A2+record with K2 launches="
-          f"{stream_main_launches}, K1 launches={k1_in_stream}", flush=True)
-    for (p, rec), res in got.items():
-        for ref_res, what in ((want[(p, rec)], "provision()"),
-                              (plain_results[p], "the plain route")):
-            for field in ("x", "level_cost", "cost"):
-                check(torch.equal(getattr(res, field), getattr(ref_res, field)),
-                      f"provision_stream {p}: {field} differs from {what}")
-        if rec:
-            for k, v in want[(p, rec)].decision_counts.items():
-                check(torch.equal(res.decision_counts[k], v),
-                      f"provision_stream {p}: decision_counts[{k}] differs from provision()")
-    print("provision_stream: x, level_cost, cost and decision_counts equal provision()'s "
-          "(K1's with record_decisions) bit for bit, and x, level_cost and cost the plain "
-          "route's", flush=True)
-
-    for p in ("A1", "A2"):
-        wall = wall_ms(lambda p=p: provision_stream(spec(p)).x.sum().item())
-        print(f"provision_stream: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) "
-              f"[{smi}]", flush=True)
-        breakdown(f"provision_stream {p}", lambda p=p: provision_stream(spec(p)).x.sum().item())
-
-    # 8. a year of ten-minute slots through provision_stream()
-    del want, got, results, plain_results, chained, first, second, inputs, recorded
-    year = torch.as_tensor(np.stack([
-        msr_like_trace(np.random.default_rng(SEED + b), n_slots=YEAR_SLOTS,
-                       mean_jobs=N_LEVELS / 4.0)
-        for b in range(N_TRACES)
-    ]), device=dev).to(torch.int32)
-
-    def year_spec(policy, demand, **pol):
-        return ProvisionSpec(costs=PAPER_COSTS, workload=Workload(demand=demand),
-                             policy=PolicySpec(policy, **pol), n_levels=N_LEVELS,
-                             device=dev)
-
-    year_res = {}
-    for p in ("A1", "delayedoff", "A2"):
-        if p == "A2":       # drawn here, so that the runs before do not hold them
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            u_year = engine._uniforms(gen, N_TRACES, YEAR_SLOTS, N_LEVELS, dev)
-            sp = year_spec(p, year, windows=WINDOWS, uniforms=u_year)
+        k1_limit = scan_lib.repro_provision_scan_max_horizon()
+        long_inputs = grid_inputs("A2", long_costs, ab[:, :LONG_SLOTS], windows=LONG_WINDOWS)
+        far, whole = whole_trace(grid_inputs("A2", a=ab[:2, :LIMIT_SLOTS]), k1_limit)
+        for name, got_in, want_in in (("peek 100 A2+record", long_inputs, long_inputs),
+                                      ("peek at the limit A2+record", far, whole)):
+            got = kernels.provision_scan_grid(**got_in, record=True, codes=True)
+            want = kernels.provision_scan_grid_ref(**want_in, record=True, codes=True)
+            for g, w in zip(got, want):
+                max_err = max(max_err, int((g.to(torch.int32) - w.to(torch.int32)).abs().max()))
+                check(torch.equal(g, w), f"K1 {name}: kernel and plain version differ")
+            check(bool((got[2] & 4).any()), f"K1 {name}: no peek fired")
+            print(f"kernel: K1 {name}: G={got[0].shape[0]} T={got[0].shape[1]} "
+                  f"horizon={got_in['horizon']} equal=True", flush=True)
+        try:
+            kernels.provision_scan_grid(**whole_trace(far, k1_limit + 1)[0])
+        except ValueError:
+            print(f"kernel: K1 takes peeks of up to {k1_limit} slots and refuses "
+                  f"{k1_limit + 1}", flush=True)
         else:
-            sp = year_spec(p, year, windows=WINDOWS)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res, n1, n2 = counted(lambda sp=sp: provision_stream(sp))
-        wall = time.perf_counter() - t0
-        check(n2 == 1 and n1 == 0, f"year {p}: K2 launched {n2} times, K1 {n1}")
-        check(bool(torch.isfinite(res.cost).all()) and res.x.shape[-1] == YEAR_SLOTS,
-              f"year {p}: bad result")
-        year_res[p] = res
-        n_cells = N_TRACES * (1 if p == "delayedoff" else len(WINDOWS))
-        print(f"year: {p} T={YEAR_SLOTS} B={N_TRACES} G={n_cells} N={N_LEVELS}: "
-              f"wall_s={wall:.3f} K2 launches={n2} "
-              f"max_memory_allocated_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
-              f"(of which held before the call: {held / 1e9:.2f}) [{smi}]",
+            raise SmokeFailure(f"K1 took a horizon of {k1_limit + 1}, past its limit")
+        del long_inputs, far, whole, got, want
+
+        # 4. provision() end to end: the main path, counted call by call
+        def spec(policy):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            return ProvisionSpec(
+                costs=PAPER_COSTS, workload=Workload(demand=ab),
+                policy=PolicySpec(policy, windows=WINDOWS, generator=gen),
+                n_levels=N_LEVELS, device=dev,
+            )
+
+        def counted(fn):
+            """``fn()`` with the launch counters set to 0 just before it and read
+            just after: its result, K1's launches and K2's."""
+            torch.cuda.synchronize()
+            kernels.launches = kernels.stream_launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            return out, kernels.launches, kernels.stream_launches
+
+        policies = ("A1", "A2", "offline")
+        results = {}
+        main_k2 = 0
+        for p in policies:
+            results[p], n1, n2 = counted(lambda p=p: provision(spec(p)))
+            want = (0, 0) if p == "offline" else (0, 1)
+            check((n1, n2) == want, f"provision({p}): K1 launched {n1} times and K2 {n2}, "
+                  f"expected {want[0]} and {want[1]}")
+            main_k2 += n2
+        recorded, main_k1, n2 = counted(lambda: provision(spec("A2"), record_decisions=True))
+        check((main_k1, n2) == (1, 0), f"provision(A2, record_decisions=True): K1 launched "
+              f"{main_k1} times and K2 {n2}, expected 1 and 0")
+        print(f"provision: main path ran A1, A2, offline with K2 launches={main_k2} (1 per "
+              f"online call) and K1 launches=0; A2 with record_decisions with K1 "
+              f"launches={main_k1} and K2 launches=0", flush=True)
+
+        W, B = len(WINDOWS), N_TRACES
+        plain_results = {}
+        for p in policies:
+            res = results[p]
+            plain = provision_module._provision(spec(p), record_decisions=False, kernel=False)
+            plain_results[p] = plain
+            check(tuple(res.x.shape) == (W, B, N_SLOTS) and res.x.dtype == torch.int32,
+                  f"provision {p}: x shape {tuple(res.x.shape)}")
+            check(bool(torch.isfinite(res.cost).all()), f"provision {p}: cost not finite")
+            for field in ("x", "level_cost", "cost"):
+                check(torch.equal(getattr(res, field), getattr(plain, field)),
+                      f"provision {p}: {field} differs from plain route")
+        plain_rec = provision_module._provision(spec("A2"), record_decisions=True, kernel=False)
+        check(recorded.decisions is not None and recorded.decisions.dtype == torch.uint8
+              and tuple(recorded.decisions.shape) == (W, B, N_SLOTS, N_LEVELS),
+              "provision(record_decisions=True): no (W, B, T, N) uint8 decisions on the card")
+        check(torch.equal(recorded.decisions, plain_rec.decisions),
+              "provision(record_decisions=True): decisions differ from the plain route's")
+        for k, v in plain_rec.decision_counts.items():
+            check(torch.equal(recorded.decision_counts[k], v),
+                  f"provision(record_decisions=True): decision_counts[{k}] differs")
+        for field in ("x", "level_cost", "cost"):
+            check(torch.equal(getattr(recorded, field), getattr(plain_rec, field))
+                  and torch.equal(getattr(recorded, field), getattr(results["A2"], field)),
+                  f"provision(A2, record_decisions=True): {field} differs from the plain "
+                  "route's or from the K2 route's")
+        print(f"provision: x, level_cost and cost equal the plain route's bit for bit for A1, "
+              f"A2, offline; A2 with record_decisions: decisions "
+              f"({int((recorded.decisions != 0).sum())} nonzero codes) and decision_counts "
+              "equal the plain route's too", flush=True)
+        del plain_rec
+        off = results["offline"].cost
+        for p in ("A1", "A2"):
+            check(bool((off <= results[p].cost).all()),
+                  f"provision: offline costs more than {p} somewhere")
+
+        def wall_ms(fn):
+            fn()
+            walls = []
+            for _ in range(PROVISION_REPS):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        for p in policies:
+            wall = wall_ms(lambda p=p: provision(spec(p)).x.sum().item())
+            print(f"provision: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) [{smi}]",
+                  flush=True)
+        wall = wall_ms(lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
+        print(f"provision: A2 record_decisions median wall_ms={wall:.2f} per call [{smi}]",
               flush=True)
 
-    # the uniforms route against the table route over the year, on the
-    # traces whose (W*B, T, N) wait tables fit
-    part = year[:YEAR_TABLE_TRACES]
-    args = dict(delta=delta_lv, uniforms=tuple(v[:YEAR_TABLE_TRACES] for v in u_year),
-                n_levels=N_LEVELS, max_h=PAPER_COSTS.delta_slots(), policy="A2")
-    runs = {}
-    for route in (True, False):
-        inputs, _ = engine._grid_inputs(part, part[None], WINDOWS, args["delta"],
-                                        args["uniforms"], n_levels=N_LEVELS,
-                                        max_h=args["max_h"], policy="A2", uniform_waits=route)
-        del inputs["delta"]
-        paths = new_paths()
-        runs[route] = kernels.provision_scan_stream(**inputs, t_chunk=STREAM_T_CHUNK,
-                                                    record=True, paths=paths)
-        torch.cuda.synchronize()
-        if route:
-            shares = path_shares(paths)
-        del inputs
-    k2_err = max(k2_err, stream_diff(runs[True], runs[False], "year, uniforms route"))
-    print(f"year: A2 B={YEAR_TABLE_TRACES}: the uniforms route equals the table route bit for "
-          f"bit (x, every total, the carry); {shares}", flush=True)
-    del runs
-    torch.cuda.empty_cache()
+        # 5. where the time goes in one provision() call (torch.profiler)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
-    # three cells held to provision() run on that cell alone
-    cells = (("A1", 0, 0, {}), ("A1", len(WINDOWS) - 1, N_TRACES - 1, {}),
-             ("A2", 3, 1, {"uniforms": tuple(u[1] for u in u_year)}))
-    for p, w, b, pol in cells:
-        one = provision(year_spec(p, year[b], window=WINDOWS[w], **pol))
-        res = year_res[p]
-        check(torch.equal(one.x, res.x[w, b]) and torch.equal(one.level_cost,
-                                                              res.level_cost[w, b]),
-              f"year {p} window {WINDOWS[w]} trace {b}: differs from provision() on the cell")
-        print(f"year: {p} window={WINDOWS[w]} trace={b}: x and level_cost equal "
-              f"provision() on that cell alone", flush=True)
-    off = torch.stack([provision(year_spec("offline", year[b])).cost
-                       for b in range(N_TRACES)])                 # (B,)
-    cr = (year_res["A1"].cost / off).cpu().numpy()                # (W, B)
-    for i, w in enumerate(WINDOWS):
-        bound = 2.0 - min(1.0, (w + 1) / float(PAPER_COSTS.delta))
-        check(bool((cr[i] <= bound + 1e-6).all()), f"year A1 window {w}: CR above 2 - alpha")
-        print(f"year: A1 window={w} max_cr={cr[i].max():.4f} bound={bound:.4f}", flush=True)
-    cr = (year_res["A2"].cost / off).cpu().numpy()
-    for i, w in enumerate(WINDOWS):
-        bound = (math.e - min(1.0, (w + 1) / float(PAPER_COSTS.delta))) / (math.e - 1)
-        print(f"year: A2 window={w} mean_cr={cr[i].mean():.4f} bound={bound:.4f}", flush=True)
-        check(float(cr[i].mean()) <= bound + 0.05, f"year A2 window {w}: mean CR above bound")
-    del year_res, u_year, year
-    torch.cuda.empty_cache()
+        def breakdown(label, fn):
+            fn()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+            rows = sorted((e for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                          key=lambda e: -e.self_device_time_total)
+            if not rows:
+                print(f"breakdown: {label} device time not measured (the profiler saw no "
+                      "device events)", flush=True)
+                return
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            k1_ms = sum(e.self_device_time_total for e in rows if "grid_scan" in e.key) / 1e3
+            k2_ms = sum(e.self_device_time_total for e in rows if "stream_scan" in e.key) / 1e3
+            print(f"breakdown: {label} device busy {busy:.3f} ms in {len(rows)} kernels, "
+                  f"K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms [{smi}]", flush=True)
+            for e in rows[:6]:
+                print(f"breakdown: {label}   {e.self_device_time_total / 1e3:8.3f} ms "
+                      f"x{e.count:<4d} {e.key[:80]}", flush=True)
 
-    # 11. the competitive-ratio eval (after phase 8, before the attention phases)
-    eval_launches = eval_phase(smi, counted, ab, dev)
+        for p in ("A1", "A2"):
+            breakdown(f"provision {p}", lambda p=p: provision(spec(p)).x.sum().item())
+        breakdown("provision A2 record_decisions",
+                  lambda: provision(spec("A2"), record_decisions=True).x.sum().item())
 
-    # 12. the serving stepper (after phase 11, before the attention phases)
-    stepper_launches = stepper_phase(smi, counted, demand[0], dev)
+        delta = float(PAPER_COSTS.delta)
+        for p, bound_of in (("A1", lambda a: 2.0 - a),
+                            ("A2", lambda a: (math.e - a) / (math.e - 1))):
+            cr = (results[p].cost / off).cpu().numpy()                   # (W, B)
+            for i, w in enumerate(WINDOWS):
+                alpha = min(1.0, (w + 1) / delta)
+                bound = bound_of(alpha)
+                mean = float(cr[i].mean())
+                print(f"provision: {p} window={w} mean_cr={mean:.4f} max_cr={cr[i].max():.4f} "
+                      f"bound={bound:.4f}", flush=True)
+                check(mean <= bound + 0.05, f"provision {p} window {w}: mean CR above bound")
+                if p == "A1":     # deterministic: the bound holds trace by trace
+                    check(bool((cr[i] <= bound + 1e-6).all()), f"A1 window {w}: CR above bound")
+
+        # 6. K2 against its plain version on the card
+        # first the uniforms route's arithmetic: its waits against the table
+        # route's (PyTorch's log1p) on every entry of the smoke tables
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        u0, u = engine._uniforms(gen, N_TRACES, N_SLOTS, N_LEVELS, dev)
+        delta_lv = torch.as_tensor(PAPER_COSTS.delta, dtype=torch.float32,
+                                   device=dev).broadcast_to((N_LEVELS,))
+        entries = differ = 0
+        for policy in ("A2", "A3", "AQ-rand"):
+            span, p0 = engine._wait_rows(policy, [0] if policy == "AQ-rand" else WINDOWS, delta_lv)
+            for k in range(span.shape[0]):
+                row0 = None if p0 is None else p0[k]
+                want = engine._waits(u0 if p0 is not None else None, u, span[k], row0)
+                got = kernels._uniform_waits_probe(u0 if p0 is not None else None, u, span[k],
+                                                   row0)
+                torch.cuda.synchronize()
+                entries += want.numel()
+                differ += int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        del got, want, u0, u
+        print(f"stream kernel: uniforms route: {entries} wait entries of the A2, A3 and AQ-rand "
+              f"tables, {differ} differ in any bit from PyTorch's log1p route", flush=True)
+        check(differ == 0, "the uniforms route's waits differ from the table route's")
+
+        def stream_inputs(policy, costs=PAPER_COSTS, a=ab, uniform_waits=False, windows=WINDOWS):
+            inputs = grid_inputs(policy, costs, a, uniform_waits, windows)
+            del inputs["delta"]                 # K2 examines `horizon` slots, no more
+            return inputs
+
+        def stream_diff(got, want, what):
+            """Largest difference of K2's outputs from the plain version's; they
+            must be equal."""
+            (gx, gacc, gcarry), (wx, wacc, wcarry) = got, want
+            pairs = [("x", gx, wx)] + [(k, gacc[k], wacc[k]) for k in wacc] \
+                + [(k, gcarry[k], wcarry[k]) for k in wcarry]
+            err = 0.0
+            for k, g, w in pairs:
+                check(g.shape == w.shape and g.dtype == w.dtype, f"K2 {what}: {k} shape/dtype")
+                err = max(err, float((g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+                check(torch.equal(g, w), f"K2 {what}: {k} differs from the plain version")
+            return err
+
+        def timed(fn):
+            """``fn()`` and its milliseconds between two CUDA events."""
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end)
+
+        k2_err = 0.0
+        k2_measured = {}
+        stream_cases = cases[:6] + [("AQ-rand", "AQ-rand", PAPER_COSTS, False, ab)] + cases[6:]
+        for name, policy, costs, record, a in stream_cases:
+            table = stream_inputs(policy, costs, a)
+            # the route the main path takes: the uniforms route for the keyed policies
+            drawn = stream_inputs(policy, costs, a, uniform_waits=True) \
+                if policy in engine.KEYED else table
+            launched_before = kernels.stream_launches
+            ons = plain_ons.get(name)
+            if ons is None:
+                ons = kernels.provision_scan_grid_ref(**grid_inputs(policy, costs, a))
+            for t_chunk in (STREAM_T_CHUNK, N_SLOTS):
+                def k2(route=drawn, t_chunk=t_chunk, paths=None):
+                    return kernels.provision_scan_stream(**route, t_chunk=t_chunk, record=record,
+                                                         paths=paths)
+                want, plain = timed(lambda: kernels.provision_scan_stream_ref(
+                    **table, t_chunk=t_chunk, record=record))
+                paths = new_paths()
+                k2_err = max(k2_err, stream_diff(k2(paths=paths), want,
+                                                 f"{name} t_chunk={t_chunk}"))
+                if drawn is not table:
+                    k2_err = max(k2_err, stream_diff(k2(route=table), want,
+                                                     f"{name} table route t_chunk={t_chunk}"))
+                check(want[1]["up"].sum() > 0 and want[1]["down"].sum() > 0,
+                      f"K2 {name}: no level toggled")
+                if a is straddle:
+                    check(all(int(v) > 0 for v in paths.tolist()),
+                          f"K2 {name}: a path of the slot loop was never taken ({paths.tolist()})")
+                    print(f"stream kernel: K2 {name} t_chunk={t_chunk}: equal=True; "
+                          f"{path_shares(paths)}", flush=True)
+                    continue
+                ms = kernel_ms(k2, KERNEL_REPS, name="stream_scan_kernel")
+                held = held_ms(k2, KERNEL_REPS)
+                extra = ""          # the table route to the same waits, timed beside it
+                if drawn is not table:
+                    table_ms = kernel_ms(lambda: k2(table), KERNEL_REPS, name="stream_scan_kernel")
+                    extra = f" table_route_ms={table_ms:.4f}"
+                call = cuda_ms(k2, KERNEL_REPS)
+                bound, bound_by, bound_old = bound_ms(drawn, record, ons, stream=True)
+                if t_chunk == STREAM_T_CHUNK:
+                    k2_measured[name] = (ms, plain, bound, bound_by, held)
+                route = "uniforms" if drawn is not table else "table" \
+                    if table["thresholds"].shape[1] != 1 else "constant row"
+                print(f"stream kernel: K2 {name} t_chunk={t_chunk} ({route} route): "
+                      f"G={want[0].shape[0]} T={N_SLOTS} N={N_LEVELS} horizon={table['horizon']} "
+                      f"equal=True kernel_ms={ms:.4f} held_ms={held:.4f}{extra} call_ms={call:.4f} "
+                      f"plain_ms={plain:.2f} bound_ms={bound:.4f} ({bound_by}; {bound_old:.4f} "
+                      f"counting every update); {path_shares(paths)} [{smi}]", flush=True)
+            print(f"stream kernel: K2 {name}: launches={kernels.stream_launches - launched_before} "
+                  "(check and timing)", flush=True)
+            del table, drawn, ons, want
+        del plain_ons
+
+        # the chained case: a trace cut mid-tile and mid-wait, the carry threaded
+        inputs = stream_inputs("A2")
+
+        def halves(sl):
+            part = dict(inputs)
+            for k in ("traces", "predicted", "thresholds"):
+                part[k] = inputs[k][:, sl]
+            return part
+
+        first, second = halves(slice(None, CUT)), halves(slice(CUT, None))
+        chained = {}
+        for route, fn in (("kernel", kernels.provision_scan_stream),
+                          ("plain", kernels.provision_scan_stream_ref)):
+            one = fn(**first, t_chunk=STREAM_T_CHUNK, record=True)
+            two = fn(**second, t_chunk=STREAM_T_CHUNK, record=True, carry=one[2])
+            chained[route] = (one, two)
+        k2_err = max(k2_err, stream_diff(chained["kernel"][0], chained["plain"][0],
+                                         f"chained first {CUT} slots"))
+        k2_err = max(k2_err, stream_diff(chained["kernel"][1], chained["plain"][1],
+                                         "chained rest"))
+        mid = chained["kernel"][0][2]
+        mid_wait = int((mid["on"] & (mid["r"] > 0)).sum())
+        check(mid_wait > 0, "K2 chained: no lane is mid-wait at the cut")
+        print(f"stream kernel: K2 A2+record cut at slot {CUT} (t_chunk={STREAM_T_CHUNK}), "
+              f"carry threaded: equal=True, {mid_wait} lanes mid-wait at the cut", flush=True)
+
+        # phase 3's untabulated peeks, on A3's uniforms route (two rings when
+        # tabulated); the longest horizon is the largest with a tile of 1 slot
+        lo, hi = 0, 1 << 22
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            fits = scan_lib.repro_provision_scan_stream_max_tile(mid, 3) >= 1
+            lo, hi = (mid, hi) if fits else (lo, mid)
+        k2_limit = lo
+        long_drawn = stream_inputs("A3", long_costs, ab[:, :LONG_SLOTS], uniform_waits=True,
+                                   windows=LONG_WINDOWS)
+        far, whole = whole_trace(stream_inputs("A3", a=ab[:2, :LIMIT_SLOTS], uniform_waits=True),
+                                 k2_limit)
+        for name, got_in, want_in, t_chunk in (
+                ("peek 100 A3+record", long_drawn, long_drawn, 128),
+                ("peek at the limit A3+record", far, whole, LIMIT_SLOTS)):
+            want = kernels.provision_scan_stream_ref(**want_in, t_chunk=t_chunk, record=True)
+            k2_err = max(k2_err, stream_diff(
+                kernels.provision_scan_stream(**got_in, t_chunk=t_chunk, record=True), want,
+                f"{name} t_chunk={t_chunk}"))
+            check(int(want[1]["peek_fired"].sum()) > 0, f"K2 {name}: no peek fired")
+            print(f"stream kernel: K2 {name} t_chunk={t_chunk}: G={want[0].shape[0]} "
+                  f"T={want[0].shape[1]} horizon={got_in['horizon']} equal=True", flush=True)
+        try:
+            kernels.provision_scan_stream(**whole_trace(far, k2_limit + 1)[0])
+        except ValueError:
+            print(f"stream kernel: K2 takes peeks of up to {k2_limit} slots on A3's uniforms "
+                  f"route and refuses {k2_limit + 1}", flush=True)
+        else:
+            raise SmokeFailure(f"K2 took a horizon of {k2_limit + 1}, past its limit")
+        del long_drawn, far, whole, want
+
+        # 7. provision_stream() end to end: the main path, counted
+        stream_runs = (("A1", False), ("A2", False), ("A2", True))
+        want = {(p, rec): provision(spec(p), record_decisions=rec) for p, rec in stream_runs}
+        got, k1_in_stream, stream_main_launches = counted(
+            lambda: {(p, rec): provision_stream(spec(p), record_decisions=rec)
+                     for p, rec in stream_runs})
+        check(stream_main_launches == len(stream_runs) and k1_in_stream == 0,
+              f"provision_stream(): K2 launched {stream_main_launches} times and K1 "
+              f"{k1_in_stream}, expected {len(stream_runs)} and 0")
+        print(f"provision_stream: main path ran A1, A2, A2+record with K2 launches="
+              f"{stream_main_launches}, K1 launches={k1_in_stream}", flush=True)
+        for (p, rec), res in got.items():
+            for ref_res, what in ((want[(p, rec)], "provision()"),
+                                  (plain_results[p], "the plain route")):
+                for field in ("x", "level_cost", "cost"):
+                    check(torch.equal(getattr(res, field), getattr(ref_res, field)),
+                          f"provision_stream {p}: {field} differs from {what}")
+            if rec:
+                for k, v in want[(p, rec)].decision_counts.items():
+                    check(torch.equal(res.decision_counts[k], v),
+                          f"provision_stream {p}: decision_counts[{k}] differs from provision()")
+        print("provision_stream: x, level_cost, cost and decision_counts equal provision()'s "
+              "(K1's with record_decisions) bit for bit, and x, level_cost and cost the plain "
+              "route's", flush=True)
+
+        for p in ("A1", "A2"):
+            wall = wall_ms(lambda p=p: provision_stream(spec(p)).x.sum().item())
+            print(f"provision_stream: {p} median wall_ms={wall:.2f} per call (G={W * B} cells) "
+                  f"[{smi}]", flush=True)
+            breakdown(f"provision_stream {p}", lambda p=p: provision_stream(spec(p)).x.sum().item())
+
+        # 8. a year of ten-minute slots through provision_stream()
+        del want, got, results, plain_results, chained, first, second, inputs, recorded
+        year = torch.as_tensor(np.stack([
+            msr_like_trace(np.random.default_rng(SEED + b), n_slots=YEAR_SLOTS,
+                           mean_jobs=N_LEVELS / 4.0)
+            for b in range(N_TRACES)
+        ]), device=dev).to(torch.int32)
+
+        def year_spec(policy, demand, **pol):
+            return ProvisionSpec(costs=PAPER_COSTS, workload=Workload(demand=demand),
+                                 policy=PolicySpec(policy, **pol), n_levels=N_LEVELS,
+                                 device=dev)
+
+        year_res = {}
+        for p in ("A1", "delayedoff", "A2"):
+            if p == "A2":       # drawn here, so that the runs before do not hold them
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                u_year = engine._uniforms(gen, N_TRACES, YEAR_SLOTS, N_LEVELS, dev)
+                sp = year_spec(p, year, windows=WINDOWS, uniforms=u_year)
+            else:
+                sp = year_spec(p, year, windows=WINDOWS)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res, n1, n2 = counted(lambda sp=sp: provision_stream(sp))
+            wall = time.perf_counter() - t0
+            check(n2 == 1 and n1 == 0, f"year {p}: K2 launched {n2} times, K1 {n1}")
+            check(bool(torch.isfinite(res.cost).all()) and res.x.shape[-1] == YEAR_SLOTS,
+                  f"year {p}: bad result")
+            year_res[p] = res
+            n_cells = N_TRACES * (1 if p == "delayedoff" else len(WINDOWS))
+            print(f"year: {p} T={YEAR_SLOTS} B={N_TRACES} G={n_cells} N={N_LEVELS}: "
+                  f"wall_s={wall:.3f} K2 launches={n2} "
+                  f"max_memory_allocated_GB={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+                  f"(of which held before the call: {held / 1e9:.2f}) [{smi}]",
+                  flush=True)
+
+        # the uniforms route against the table route over the year, on the
+        # traces whose (W*B, T, N) wait tables fit
+        part = year[:YEAR_TABLE_TRACES]
+        args = dict(delta=delta_lv, uniforms=tuple(v[:YEAR_TABLE_TRACES] for v in u_year),
+                    n_levels=N_LEVELS, max_h=PAPER_COSTS.delta_slots(), policy="A2")
+        runs = {}
+        for route in (True, False):
+            inputs, _ = engine._grid_inputs(part, part[None], WINDOWS, args["delta"],
+                                            args["uniforms"], n_levels=N_LEVELS,
+                                            max_h=args["max_h"], policy="A2", uniform_waits=route)
+            del inputs["delta"]
+            paths = new_paths()
+            runs[route] = kernels.provision_scan_stream(**inputs, t_chunk=STREAM_T_CHUNK,
+                                                        record=True, paths=paths)
+            torch.cuda.synchronize()
+            if route:
+                shares = path_shares(paths)
+            del inputs
+        k2_err = max(k2_err, stream_diff(runs[True], runs[False], "year, uniforms route"))
+        print(f"year: A2 B={YEAR_TABLE_TRACES}: the uniforms route equals the table route bit for "
+              f"bit (x, every total, the carry); {shares}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+
+        # three cells held to provision() run on that cell alone
+        cells = (("A1", 0, 0, {}), ("A1", len(WINDOWS) - 1, N_TRACES - 1, {}),
+                 ("A2", 3, 1, {"uniforms": tuple(u[1] for u in u_year)}))
+        for p, w, b, pol in cells:
+            one = provision(year_spec(p, year[b], window=WINDOWS[w], **pol))
+            res = year_res[p]
+            check(torch.equal(one.x, res.x[w, b]) and torch.equal(one.level_cost,
+                                                                  res.level_cost[w, b]),
+                  f"year {p} window {WINDOWS[w]} trace {b}: differs from provision() on the cell")
+            print(f"year: {p} window={WINDOWS[w]} trace={b}: x and level_cost equal "
+                  f"provision() on that cell alone", flush=True)
+        off = torch.stack([provision(year_spec("offline", year[b])).cost
+                           for b in range(N_TRACES)])                 # (B,)
+        cr = (year_res["A1"].cost / off).cpu().numpy()                # (W, B)
+        for i, w in enumerate(WINDOWS):
+            bound = 2.0 - min(1.0, (w + 1) / float(PAPER_COSTS.delta))
+            check(bool((cr[i] <= bound + 1e-6).all()), f"year A1 window {w}: CR above 2 - alpha")
+            print(f"year: A1 window={w} max_cr={cr[i].max():.4f} bound={bound:.4f}", flush=True)
+        cr = (year_res["A2"].cost / off).cpu().numpy()
+        for i, w in enumerate(WINDOWS):
+            bound = (math.e - min(1.0, (w + 1) / float(PAPER_COSTS.delta))) / (math.e - 1)
+            print(f"year: A2 window={w} mean_cr={cr[i].mean():.4f} bound={bound:.4f}", flush=True)
+            check(float(cr[i].mean()) <= bound + 0.05, f"year A2 window {w}: mean CR above bound")
+        del year_res, u_year, year
+        torch.cuda.empty_cache()
+
+        # 11. the competitive-ratio eval (after phase 8, before the attention phases)
+        eval_launches = eval_phase(smi, counted, ab, dev)
+
+        # 12. the serving stepper (after phase 11, before the attention phases)
+        stepper_launches = stepper_phase(smi, counted, demand[0], dev)
+        return {"k1": measured["A2+record"], "k1_err": max_err, "main_k1": main_k1,
+                "k2": k2_measured["A2"], "k2_err": k2_err,
+                "k2_launches": (main_k2 + stream_main_launches + eval_launches
+                                + stepper_launches)}
+
+    scan = scan_phases()
 
     # 13. the serving path with real tokens (after phase 12, before the attention phases)
     serving = serving_phase(smi)
@@ -5548,18 +5902,21 @@ def main() -> int:
 
     # 9 and 10. the attention kernels K3 and K4
     attention_entries = attention_phases(smi)
+
+    # 22. whole models on the card (last: every earlier phase's tensors freed)
+    whole = whole_phase(smi, attention_entries)
     for entry, kernel in zip(attention_entries, ("K3", "K4")):
         entry["launches"] += serving[f"{kernel.lower()}_launches"]
         entry["launches"] += train_k3 if kernel == "K3" else 0
         entry["launches"] += families["launches"][kernel] + vlm_encdec["launches"][kernel]
         entry["launches"] += steps_launches[kernel] + twins["launches"][kernel]
-        entry["launches"] += bench_launches[kernel]
+        entry["launches"] += bench_launches[kernel] + whole["launches"][kernel]
         entry["max_abs_err"] = max(entry["max_abs_err"], serving["errs"][kernel],
                                    families["errs"][kernel], vlm_encdec["errs"][kernel],
-                                   twins["errs"][kernel])
+                                   twins["errs"][kernel], whole["errs"][kernel])
 
-    ms, plain, bound, bound_by, held = measured["A2+record"]
-    k2_ms_a2, k2_plain, k2_bound, k2_bound_by, k2_held = k2_measured["A2"]
+    ms, plain, bound, bound_by, held = scan["k1"]
+    k2_ms_a2, k2_plain, k2_bound, k2_bound_by, k2_held = scan["k2"]
     print(f"chip_smoke: the whole run took {time.perf_counter() - T_START:.1f} s [{smi}]",
           flush=True)
     print(f"device: {smi}")
@@ -5568,8 +5925,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan.cu",
         "replaces": "src/repro/kernels/provision_scan.py:184",
-        "launches": main_k1 + bench_launches["K1"],
-        "max_abs_err": max_err,
+        "launches": scan["main_k1"] + bench_launches["K1"],
+        "max_abs_err": scan["k1_err"],
         "ms": ms,
         "held_ms": held,
         "plain_ms": plain,
@@ -5581,9 +5938,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/provision_scan_stream.cu",
         "replaces": "src/repro/kernels/provision_scan.py:460",
-        "launches": (main_k2 + stream_main_launches + eval_launches + stepper_launches
-                     + mesh_launches + twins["launches"]["K2"] + bench_launches["K2"]),
-        "max_abs_err": k2_err,
+        "launches": (scan["k2_launches"] + mesh_launches + twins["launches"]["K2"]
+                     + bench_launches["K2"]),
+        "max_abs_err": scan["k2_err"],
         "ms": k2_ms_a2,
         "held_ms": k2_held,
         "plain_ms": k2_plain,

@@ -9,11 +9,14 @@ from .model_zoo import (
     embedding_param_count,
     init_cache,
     init_params,
+    init_served_params,
     input_specs,
     logits_fn,
     loss_fn,
     param_count,
+    param_leaves,
     prefill_fn,
+    served_param_bytes,
 )
 
 __all__ = [
@@ -24,9 +27,12 @@ __all__ = [
     "embedding_param_count",
     "init_cache",
     "init_params",
+    "init_served_params",
     "input_specs",
     "logits_fn",
     "loss_fn",
     "param_count",
+    "param_leaves",
     "prefill_fn",
+    "served_param_bytes",
 ]

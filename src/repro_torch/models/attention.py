@@ -94,6 +94,7 @@ A kernel that fails under a mesh raises; there is no quiet plain route.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -118,7 +119,7 @@ from ..distributed.ctx import (
     store_rows,
 )
 from ..kernels import ops
-from .layers import apply_rope, init_dense
+from .layers import apply_rope, init_dense, leaf_dtype
 
 
 class KVCache(NamedTuple):
@@ -131,14 +132,14 @@ class KVCache(NamedTuple):
     pos: torch.Tensor     # (S_cache,) int32, absolute positions, -1 = empty
 
 
-def init_attention(generator, cfg: ModelConfig, device) -> dict:
+def init_attention(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    pd = cfg.param_dtype
+    dt = functools.partial(leaf_dtype, cfg, served=served)
     return {
-        "wq": init_dense(generator, (d, h, hd), pd, device, fan_in=d),
-        "wk": init_dense(generator, (d, kvh, hd), pd, device, fan_in=d),
-        "wv": init_dense(generator, (d, kvh, hd), pd, device, fan_in=d),
-        "wo": init_dense(generator, (h, hd, d), pd, device, fan_in=h * hd),
+        "wq": init_dense(generator, (d, h, hd), dt("wq"), device, fan_in=d),
+        "wk": init_dense(generator, (d, kvh, hd), dt("wk"), device, fan_in=d),
+        "wv": init_dense(generator, (d, kvh, hd), dt("wv"), device, fan_in=d),
+        "wo": init_dense(generator, (h, hd, d), dt("wo"), device, fan_in=h * hd),
     }
 
 

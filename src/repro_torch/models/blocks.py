@@ -3,7 +3,8 @@ ssm.
 
 The port of ``repro.models.blocks``.  Each family provides:
 
-  * ``init_layer(generator, cfg, device)`` — one layer's parameter dict,
+  * ``init_layer(generator, cfg, device, served)`` — one layer's parameter
+    dict (``served``: the served tree's dtypes, :func:`.layers.leaf_dtype`),
   * ``layer_train(p, cfg, x, positions, flag)``   -> (x, aux_loss),
   * ``layer_prefill(p, cfg, x, positions, cache, flag)`` -> (x, cache),
   * ``layer_decode(p, cfg, x, cur_len, cache, flag)``    -> (x, cache),
@@ -47,21 +48,21 @@ def layer_flags(cfg: ModelConfig) -> list[bool]:
     return [False] * cfg.n_layers
 
 
-def init_layer(generator, cfg: ModelConfig, device) -> dict:
+def init_layer(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, fam = cfg.d_model, cfg.family
     p: dict = {"ln1": init_rms_norm(d, cfg.param_dtype, device)}
     if fam in ("dense", "vlm", "moe", "hybrid"):
-        p["attn"] = init_attention(generator, cfg, device)
+        p["attn"] = init_attention(generator, cfg, device, served)
         p["ln2"] = init_rms_norm(d, cfg.param_dtype, device)
     if fam in ("dense", "vlm", "hybrid"):
-        p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.param_dtype, device)
+        p["mlp"] = init_mlp(generator, cfg, d, cfg.d_ff, device, served)
     if fam == "moe":
-        p["moe"] = init_moe(generator, cfg, device)
+        p["moe"] = init_moe(generator, cfg, device, served)
     if fam == "hybrid":
-        p["ssm"] = init_ssm(generator, cfg, device)
+        p["ssm"] = init_ssm(generator, cfg, device, served)
     if fam == "ssm":            # xLSTM: dual parameter sets, the flag picks one
-        p["mlstm"] = xl.init_mlstm(generator, cfg, device)
-        p["slstm"] = xl.init_slstm(generator, cfg, device)
+        p["mlstm"] = xl.init_mlstm(generator, cfg, device, served)
+        p["slstm"] = xl.init_slstm(generator, cfg, device, served)
     return p
 
 

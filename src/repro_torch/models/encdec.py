@@ -53,6 +53,7 @@ from .layers import (
     init_embedding,
     init_mlp,
     init_rms_norm,
+    leaf_dtype,
     mlp,
     rms_norm,
     unembed,
@@ -60,35 +61,38 @@ from .layers import (
 from .transformer import _chunk_ce, _positions, _remat
 
 
-def init_enc_layer(generator, cfg: ModelConfig, device) -> dict:
+def init_enc_layer(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, pd = cfg.d_model, cfg.param_dtype
     return {
         "ln1": init_rms_norm(d, pd, device),
-        "attn": init_attention(generator, cfg, device),
+        "attn": init_attention(generator, cfg, device, served),
         "ln2": init_rms_norm(d, pd, device),
-        "mlp": init_mlp(generator, d, cfg.d_ff, pd, device),
+        "mlp": init_mlp(generator, cfg, d, cfg.d_ff, device, served),
     }
 
 
-def init_dec_layer(generator, cfg: ModelConfig, device) -> dict:
+def init_dec_layer(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, pd = cfg.d_model, cfg.param_dtype
     return {
         "ln1": init_rms_norm(d, pd, device),
-        "attn": init_attention(generator, cfg, device),
+        "attn": init_attention(generator, cfg, device, served),
         "lnx": init_rms_norm(d, pd, device),
-        "xattn": init_attention(generator, cfg, device),
+        "xattn": init_attention(generator, cfg, device, served),
         "ln2": init_rms_norm(d, pd, device),
-        "mlp": init_mlp(generator, d, cfg.d_ff, pd, device),
+        "mlp": init_mlp(generator, cfg, d, cfg.d_ff, device, served),
     }
 
 
-def init_encdec_params(generator, cfg: ModelConfig, device) -> dict:
+def init_encdec_params(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, pd = cfg.d_model, cfg.param_dtype
     return {
-        "frontend_proj": init_dense(generator, (d, d), pd, device),
+        "frontend_proj": init_dense(generator, (d, d), leaf_dtype(cfg, "frontend_proj", served),
+                                    device),
         "embed": init_embedding(generator, cfg.vocab_size, d, pd, device),
-        "encoder": [init_enc_layer(generator, cfg, device) for _ in range(cfg.n_enc_layers)],
-        "decoder": [init_dec_layer(generator, cfg, device) for _ in range(cfg.n_dec_layers)],
+        "encoder": [init_enc_layer(generator, cfg, device, served)
+                    for _ in range(cfg.n_enc_layers)],
+        "decoder": [init_dec_layer(generator, cfg, device, served)
+                    for _ in range(cfg.n_dec_layers)],
         "enc_ln": init_rms_norm(d, pd, device),
         "final_ln": init_rms_norm(d, pd, device),
     }

@@ -45,13 +45,37 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, compute_dtype) -> to
     return table[tokens].to(compute_dtype)
 
 
+#: the layer weights that the reference casts to the compute dtype on every
+#: call (``p[...].astype(cd)``); a served tree holds them in that dtype, cast
+#: once: attention and MLP (and MoE's experts, whose names they share), the
+#: SSM's and mLSTM's, and the modality stub's projection.  What the
+#: reference reads in float32 stays: MoE's ``router``, sLSTM's ``w_in``,
+#: ``r_in`` and ``bias``, the SSM's ``a_log`` and ``d_skip``, the token
+#: tables and the norms' scales
+MATRICES = ("wq", "wk", "wv", "wo", "wi", "wg", "in_proj", "out_proj", "conv", "wbc", "wdt",
+            "dt_bias", "wif", "if_bias", "frontend_proj")
+
+
+def leaf_dtype(cfg, name: str, served: bool, dtype=None):
+    """The dtype of the parameter leaf ``name``: ``dtype`` (the config's
+    ``param_dtype`` when None), or the compute dtype where ``served`` and
+    the leaf is one of the :data:`MATRICES`.  The one rule of the served
+    tree, for its draw (``model_zoo.init_served_params``) and for
+    :func:`repro_torch.serving.engine.serving_params`."""
+    if served and name in MATRICES:
+        return cfg.compute_dtype
+    return cfg.param_dtype if dtype is None else dtype
+
+
 def _normal(generator: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
     """Normals at ``std``, drawn in float32 on the generator's device, then
-    cast and moved, as the reference scales before it casts.  On the meta
-    device nothing is drawn (``generator`` may be None): the shape alone."""
+    cast to ``dtype`` and moved at once, as the reference scales before it
+    casts: a served tree's leaf is never held in float32 beside the rest.
+    On the meta device nothing is drawn (``generator`` may be None): the
+    shape alone."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=generator, device=generator.device) * std
+    x = torch.randn(shape, generator=generator, device=generator.device).mul_(std)
     return x.to(device=device, dtype=dtype)
 
 
@@ -121,13 +145,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def init_mlp(generator, d: int, f: int, dtype, device) -> dict:
+def init_mlp(generator, cfg, d: int, f: int, device, served: bool = False) -> dict:
     s_in = d ** -0.5
     s_out = f ** -0.5
     return {
-        "wi": _normal(generator, (d, f), s_in, dtype, device),
-        "wg": _normal(generator, (d, f), s_in, dtype, device),
-        "wo": _normal(generator, (f, d), s_out, dtype, device),
+        "wi": _normal(generator, (d, f), s_in, leaf_dtype(cfg, "wi", served), device),
+        "wg": _normal(generator, (d, f), s_in, leaf_dtype(cfg, "wg", served), device),
+        "wo": _normal(generator, (f, d), s_out, leaf_dtype(cfg, "wo", served), device),
     }
 
 

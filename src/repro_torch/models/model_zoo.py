@@ -2,6 +2,8 @@
 (dense, vlm, moe, hybrid, ssm, and the encoder-decoder).
 
   init_params(cfg, generator, device)   -> parameter dict
+  init_served_params(cfg, generator, device) -> the served tree, drawn leaf
+                                        by leaf (matrices in the compute dtype)
   loss_fn(params, cfg, batch)           -> (loss, metrics)
   logits_fn(params, cfg, batch)         -> (B, S, V) float32 logits
   prefill_fn(params, cfg, batch, cache) -> (logits, cache)
@@ -12,6 +14,7 @@
                                         allocated)
   input_specs(cfg, shape)               -> one cell's inputs, on meta
   param_count(cfg)                      -> parameters, without allocating
+  served_param_bytes(cfg)               -> the served tree's bytes, the same
   embedding_param_count(cfg)            -> of which in the token tables
   active_param_count(cfg)               -> per token (MoE: top_k of n_experts)
 
@@ -38,6 +41,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeCell
 from ..core.provision import _resolve_device
 from . import encdec, transformer
+from .layers import leaf_dtype
 from .ssm import ssm_dims
 from .xlstm import xlstm_dims
 
@@ -55,10 +59,23 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> Any:
     """Random weights from ``generator`` (a ``torch.Generator``; one on the
     card draws a full-width model in well under a second).  On the meta
     device ``generator`` may be None: nothing is drawn."""
-    device = _model_device(device, "init_params")
+    return _init(cfg, generator, _model_device(device, "init_params"), served=False)
+
+
+def init_served_params(cfg: ModelConfig, generator, device="cuda") -> Any:
+    """The served tree: ``serving_params(init_params(cfg, generator), cfg,
+    device)`` bit for bit (the same float32 draws in the same order), but
+    each leaf cast to its served dtype (:func:`.layers.leaf_dtype`) as soon
+    as it is drawn, so the float32 tree never exists: the peak is the
+    served tree plus one leaf's float32 draw.  The entry point of a model
+    whose float32 tree does not fit on the card."""
+    return _init(cfg, generator, _model_device(device, "init_served_params"), served=True)
+
+
+def _init(cfg: ModelConfig, generator, device: torch.device, served: bool) -> Any:
     if cfg.is_encdec:
-        return encdec.init_encdec_params(generator, cfg, device)
-    return transformer.init_lm_params(generator, cfg, device)
+        return encdec.init_encdec_params(generator, cfg, device, served)
+    return transformer.init_lm_params(generator, cfg, device, served)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, kernel: bool = True):
@@ -101,6 +118,27 @@ def abstract_params(cfg: ModelConfig) -> Any:
     """The parameter tree as meta tensors: shapes and dtypes, no storage
     (the dry-run path)."""
     return init_params(cfg, None, META)
+
+
+def param_leaves(tree, name: str | None = None):
+    """(name, tensor) of every leaf of a parameter tree (or a cache), in the
+    tree's order; a leaf's name is its dict key (the layers' lists and a
+    cache's named tuples pass theirs)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from param_leaves(v, k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from param_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def served_param_bytes(cfg: ModelConfig) -> int:
+    """Bytes of :func:`init_served_params`'s tree, from
+    :func:`abstract_params` alone: each leaf in its served dtype."""
+    return sum(x.numel() * leaf_dtype(cfg, name, True, x.dtype).itemsize
+               for name, x in param_leaves(abstract_params(cfg)))
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,8 @@ axis (expert parallelism); on a plain tensor that is a no-op.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -25,17 +27,17 @@ from ..distributed.ctx import (
     onto_sequence,
     whole,
 )
-from .layers import activation, init_dense
+from .layers import activation, init_dense, leaf_dtype
 
 
-def init_moe(generator, cfg: ModelConfig, device) -> dict:
+def init_moe(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    pd = cfg.param_dtype
+    dt = functools.partial(leaf_dtype, cfg, served=served)
     return {
         "router": init_dense(generator, (d, e), torch.float32, device, fan_in=d),
-        "wi": init_dense(generator, (e, d, f), pd, device, fan_in=d),
-        "wg": init_dense(generator, (e, d, f), pd, device, fan_in=d),
-        "wo": init_dense(generator, (e, f, d), pd, device, fan_in=f),
+        "wi": init_dense(generator, (e, d, f), dt("wi"), device, fan_in=d),
+        "wg": init_dense(generator, (e, d, f), dt("wg"), device, fan_in=d),
+        "wo": init_dense(generator, (e, f, d), dt("wo"), device, fan_in=f),
     }
 
 

@@ -30,6 +30,7 @@ the product, whichever is smaller.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed.ctx import is_dtensor
-from .layers import _normal, init_dense
+from .layers import _normal, init_dense, leaf_dtype
 
 
 class SSMState(NamedTuple):
@@ -127,20 +128,21 @@ def ssm_dims(cfg: ModelConfig) -> tuple[int, int]:
     return di, nh
 
 
-def init_ssm(generator, cfg: ModelConfig, device) -> dict:
+def init_ssm(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d = cfg.d_model
     di, nh = ssm_dims(cfg)
     n = cfg.ssm_state
     pd = cfg.param_dtype
+    dt = functools.partial(leaf_dtype, cfg, served=served)
     return {
-        "in_proj": init_dense(generator, (d, 2 * di), pd, device, fan_in=d),
-        "conv": _normal(generator, (cfg.ssm_conv_width, di), 0.2, pd, device),
-        "wbc": init_dense(generator, (di, 2 * n), pd, device, fan_in=di),
-        "wdt": init_dense(generator, (di, nh), pd, device, fan_in=di),
+        "in_proj": init_dense(generator, (d, 2 * di), dt("in_proj"), device, fan_in=d),
+        "conv": _normal(generator, (cfg.ssm_conv_width, di), 0.2, dt("conv"), device),
+        "wbc": init_dense(generator, (di, 2 * n), dt("wbc"), device, fan_in=di),
+        "wdt": init_dense(generator, (di, nh), dt("wdt"), device, fan_in=di),
         "a_log": torch.zeros((nh,), dtype=pd, device=device),       # A = exp(a_log) > 0
         "d_skip": torch.ones((nh,), dtype=pd, device=device),
-        "out_proj": init_dense(generator, (di, d), pd, device, fan_in=di),
-        "dt_bias": torch.full((nh,), -1.0, dtype=pd, device=device),
+        "out_proj": init_dense(generator, (di, d), dt("out_proj"), device, fan_in=di),
+        "dt_bias": torch.full((nh,), -1.0, dtype=dt("dt_bias"), device=device),
     }
 
 

@@ -52,6 +52,7 @@ from .layers import (
     init_dense,
     init_embedding,
     init_rms_norm,
+    leaf_dtype,
     rms_norm,
     unembed,
 )
@@ -60,11 +61,11 @@ from .layers import (
 LOSS_CHUNK = 512
 
 
-def init_lm_params(generator, cfg: ModelConfig, device) -> dict:
+def init_lm_params(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     p = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, cfg.param_dtype,
                                 device),
-        "blocks": [init_layer(generator, cfg, device) for _ in range(cfg.n_layers)],
+        "blocks": [init_layer(generator, cfg, device, served) for _ in range(cfg.n_layers)],
         "final_ln": init_rms_norm(cfg.d_model, cfg.param_dtype, device),
     }
     if not cfg.tie_embeddings:
@@ -72,7 +73,7 @@ def init_lm_params(generator, cfg: ModelConfig, device) -> dict:
                                       cfg.param_dtype, device)
     if cfg.frontend != "none":
         p["frontend_proj"] = init_dense(generator, (cfg.d_model, cfg.d_model),
-                                        cfg.param_dtype, device)
+                                        leaf_dtype(cfg, "frontend_proj", served), device)
     return p
 
 

@@ -35,6 +35,7 @@ product is taken there and gathered ((B, nh, 4 hd), a few hundred kB).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..distributed.ctx import is_dtensor
-from .layers import init_dense
+from .layers import init_dense, leaf_dtype
 from .ssm import ssd_chunked, ssd_step
 
 
@@ -73,18 +74,18 @@ def _project(x, w):
 # mLSTM
 # ---------------------------------------------------------------------------
 
-def init_mlstm(generator, cfg: ModelConfig, device) -> dict:
+def init_mlstm(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d = cfg.d_model
     di, nh, hd = xlstm_dims(cfg)
-    pd = cfg.param_dtype
+    dt = functools.partial(leaf_dtype, cfg, served=served)
     return {
-        "in_proj": init_dense(generator, (d, 2 * di), pd, device, fan_in=d),
-        "wq": init_dense(generator, (di, nh, hd), pd, device, fan_in=di),
-        "wk": init_dense(generator, (di, nh, hd), pd, device, fan_in=di),
-        "wif": init_dense(generator, (di, 2 * nh), pd, device, fan_in=di),
+        "in_proj": init_dense(generator, (d, 2 * di), dt("in_proj"), device, fan_in=d),
+        "wq": init_dense(generator, (di, nh, hd), dt("wq"), device, fan_in=di),
+        "wk": init_dense(generator, (di, nh, hd), dt("wk"), device, fan_in=di),
+        "wif": init_dense(generator, (di, 2 * nh), dt("wif"), device, fan_in=di),
         "if_bias": torch.cat([torch.zeros((nh,)), torch.full((nh,), 3.0)]).to(
-            device=device, dtype=pd),                  # forget bias ~ +3
-        "out_proj": init_dense(generator, (di, d), pd, device, fan_in=di),
+            device=device, dtype=dt("if_bias")),        # forget bias ~ +3
+        "out_proj": init_dense(generator, (di, d), dt("out_proj"), device, fan_in=di),
     }
 
 
@@ -214,7 +215,7 @@ def mlstm_decode(x, p, cfg: ModelConfig, state: MLSTMState):
 # sLSTM (sequential, exponential gating with stabilizer)
 # ---------------------------------------------------------------------------
 
-def init_slstm(generator, cfg: ModelConfig, device) -> dict:
+def init_slstm(generator, cfg: ModelConfig, device, served: bool = False) -> dict:
     d = cfg.d_model
     di, nh, hd = xlstm_dims(cfg)
     pd = cfg.param_dtype
@@ -222,7 +223,8 @@ def init_slstm(generator, cfg: ModelConfig, device) -> dict:
         "w_in": init_dense(generator, (d, nh, 4 * hd), pd, device, fan_in=d),
         "r_in": init_dense(generator, (nh, hd, 4 * hd), pd, device, fan_in=hd),
         "bias": torch.zeros((nh, 4 * hd), dtype=pd, device=device),
-        "out_proj": init_dense(generator, (di, d), pd, device, fan_in=di),
+        "out_proj": init_dense(generator, (di, d), leaf_dtype(cfg, "out_proj", served), device,
+                               fan_in=di),
     }
 
 

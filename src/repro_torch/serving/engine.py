@@ -29,15 +29,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.provision import _resolve_device
 from ..models import decode_fn, init_cache, prefill_fn
-
-#: the layer weights that the reference casts to the compute dtype on every
-#: call (``p[...].astype(cd)``); the engine casts them once: attention and
-#: MLP (and MoE's experts, whose names they share), the SSM's and mLSTM's,
-#: and the modality stub's projection.  What the reference reads in float32
-#: stays: MoE's ``router``, sLSTM's ``w_in``, ``r_in`` and ``bias``, the
-#: SSM's ``a_log`` and ``d_skip``
-_MATRICES = ("wq", "wk", "wv", "wo", "wi", "wg", "in_proj", "out_proj", "conv", "wbc", "wdt",
-             "dt_bias", "wif", "if_bias", "frontend_proj")
+from ..models.layers import leaf_dtype
 
 
 @dataclasses.dataclass
@@ -47,21 +39,22 @@ class GenerationResult:  # repro-lint: disable=RPL005
 
 
 def serving_params(params: dict, cfg: ModelConfig, device) -> dict:
-    """``params`` on ``device`` with the :data:`_MATRICES` in the compute
-    dtype: the copies the reference makes on every call, made once.
-    The cast is deterministic, so every product sees the same bits.  The
-    embedding table (gathered, then cast, per token; unembedded in float32)
-    and the norms' scales (read in float32) keep their dtype.  A tensor
-    already of that device and dtype is kept, not copied, so engines built
-    from one ``serving_params`` result share its weights."""
+    """``params`` on ``device`` with the layer matrices in the compute dtype
+    (:data:`repro_torch.models.layers.MATRICES`, by the rule that
+    ``init_served_params`` draws with): the copies the reference makes on
+    every call, made once.  The cast is deterministic, so every product
+    sees the same bits.  The embedding table (gathered, then cast, per
+    token; unembedded in float32) and the norms' scales (read in float32)
+    keep their dtype.  A tensor already of that device and dtype is kept,
+    not copied, so engines built from one ``serving_params`` result, or
+    from ``init_served_params``'s tree, share its weights."""
 
     def cast(name, tree):
         if isinstance(tree, dict):
             return {k: cast(k, v) for k, v in tree.items()}
         if isinstance(tree, list):          # the layers: blocks, encoder, decoder
             return [cast(name, v) for v in tree]
-        return tree.to(device=device, dtype=cfg.compute_dtype if name in _MATRICES
-                       else tree.dtype)
+        return tree.to(device=device, dtype=leaf_dtype(cfg, name, True, tree.dtype))
 
     return cast(None, params)
 

@@ -224,3 +224,23 @@ def test_launcher_refusals(monkeypatch, capsys):
         assert port_serve.main(["--arch", "llama3.2-1b", "--multi-pod"]) == 2
         assert port_serve.main(["--arch", "llama3.2-1b"]) == 2
         assert "--device cpu" in capsys.readouterr().err
+    # --real-tokens on the card refuses, before it allocates anything, an arch
+    # whose served tree and cache the card's free memory cannot hold; the card
+    # is a stand-in here, told how much is free, and no CUDA call is made
+    asked = []
+
+    def mem_get_info():
+        asked.append(True)
+        return 60 * 10 ** 9, 80 * 10 ** 9
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", mem_get_info)
+    for arch in ("deepseek-67b", "qwen3-moe-30b-a3b"):
+        need = port_serve.serving_need(get_config(arch))["total"]
+        assert port_serve.main(["--arch", arch, "--real-tokens"]) == 2
+        out = capsys.readouterr()
+        assert out.out == ""
+        assert f"{arch} needs {need:,} bytes" in out.err
+        assert "60,000,000,000 bytes (60.00 GB) are free" in out.err
+        assert "nothing was allocated" in out.err and "repro_torch.launch.steps" in out.err
+    assert len(asked) == 2
